@@ -1,0 +1,21 @@
+"""determined_tpu_torch: the platform's compute package on PyTorch and CUDA.
+
+A port of `determined_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100,
+one slice at a time. It keeps `determined_tpu`'s module layout and names so
+each module's counterpart is easy to find, imports `torch`, numpy and the
+standard library only, and never imports `jax` or `determined_tpu`.
+
+Slices ported so far:
+  serve/   GPT-2 serving with a paged KV pool: prefill, decode through the
+           hand-written CUDA paged decode-attention kernel
+           (ops/csrc/paged_attention.cu), the continuous batcher, the HTTP
+           front-end and the local entry point
+           (`python -m determined_tpu_torch.serve cfg.json`).
+
+Entry points run on CUDA unless the caller passes `device="cpu"`
+(`_device.resolve_device`).
+"""
+
+from determined_tpu_torch._device import resolve_device
+
+__all__ = ["resolve_device"]

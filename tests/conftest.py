@@ -47,3 +47,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running e2e (excluded from the tier-1 time budget)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels); skips without one",
+    )

@@ -1,0 +1,172 @@
+"""The PyTorch port stands alone: it loads neither JAX nor the JAX package,
+and its entry points refuse to fall back to the CPU quietly."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "determined_tpu_torch",
+    "determined_tpu_torch._device",
+    "determined_tpu_torch.common.faultpoint",
+    "determined_tpu_torch.models.gpt2",
+    "determined_tpu_torch.ops._build",
+    "determined_tpu_torch.ops._softmax_common",
+    "determined_tpu_torch.ops.paged_attention",
+    "determined_tpu_torch.serve",
+    "determined_tpu_torch.serve.engine",
+    "determined_tpu_torch.serve.http",
+    "determined_tpu_torch.serve.kv_cache",
+    "determined_tpu_torch.serve.model",
+    "determined_tpu_torch.serve.scheduler",
+    "determined_tpu_torch.serve.task",
+]
+
+
+def _cuda_hidden(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    probe = (
+        "import importlib, json, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith("
+        "'jax') or m.split('.')[0] == 'determined_tpu')\n"
+        "print(json.dumps(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_import_statement_names_jax():
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|determined_tpu)\b")
+    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "determined_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if pat.match(line):
+                    offenders.append(f"{path}:{n}: {line.strip()}")
+    assert offenders == []
+
+
+def test_resolve_device_requires_cuda_unless_cpu_is_asked(monkeypatch):
+    from determined_tpu_torch import resolve_device
+
+    _cuda_hidden(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.serve.engine import ServingEngine
+    from determined_tpu_torch.serve.task import build_replica
+
+    _cuda_hidden(monkeypatch)
+    cfg = gpt2.Config(vocab_size=64, n_positions=32, d_model=16, n_layer=1,
+                      n_head=2, dtype=torch.float32)
+    params = gpt2.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(params, cfg, slots=1, max_seq_len=16)
+    path = str(tmp_path / "p.npz")
+    gpt2.save_params_npz(path, params)
+    config = {"serving": {"checkpoint": path, "max_batch_size": 1,
+                          "max_seq_len": 16, "kv_block_size": 8,
+                          "model_config": {
+                              "vocab_size": 64, "n_positions": 32,
+                              "d_model": 16, "n_layer": 1, "n_head": 2,
+                              "dtype": "float32"}}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_replica(config)
+    engine, _ = build_replica(config, device="cpu")  # asked for by name
+    assert engine.device.type == "cpu"
+
+
+def test_kernel_impl_on_cpu_raises_instead_of_falling_back():
+    from determined_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(2, 2, 16)).astype(np.float32))
+    pool = torch.from_numpy(rng.normal(size=(3, 4, 2, 16)).astype(np.float32))
+    tables = torch.tensor([[0, 1], [2, 2]], dtype=torch.int32)
+    pos = torch.tensor([5, 0], dtype=torch.int32)
+    calls = pa.paged_attention_reference.calls
+    for fn in (pa.paged_attention_cuda,
+               lambda *a: pa.paged_decode_attention(*a, impl="kernel")):
+        with pytest.raises(ValueError, match="not cuda"):
+            fn(q, pool, pool, tables, pos)
+    assert pa.paged_attention_reference.calls == calls  # no fallback ran
+    # "auto" picks by the tensors' device: the plain version for CPU ones.
+    out = pa.paged_decode_attention(q, pool, pool, tables, pos, impl="auto")
+    assert out.shape == q.shape
+    assert pa.paged_attention_reference.calls == calls + 1
+
+
+def test_engine_kernel_impl_on_cpu_raises_at_decode():
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.serve.engine import ServingEngine
+
+    cfg = gpt2.Config(vocab_size=64, n_positions=32, d_model=16, n_layer=1,
+                      n_head=2, dtype=torch.float32)
+    params = gpt2.init(torch.Generator().manual_seed(0), cfg)
+    for spelling in ("kernel", "pallas"):
+        eng = ServingEngine(params, cfg, slots=1, max_seq_len=16,
+                            kv_block_size=8, attention_impl=spelling,
+                            device="cpu")
+        assert eng.attention_impl == "kernel"
+        with pytest.raises(ValueError, match="not cuda"):
+            eng.compile()  # the warm decode reaches the kernel wrapper
+
+
+@pytest.mark.parametrize("bad, match", [
+    ({"q": ((2, 2, 48), torch.float32), "k": ((3, 16, 2, 48), torch.float32)},
+     "head_dim 48"),
+    ({"q": ((2, 2, 64), torch.float16), "k": ((3, 16, 2, 64), torch.float16)},
+     "dtype"),
+    ({"k": ((3, 16, 2, 64), torch.bfloat16)}, "dtypes differ"),
+    ({"k": ((3, 12, 2, 64), torch.float32)}, "block_size 12"),
+    ({"k": ((3, 16, 4, 64), torch.float32)}, "do not match q"),
+    ({"tb": ((2, 4), torch.int64)}, "int32"),
+    ({"pos": ((3,), torch.int32)}, "slot count"),
+    ({"transpose_q": True}, "not contiguous"),
+])
+def test_kernel_wrapper_layout_checks(bad, match):
+    """The wrapper's dtype/shape/layout checks, which run right after the
+    device check and before any build or launch."""
+    from determined_tpu_torch.ops.paged_attention import _check_layout
+
+    spec = {"q": ((2, 2, 64), torch.float32),
+            "k": ((3, 16, 2, 64), torch.float32),
+            "tb": ((2, 4), torch.int32), "pos": ((2,), torch.int32)}
+    spec.update({k: v for k, v in bad.items() if k != "transpose_q"})
+    q, k, tb, pos = (torch.zeros(*spec[n][0], dtype=spec[n][1])
+                     for n in ("q", "k", "tb", "pos"))
+    if bad.get("transpose_q"):
+        q = torch.zeros(2, 64, 2).transpose(1, 2)
+    with pytest.raises(ValueError, match=match):
+        _check_layout(q, k, k, tb, pos)
+    # The well-formed case passes the same checks.
+    _check_layout(*(torch.zeros(*shape, dtype=dtype) for shape, dtype in (
+        ((2, 2, 64), torch.float32), ((3, 16, 2, 64), torch.float32),
+        ((3, 16, 2, 64), torch.float32), ((2, 4), torch.int32),
+        ((2,), torch.int32))))
