@@ -1,27 +1,39 @@
-"""GPT-2 parameters and the shared forward pieces, in PyTorch.
+"""GPT-2 in PyTorch: parameters, the training forward and the loss.
 
-Counterpart of determined_tpu/models/gpt2.py for the serving slice: the
-same `Config` fields and presets, `init` with the same shapes and standard
-deviations, `param_count`, the fp32 `_layer_norm` and the token-embedding
-gather. Parameters are a nested dict of tensors in the JAX package's
-layout, so a JAX param tree carries over unchanged (`params_from_numpy`):
+Counterpart of determined_tpu/models/gpt2.py: the same `Config` fields and
+presets, `init` with the same shapes and standard deviations,
+`param_count`, `flops_per_token`, the fp32 `_layer_norm`, the token
+embedding, and the dense training forward (`_block`, `apply`, `loss_fn`)
+with its rematerialisation (`_remat`). The serving slice (serve/model.py)
+reuses the embedding and the layer norm. Parameters are a nested dict of
+tensors in the JAX package's layout, so a JAX param tree carries over
+unchanged (`params_from_numpy`):
 
   - transformer blocks stacked along a leading `[L, ...]` layers dim;
   - weight matrices stored `(in, out)`, so the forward computes `x @ W`;
   - the LM head tied to `wte`.
 
-The training forward (`apply`, `loss_fn`, remat, pipelining) belongs to the
-training slice and is not here yet.
+Mixed precision as in the JAX package: fp32 parameters, each weight cast
+to `cfg.dtype` right before its product (so the fp32 parameters get fp32
+gradients), activations in `cfg.dtype`, the layer norms and the loss's
+logsumexp in fp32. Attention goes through ops/flash_attention.py by
+`cfg.attention_impl`. MoE blocks and the pipelined forward
+(`apply_pipelined`) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
+
+from determined_tpu_torch.ops.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
@@ -94,6 +106,13 @@ def param_count(cfg: Config) -> int:
         + 4 * d  # 2 layernorms
     )
     return v * d + p * d + L * per_layer + 2 * d  # + final ln
+
+
+def flops_per_token(cfg: Config, seq_len: int) -> float:
+    """Approx fwd+bwd FLOPs per token (6N + attention term) for MFU math."""
+    n_params = param_count(cfg)
+    attn = 12 * cfg.n_layer * cfg.d_model * seq_len  # 2*2*3 * L * d * s
+    return 6.0 * n_params + attn
 
 
 # ---------------------------------------------------------------- init
@@ -215,3 +234,109 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: Config,
                   dtype: torch.dtype) -> torch.Tensor:
     """Token embedding: the gather `wte[tokens]` in `dtype`."""
     return params["wte"].to(dtype)[tokens.long()]
+
+
+def _block(x: torch.Tensor, lp: Params, cfg: Config) -> torch.Tensor:
+    """One transformer block. x: [B, S, D]; lp: this layer's param slice."""
+    b, s, d = x.shape
+    h, dh = cfg.n_head, cfg.head_dim
+    dt = cfg.dtype
+
+    y = _layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
+                    cfg.layer_norm_eps)
+    qkv = y @ lp["qkv"]["kernel"].to(dt) + lp["qkv"]["bias"].to(dt)
+    # Per-head views of the fused product: the kernels read them in place.
+    q, k, v = (t.view(b, s, h, dh) for t in qkv.split(d, dim=-1))
+    attn = flash_attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                           bf16=cfg.attention_bf16).reshape(b, s, d)
+    attn = attn @ lp["attn_out"]["kernel"].to(dt) + \
+        lp["attn_out"]["bias"].to(dt)
+    x = x + attn
+
+    y = _layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
+                    cfg.layer_norm_eps)
+    up = y @ lp["mlp_up"]["kernel"].to(dt) + lp["mlp_up"]["bias"].to(dt)
+    up = F.gelu(up, approximate="tanh")
+    down = up @ lp["mlp_down"]["kernel"].to(dt) + \
+        lp["mlp_down"]["bias"].to(dt)
+    return x + down
+
+
+# Ops whose outputs the "dots" policy saves: the products without batch
+# dims (`jax.checkpoint_policies.dots_with_no_batch_dims_saveable`). The
+# projections reach autograd as 2-D mm/addmm; attention's batched products
+# (bmm) and the flash kernels are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block, cfg: Config):
+    """Wrap a block fn in activation checkpointing per cfg.remat_policy:
+    None recomputes the whole block in the backward; "dots" saves the
+    outputs of its dense products and recomputes the rest, the flash
+    forward kernel included."""
+    if cfg.remat_policy not in (None, "dots"):
+        raise ValueError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; use None or "
+            "'dots'")
+    kwargs: Dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+
+    def wrapped(x, lp):
+        return torch_checkpoint.checkpoint(block, x, lp, **kwargs)
+
+    return wrapped
+
+
+def _unstack_layers(blocks: Params, n_layer: int):
+    """The stacked `[L, ...]` block params as L per-layer dicts of views.
+    One unbind per leaf, so each leaf's backward stacks its L gradients
+    once instead of adding L full-size zero-padded slices."""
+    parts = {k: v.unbind(0) for k, v in _flatten(blocks).items()}
+    return [_unflatten({k: p[i] for k, p in parts.items()})
+            for i in range(n_layer)]
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """Forward pass: tokens [B, S] -> logits [B, S, vocab] in cfg.dtype."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError(
+            "MoE GPT-2 is not ported yet (ROADMAP.md: MoE decode)")
+    s = tokens.shape[1]
+    dt = cfg.dtype
+    x = _embed_tokens(params, tokens, cfg, dt)
+    x = x + params["wpe"].to(dt)[:s][None]
+    block = functools.partial(_block, cfg=cfg)
+    if cfg.remat and torch.is_grad_enabled():
+        block = _remat(block, cfg)
+    for lp in _unstack_layers(params["blocks"], cfg.n_layer):
+        x = block(x, lp)
+    x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"],
+                    cfg.layer_norm_eps)
+    return x @ params["wte"].to(dt).t()
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean NLL as logsumexp(logits) - logits[target], in fp32."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - tgt.float())
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: Config) -> torch.Tensor:
+    """{"tokens": [B, S+1]} (or {"tokens", "targets"}) -> mean NLL (fp32)."""
+    tokens = batch["tokens"]
+    if "targets" in batch:
+        inputs, targets = tokens, batch["targets"]
+    else:
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    return _nll(apply(params, inputs, cfg), targets)

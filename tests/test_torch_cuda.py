@@ -114,3 +114,134 @@ def test_bf16_config_serves_through_the_kernel(cuda):
                       np.array([0, 0.8, 0, 0], np.float32))
     assert toks.shape == (4,) and ((0 <= toks) & (toks < cfg.vocab_size)).all()
     assert eng.attention_launches == cfg.n_layer
+
+
+# ------------------------------------------------ flash attention (training)
+#
+# Tolerances against the plain versions on the same GPU tensors (atol,
+# rtol). fp32 with `bf16` off, those of tests/test_ops.py: forward 2e-5 /
+# 1e-4, backward 2e-3 / 2e-3. Otherwise 1e-3 / 1e-2 (measured on an H100:
+# the outputs lie one bf16 ulp apart and at most 2e-4 beyond 1e-2 |x|),
+# except the forward output with bf16 inputs and `bf16` on, 1e-2 / 1e-2:
+# the kernel rounds each k tile's exp(s - m) to bf16 as the Pallas kernel
+# does, the plain version the normalised probabilities (up to 6e-3 beyond
+# 1e-2 |o| measured). chip_smoke.py plants faults these limits refuse.
+
+
+def _flash_inputs(b, s, h, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device="cuda").to(dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    dout = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b, s, h, d, causal", [
+    (2, 256, 3, 64, True), (1, 256, 2, 64, False), (1, 128, 2, 128, True),
+    (1, 128, 1, 256, True), (1, 200, 2, 64, True), (1, 72, 2, 128, False),
+])
+def test_flash_kernels_match_plain_versions(cuda, dtype, bf16, b, s, h, d,
+                                            causal):
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = _flash_inputs(b, s, h, d, dtype, seed=s + d)
+    launches = (fa.flash_fwd_cuda.launches, fa.flash_dq_cuda.launches,
+                fa.flash_dkv_cuda.launches)
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, bf16)
+    delta = fa.flash_delta(dout, o)
+    dq = fa.flash_dq_cuda(q, k, v, dout, lse, delta, causal, bf16)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, dout, lse, delta, causal, bf16)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_cuda.launches, fa.flash_dq_cuda.launches,
+            fa.flash_dkv_cuda.launches) == tuple(n + 1 for n in launches)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, bf16)
+    grads = (fa.flash_dq_reference(q, k, v, dout, lse, delta, causal, bf16),
+             *fa.flash_dkv_reference(q, k, v, dout, lse, delta, causal, bf16))
+    if dtype == torch.float32 and not bf16:
+        fwd, bwd = dict(atol=2e-5, rtol=1e-4), dict(atol=2e-3, rtol=2e-3)
+    else:
+        fwd = dict(atol=1e-2 if dtype == torch.bfloat16 and bf16 else 1e-3,
+                   rtol=1e-2)
+        bwd = dict(atol=1e-3, rtol=1e-2)
+    torch.testing.assert_close(o.float(), o_ref.float(), **fwd)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    for got, want in zip((dq, dk, dv), grads):
+        torch.testing.assert_close(got.float(), want.float(), **bwd)
+
+
+def test_flash_autograd_matches_reference_autograd(cuda):
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = _flash_inputs(2, 256, 2, 64, torch.float32, seed=5)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, impl="auto")
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = fa.reference_attention(*ref_leaves, causal=True)
+    want = torch.autograd.grad(ref, ref_leaves, dout)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=2e-3, rtol=2e-3)
+
+
+def test_flash_kernel_is_deterministic(cuda):
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = _flash_inputs(2, 256, 2, 64, torch.bfloat16, seed=9)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_fwd_cuda(q, k, v)
+        delta = fa.flash_delta(dout, o)
+        runs.append((o, fa.flash_dq_cuda(q, k, v, dout, lse, delta),
+                     *fa.flash_dkv_cuda(q, k, v, dout, lse, delta)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = _flash_inputs(1, 128, 2, 64, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="not cuda"):
+        fa.flash_fwd_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd_cuda(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="does not match"):
+        fa.flash_fwd_cuda(q, k.bfloat16(), v)
+    o, lse = fa.flash_fwd_cuda(q, k, v)
+    with pytest.raises(ValueError, match="fp32"):
+        fa.flash_dq_cuda(q, k, v, dout, lse.double(), lse)
+
+
+def test_gpt2_grads_through_kernels_match_reference(cuda):
+    """A GPT-2 forward and backward whose attention runs the three kernels
+    equals the plain attention's in fp32, launch counts included: 2 forward
+    launches per layer under remat "dots" (the recompute), 1 dQ and 1
+    dK/dV."""
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt2.Config(vocab_size=256, n_positions=128, d_model=128,
+                      n_layer=2, n_head=2, dtype=torch.float32)
+    params = gpt2.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.randint(0, 256, (2, 129), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    grads = {}
+    for impl in ("auto", "reference"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in gpt2._flatten(params).values()]
+        tree = gpt2._unflatten(dict(zip(gpt2._flatten(params), leaves)))
+        counts = [fn.launches for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda,
+                                         fa.flash_dkv_cuda)]
+        loss = gpt2.loss_fn(tree, {"tokens": tokens}, c)
+        grads[impl] = (loss, torch.autograd.grad(loss, leaves))
+        launched = [fn.launches - n for fn, n in zip(
+            (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda), counts)]
+        assert launched == ([4, 2, 2] if impl == "auto" else [0, 0, 0])
+    torch.testing.assert_close(grads["auto"][0], grads["reference"][0],
+                               atol=1e-5, rtol=1e-5)
+    for a, r in zip(grads["auto"][1], grads["reference"][1]):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-4)

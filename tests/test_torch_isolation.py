@@ -16,9 +16,20 @@ PORT_MODULES = [
     "determined_tpu_torch",
     "determined_tpu_torch._device",
     "determined_tpu_torch.common.faultpoint",
+    "determined_tpu_torch.common.trace",
+    "determined_tpu_torch.core",
+    "determined_tpu_torch.core._checkpoint",
+    "determined_tpu_torch.core._context",
+    "determined_tpu_torch.core._distributed",
+    "determined_tpu_torch.core._integrity",
+    "determined_tpu_torch.core._preempt",
+    "determined_tpu_torch.core._profiler",
+    "determined_tpu_torch.core._searcher",
+    "determined_tpu_torch.core._train",
     "determined_tpu_torch.models.gpt2",
     "determined_tpu_torch.ops._build",
     "determined_tpu_torch.ops._softmax_common",
+    "determined_tpu_torch.ops.flash_attention",
     "determined_tpu_torch.ops.paged_attention",
     "determined_tpu_torch.serve",
     "determined_tpu_torch.serve.engine",
@@ -27,7 +38,17 @@ PORT_MODULES = [
     "determined_tpu_torch.serve.model",
     "determined_tpu_torch.serve.scheduler",
     "determined_tpu_torch.serve.task",
+    "determined_tpu_torch.train",
+    "determined_tpu_torch.train.health",
+    "determined_tpu_torch.train.optim",
+    "determined_tpu_torch.train.state",
+    "determined_tpu_torch.train.step",
+    "determined_tpu_torch.train.trainer",
+    "determined_tpu_torch.train.trial",
+    "determined_tpu_torch.train.watchdog",
 ]
+# Files of the port outside the package, imported by path.
+PORT_FILES = ["examples/gpt2_cuda/model_def.py"]
 
 
 def _cuda_hidden(monkeypatch):
@@ -36,9 +57,12 @@ def _cuda_hidden(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     probe = (
-        "import importlib, json, sys\n"
+        "import importlib, importlib.util, json, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({PORT_FILES!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'f{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith("
         "'jax') or m.split('.')[0] == 'determined_tpu')\n"
         "print(json.dumps(bad))\n")
@@ -55,7 +79,7 @@ def test_no_import_statement_names_jax():
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|determined_tpu)\b")
     offenders = []
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, p) for p in ["chip_smoke.py", *PORT_FILES]]
     for root, _, files in os.walk(os.path.join(REPO, "determined_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:
@@ -170,3 +194,76 @@ def test_kernel_wrapper_layout_checks(bad, match):
         ((2, 2, 64), torch.float32), ((3, 16, 2, 64), torch.float32),
         ((3, 16, 2, 64), torch.float32), ((2, 4), torch.int32),
         ((2,), torch.int32))))
+
+
+def _flash_cpu_inputs():
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(1, 128, 2, 64))
+                                    .astype(np.float32)) for _ in range(4))
+    lse = torch.zeros(2, 128)
+    return q, k, v, do, lse
+
+
+def test_flash_wrappers_on_cpu_raise_instead_of_falling_back():
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lse = _flash_cpu_inputs()
+    calls = (fa.reference_attention.calls, fa.flash_fwd_reference.calls,
+             fa.flash_dq_reference.calls, fa.flash_dkv_reference.calls)
+    for fn in (lambda: fa.flash_fwd_cuda(q, k, v),
+               lambda: fa.flash_dq_cuda(q, k, v, do, lse, lse),
+               lambda: fa.flash_dkv_cuda(q, k, v, do, lse, lse),
+               lambda: fa.cuda_flash_attention(q, k, v),
+               lambda: fa.flash_attention(q, k, v, impl="kernel"),
+               lambda: fa.flash_attention(q, k, v, impl="pallas")):
+        with pytest.raises(ValueError, match="not cuda"):
+            fn()
+    assert (fa.reference_attention.calls, fa.flash_fwd_reference.calls,
+            fa.flash_dq_reference.calls,
+            fa.flash_dkv_reference.calls) == calls  # no fallback ran
+    # "auto" picks by the tensors' device: the plain version for CPU ones.
+    assert fa.flash_attention(q, k, v, impl="auto").shape == q.shape
+    assert fa.reference_attention.calls == calls[0] + 1
+
+
+@pytest.mark.parametrize("bad, match", [
+    ({"d": 48}, "head_dim 48"),
+    ({"dtype": torch.float16}, "dtype"),
+    ({"k_dtype": torch.bfloat16}, "does not match"),
+    ({"transpose": True}, "last dim is not contiguous"),
+])
+def test_flash_wrapper_layout_checks(bad, match):
+    """The flash wrappers' dtype/shape/layout checks, which run right after
+    the device check and before any build or launch."""
+    from determined_tpu_torch.ops.flash_attention import _check_layout
+
+    d = bad.get("d", 64)
+    q = torch.zeros(1, 128, 2, d, dtype=bad.get("dtype", torch.float32))
+    k = q.to(bad.get("k_dtype", q.dtype))
+    if bad.get("transpose"):
+        q = torch.zeros(1, 128, d, 2).transpose(2, 3)
+    with pytest.raises(ValueError, match=match):
+        _check_layout("flash", (("q", q), ("k", k), ("v", k)))
+    ok = torch.zeros(1, 128, 2, 64)
+    _check_layout("flash", (("q", ok), ("k", ok), ("v", ok)))
+
+
+def test_trainer_raises_without_cuda(monkeypatch, tmp_path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "gpt2_cuda_model_def", os.path.join(REPO, PORT_FILES[0]))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    from determined_tpu_torch import core
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trial import TrialContext
+
+    _cuda_hidden(monkeypatch)
+    ctx = core.init(max_length=1, checkpoint_dir=str(tmp_path))
+    trial = example.GPT2Trial(TrialContext(hparams={"model_size": "tiny",
+                                                    "seq_len": 16}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(trial, core_context=ctx)
+    assert Trainer(trial, core_context=ctx, device="cpu").device.type == \
+        "cpu"
