@@ -11,7 +11,8 @@ fails:
      `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
      them; switch TF32 off for matmuls and cuDNN.
   2. build: compile every kernel source in ops/csrc/ with nvcc (sm_90a)
-     into build/kernels/, one nvcc per source, all started together.
+     into build/kernels/, one nvcc per source, all started together; print
+     each kernel function's registers and spill bytes from ptxas.
   3. the paged decode-attention kernel against its plain version at the
      serving shapes: slots 1/8/32, H 12, Dh 64, block 16, 64 blocks a
      slot, permuted and shared pool blocks, an all-trash inactive slot,
@@ -36,6 +37,13 @@ fails:
      dK scaled by 1.1 (what a dS 10 % off gives), o scaled by 1.05, and
      the backward kernels run with the other `bf16` setting (P and dS
      rounded where they must not be, or not rounded where they must).
+     For bf16 inputs with `bf16` off, also the share of o, dk and dv
+     values whose bf16 value differs from the plain version's must stay
+     within `MISMATCH_LIMIT` (0.5 %): the tensor-core kernels split each
+     fp32 operand exactly into three bf16 terms, so they differ only near
+     rounding ties. The forward and dK/dV kernels run with one term of the
+     split on the same tensors (P and dS rounded once) must differ in at
+     least 10x that share: the one rounding atol 1e-3 cannot see in o.
   5. serving at full width: GPT-2 small (124M, random weights from a seed)
      saved with `save_params_npz`, served through `build_replica` and
      `ServingServer` in bf16 (8 slots, max_seq_len 1024, KV block 16,
@@ -56,7 +64,9 @@ fails:
      in the remat recompute) and the dQ and dK/dV kernels 12 times each,
      the op-end validation 12 forward launches a batch; the plain
      attention must never run; the op end must leave one COMMITTED
-     checkpoint that `restore_state` reads back bit-identical.
+     checkpoint that `restore_state` reads back bit-identical; the
+     profiled steps must show the forward and dK/dV on their tensor-core
+     (wgmma) kernel functions.
   8. training parity in fp32: the same GPT-2 small-width params (2 layers)
      and batches through the kernels and through the plain attention.
      Every leaf's step-0 gradient must agree to 1e-5 of that leaf's
@@ -65,14 +75,17 @@ fails:
      (Adam moves a weight by about lr a step whatever the gradient's
      scale, so the params see a gradient's signs; the gradients and
      grad_norm see its size).
-  9. times on the card (CUDA events, L2 flushed before every launch): each
+  9. times on the card (CUDA events, L2 flushed before every launch, the
+     host's launch work hidden behind a device-side wait): each
      kernel, its plain version and one library call (a yardstick the port
      never calls): `scaled_dot_product_attention` over the gathered lane
      for the paged kernel, SDPA(is_causal) forward for the flash forward,
      and SDPA's autograd backward (dQ, dK and dV together) for both flash
      backward kernels; each beside the least time the card could take,
-     from the bytes it must move at 3.35 TB/s and its products at the
-     rate of their precision (989 TFLOP/s bf16, 67 TFLOP/s fp32). Then the
+     the larger of the bytes it must move at 3.35 TB/s and its products
+     at 989 TFLOP/s bf16, a product with P or dS in it counted as three
+     bf16 products (`flash_bound`). Each flash kernel is timed again with
+     `bf16=True`, which rounds P and dS as SDPA does. Then the
      main paths: the decode step, tokens/s and TTFT of serving; the
      training step of `Trainer.fit` as it runs (its `steps_per_second`
      over the report windows after the first), tokens/s, MFU
@@ -80,8 +93,9 @@ fails:
      of that step from the device time of 3 more steps under
      torch.profiler.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is `{"ok": true, "device": {...}}`.
+The line before the last is a JSON object with one entry per kernel
+(`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
+or "ffma" CUDA cores); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -89,6 +103,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -158,12 +173,46 @@ def phase_build():
         say(f"[build] {path.relative_to(ROOT)} from "
             f"determined_tpu_torch/ops/csrc/{name}.cu for sm_90a "
             f"({_build.build_seconds[name]:.2f} s)")
-        seen = set()
-        for line in _build.build_log.get(name, "").splitlines():
-            if "Used" in line and "registers" in line and line not in seen:
-                seen.add(line)
-                say(f"[build]   {line.split(':', 1)[-1].strip()}")
+        for line in ptxas_summary(_build.build_log.get(name, "")):
+            say(f"[build]   {line}")
     say(f"[build] all kernels built and loaded in {secs:.2f} s")
+
+
+def _demangle(names):
+    """Readable kernel names (c++filt where the host has it)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        readable = out.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        readable = []
+    if len(readable) != len(names):
+        return list(names)
+    return [n.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for n in readable]
+
+
+def ptxas_summary(log):
+    """One line per kernel of nvcc's `-Xptxas -v` output: registers and
+    spill bytes, plus any ptxas warning (e.g. wgmma serialised)."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, f"{m.group(1)} registers, {spill}"))
+            name = None
+    readable = _demangle([n for n, _ in rows])
+    lines = [f"{n}: {info}" for n, (_, info) in zip(readable, rows)]
+    return lines + [line.strip() for line in log.splitlines()
+                    if "warning" in line.lower()]
 
 
 # ------------------------------------------------------------------ phase 3
@@ -256,6 +305,20 @@ def flash_tolerances(dtype, bf16):
     return {"o": o_tol, "lse": (1e-4, 1e-5), "grad": (1e-3, 1e-2)}
 
 
+# The share of bf16 elements of o, dk and dv that may differ from the plain
+# version's bf16 value, for bf16 inputs with `bf16` off. The exact split
+# differs from the fp32 plain version only in the order of its sums, so a
+# bf16 value differs only near a rounding tie: a calibration run measured
+# 0.104-0.113 % at the training shape, where the kernels run with one term
+# of the split (P and dS rounded to bf16 once) differ in 38.7-41.8 %.
+MISMATCH_LIMIT = 0.005
+
+
+def mismatch(got, want):
+    """Share of elements whose values differ (both in the output dtype)."""
+    return float((got != want).float().mean())
+
+
 def held(got, want, atol, rtol):
     """(max abs error, the largest share of its allowance an element uses:
     err / (atol + rtol |want|), at most 1 when every element is held)."""
@@ -309,6 +372,20 @@ def phase_flash_check():
                 say(f"[flash] B{b} S{s} H{h} D{d} causal={causal} "
                     f"{str(dtype)[6:]} bf16={bf16}: max_abs_err "
                     + ", ".join(errs))
+                if dtype == torch.bfloat16 and not bf16:
+                    shares = {what: mismatch(got, want) for what, got, want in
+                              (("o", o, o_ref), ("dq", dq, dq_ref),
+                               ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+                    say("[flash]   bf16 values that differ from the plain "
+                        "version's: " + ", ".join(
+                            f"{w} {x * 100:.3f}%" for w, x in shares.items())
+                        + f" (o, dk, dv held to {MISMATCH_LIMIT * 100:g}%)")
+                    for what in ("o", "dk", "dv"):
+                        if shares[what] > MISMATCH_LIMIT:
+                            fail(f"flash {what} B{b} S{s} H{h} D{d} bf16 "
+                                 f"inputs: {shares[what] * 100:.3f}% of the "
+                                 "bf16 values differ from the plain "
+                                 f"version's (limit {MISMATCH_LIMIT * 100:g}%)")
                 if (b, s, h, d, causal) == FLASH_CASES[0] and \
                         dtype == torch.bfloat16:
                     planted_faults(fa, (q, k, v, dout, lse, delta), tol,
@@ -343,6 +420,24 @@ def planted_faults(fa, args, tol, bf16, o_ref, dq_ref, dk_ref, dv_ref, o,
     say(f"[flash] planted faults at the training shape, bf16 inputs, "
         f"bf16={bf16}, each refused (share of the allowance, > 1 = "
         "refused): " + "; ".join(seen))
+    if bf16:
+        return
+    # One term of the split where there must be three: P and dS rounded to
+    # bf16 once. Only the share of differing bf16 values can see it in o.
+    o_x = fa.flash_fwd_cuda(q, k, v, True, True)[0]
+    torch.cuda.synchronize()
+    seen = []
+    for what, got, want in (("o", o_x, o_ref), ("dk", dk_x, dk_ref),
+                            ("dv", dv_x, dv_ref)):
+        share = mismatch(got, want)
+        seen.append(f"{what} {share * 100:.3f}%")
+        if share <= 10 * MISMATCH_LIMIT:
+            fail(f"planted fault '{what} with one term of the split' differs "
+                 f"in {share * 100:.3f}% of its values: not 10x the limit "
+                 f"of {MISMATCH_LIMIT * 100:g}%")
+    say("[flash] planted fault, one term of the split (round_bf16=1 on the "
+        "same tensors), refused by the share of differing bf16 values "
+        f"(limit {MISMATCH_LIMIT * 100:g}%, needs 10x): " + ", ".join(seen))
 
 
 # ------------------------------------------------------------------ phase 5
@@ -652,6 +747,20 @@ def phase_train(workdir):
     n_timed = TRAIN_REPORT_PERIOD * len(window_s)
     step_ms = sum(window_s) / n_timed * 1e3
     breakdown = profile_train_steps(trainer, trial)
+    # Which route each flash kernel took on the main path, from the kernel
+    # functions the profiler saw: bf16 at D 64 must run forward and dK/dV
+    # on the tensor cores.
+    routes = {}
+    for key in ("fwd", "dq", "dkv"):
+        names = [g for g in breakdown["groups"]
+                 if g.startswith(f"flash_{key}_")]
+        if not names:
+            fail(f"the profiler saw no flash {key} kernel in the training "
+                 "steps")
+        routes[key] = "wgmma" if all("wgmma" in n for n in names) else "ffma"
+    say(f"[train] flash kernel routes on the main path: {routes}")
+    if routes["fwd"] != "wgmma" or routes["dkv"] != "wgmma":
+        fail(f"bf16 at D 64 must run the wgmma kernels, ran {routes}")
     idle = max(0.0, 1.0 - breakdown["busy_ms"] / step_ms)
     say(f"[train] fit's step time over steps {TRAIN_REPORT_PERIOD + 1}-"
         f"{TRAIN_STEPS}: {step_ms:.2f} ms a step (report windows "
@@ -665,7 +774,7 @@ def phase_train(workdir):
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms,
             "tokens_per_s": tokens_per_s, "mfu": mfu, "steps": n_timed,
-            "idle_share": idle, "breakdown": breakdown}
+            "idle_share": idle, "breakdown": breakdown, "routes": routes}
 
 
 def profile_train_steps(trainer, trial, n_steps=3):
@@ -691,8 +800,9 @@ def profile_train_steps(trainer, trial, n_steps=3):
             state = step(state, batch, rng)[0]
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
-              "gemm": 0.0, "other": 0.0}
+    # One group per flash kernel function (its name and template
+    # arguments, so the route that ran shows), then GEMMs and the rest.
+    groups = {"gemm": 0.0, "other": 0.0}
     per_kernel = {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
@@ -704,19 +814,16 @@ def profile_train_steps(trainer, trial, n_steps=3):
             continue
         name = ev.key
         per_kernel[name] = per_kernel.get(name, 0.0) + us / 1e3
-        if "flash_fwd_kernel" in name:
-            groups["flash_fwd"] += us / 1e3
-        elif "flash_dq_kernel" in name:
-            groups["flash_dq"] += us / 1e3
-        elif "flash_dkv_kernel" in name:
-            groups["flash_dkv"] += us / 1e3
+        flash = re.search(r"flash_\w+_kernel(<[^>]*>)?", name)
+        if flash:
+            groups[flash.group(0)] = groups.get(flash.group(0), 0.0) + us / 1e3
         elif "gemm" in name.lower() or "sm90_xmma" in name or \
                 "cutlass" in name.lower():
             groups["gemm"] += us / 1e3
         else:
             groups["other"] += us / 1e3
     busy = sum(groups.values())
-    out = {k: v / n_steps for k, v in groups.items()}
+    out = {"groups": {k: v / n_steps for k, v in groups.items()}}
     out["busy_ms"] = busy / n_steps
     out["wall_ms"] = wall_ms / n_steps
     out["idle_share"] = max(0.0, 1.0 - busy / wall_ms)
@@ -724,8 +831,8 @@ def profile_train_steps(trainer, trial, n_steps=3):
     say(f"[profile] {n_steps} training steps under torch.profiler: wall "
         f"{out['wall_ms']:.2f} ms a step (the profiled loop), device busy "
         f"{out['busy_ms']:.2f} ms, idle share under the profiler "
-        f"{out['idle_share'] * 100:.1f}%; device ms a step "
-        "by group: " + ", ".join(f"{k} {out[k]:.2f}" for k in groups))
+        f"{out['idle_share'] * 100:.1f}%; device ms a step by group: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["groups"].items()))
     for name, ms in top:
         say(f"[profile]   {ms / n_steps:8.3f} ms/step  {name[:110]}")
     return out
@@ -797,9 +904,20 @@ def phase_train_parity():
 # ------------------------------------------------------------------ phase 9
 
 
-def time_cold(fn, args, flush, iters=50):
+# Device cycles of the wait before each timed launch: ~1 ms at the H100's
+# clocks, longer than the host takes to reach the launch.
+SLEEP_CYCLES = 2_000_000
+
+
+def time_cold(fn, args, flush, iters=50, hide_host=True):
     """Median ms of `fn(*args)` over `iters` launches, each timed with its
-    own CUDA events after a write that evicts the 50 MB L2."""
+    own CUDA events after a write that evicts the 50 MB L2. A device-side
+    wait sits between the flush and the first event: the host's launch
+    work (the wrapper's checks, the ctypes call) then overlaps it, and the
+    events bracket the device's work alone, not the device idling until
+    the launch arrives. `hide_host=False` leaves the wait out (PR 2's
+    method): the time then holds whatever of the host's launch work
+    outlasts the flush."""
     import torch
 
     for _ in range(3):
@@ -807,6 +925,8 @@ def time_cold(fn, args, flush, iters=50):
     times = []
     for _ in range(iters):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -877,33 +997,28 @@ def phase_paged_times(card):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def flash_bound(b, s, h, d, itemsize, causal=True, bf16=False):
-    """The least time (ms) each flash kernel could take at this shape, and
-    what bounds it: bytes (each input read once, each output written once,
-    at 3.35 TB/s) or operations (each product at the rate of the precision
-    it computes in: Q.K^T and dO.V^T at the bf16 tensor rate for bf16
-    inputs, the products with P or dS in fp32 at 67 TFLOP/s unless `bf16`
-    rounds them to bf16). Products of one precision share its units and
-    add up; the tensor cores and the fp32 units may run side by side, so
-    the operations time is the larger of the two units' times."""
+def flash_bound(b, s, h, d, causal=True, bf16=False):
+    """The least time (ms) each flash kernel could take at this shape with
+    bf16 inputs, and what bounds it: bytes (each input read once, each
+    output written once, at 3.35 TB/s) or operations at the bf16 tensor
+    rate. Q.K^T and dO.V^T are one bf16 product each. A product with P or
+    dS in it is fp32 on the training path: it counts as three bf16
+    products, the exact split, the least exact route on this card (one
+    with `bf16`, which rounds P and dS). So the forward does 1 + 3, dQ
+    2 + 3 and dK/dV 2 + 3 + 3 products of 2 S^2 D (causal: S(S+1)/2
+    pairs) per head."""
     pairs = (s * (s + 1) // 2 if causal else s * s) * b * h
     prod = 2.0 * pairs * d  # FLOPs of one [S, S] x [S, D] product
-    lo = PEAK_FLOPS["torch.bfloat16" if itemsize == 2 else "torch.float32"]
-    hi = lo if bf16 else PEAK_FLOPS["torch.float32"]
-
-    def ops_s(n_lo, n_hi):
-        if lo == hi:
-            return (n_lo + n_hi) * prod / lo
-        return max(n_lo * prod / lo, n_hi * prod / hi)
-
-    tensor = b * s * h * d * itemsize
+    split = 1 if bf16 else 3
+    tensor = b * s * h * d * 2
     stat = b * h * s * 4
-    work = {"fwd": (4 * tensor + stat, ops_s(1, 1)),
-            "dq": (5 * tensor + 2 * stat, ops_s(2, 1)),
-            "dkv": (6 * tensor + 2 * stat, ops_s(2, 2))}
+    work = {"fwd": (4 * tensor + stat, 1 + split),
+            "dq": (5 * tensor + 2 * stat, 2 + split),
+            "dkv": (6 * tensor + 2 * stat, 2 + 2 * split)}
     out = {}
-    for name, (nbytes, ops_s) in work.items():
+    for name, (nbytes, n_prod) in work.items():
         bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = n_prod * prod / PEAK_FLOPS["torch.bfloat16"]
         out[name] = (max(bytes_s, ops_s) * 1e3,
                      "bytes" if bytes_s >= ops_s else "operations", nbytes)
     return out
@@ -924,9 +1039,20 @@ def phase_flash_times(card):
     delta = fa.flash_delta(dout, o)
     bwd_args = (q, k, v, dout, lse, delta)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    ms = {"fwd": time_cold(fa.flash_fwd_cuda, (q, k, v), flush),
-          "dq": time_cold(fa.flash_dq_cuda, bwd_args, flush),
-          "dkv": time_cold(fa.flash_dkv_cuda, bwd_args, flush)}
+    ms, ms_bf16 = {}, {}
+    for out, bf16 in ((ms, False), (ms_bf16, True)):
+        out["fwd"] = time_cold(fa.flash_fwd_cuda, (q, k, v, True, bf16),
+                               flush)
+        out["dq"] = time_cold(fa.flash_dq_cuda, (*bwd_args, True, bf16),
+                              flush)
+        out["dkv"] = time_cold(fa.flash_dkv_cuda, (*bwd_args, True, bf16),
+                               flush)
+    with_host = {
+        "fwd": time_cold(fa.flash_fwd_cuda, (q, k, v), flush,
+                         hide_host=False),
+        "dq": time_cold(fa.flash_dq_cuda, bwd_args, flush, hide_host=False),
+        "dkv": time_cold(fa.flash_dkv_cuda, bwd_args, flush,
+                         hide_host=False)}
     plain = {"fwd": time_cold(fa.flash_fwd_reference, (q, k, v), flush,
                               iters=10),
              "dq": time_cold(fa.flash_dq_reference, bwd_args, flush,
@@ -936,7 +1062,9 @@ def phase_flash_times(card):
     for fn, n in zip((fa.flash_fwd_cuda, fa.flash_dq_cuda,
                       fa.flash_dkv_cuda), counts):
         fn.launches = n  # timing runs do not count
-    # The yardstick: SDPA over [B, H, S, D] copies (the port never calls it).
+    # The yardstick: SDPA over [B, H, S, D] copies (the port never calls
+    # it). It rounds P and dS to bf16: its like-for-like row is the
+    # kernels' `bf16=True` time.
     q4, k4, v4, do4 = (t.transpose(1, 2).contiguous()
                        for t in (q, k, v, dout))
     lib_fwd = time_cold(
@@ -949,17 +1077,25 @@ def phase_flash_times(card):
         lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True),
         (), flush)
     library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
-    bounds = flash_bound(b, s, h, d, 2)
+    bounds = flash_bound(b, s, h, d)
+    bounds_bf16 = flash_bound(b, s, h, d, bf16=True)
     for name in ("fwd", "dq", "dkv"):
         bound_ms, bound_by, nbytes = bounds[name]
         say(f"[times] [{card}] flash {name} bf16 B{b} S{s} H{h} D{d} causal: "
             f"kernel {ms[name]:.4f} ms, plain {plain[name]:.4f} ms, library "
             f"{library[name]:.4f} ms (SDPA {'forward' if name == 'fwd' else 'autograd backward, dQ+dK+dV'}), "
             f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB; "
-            f"{bound_ms / ms[name] * 100:.1f}% of bound)")
+            f"{bound_ms / ms[name] * 100:.1f}% of bound); with bf16=True "
+            f"(P and dS rounded, as SDPA): kernel {ms_bf16[name]:.4f} ms, "
+            f"bound {bounds_bf16[name][0]:.4f} ms "
+            f"({bounds_bf16[name][0] / ms_bf16[name] * 100:.1f}% of "
+            f"bound); timed with the host's launch work (PR 2's method) "
+            f"{with_host[name]:.4f} ms")
     return {name: {"ms": ms[name], "plain_ms": plain[name],
                    "library_ms": library[name], "bound_ms": bounds[name][0],
-                   "bound_by": bounds[name][1]}
+                   "bound_by": bounds[name][1], "bf16_ms": ms_bf16[name],
+                   "bf16_bound_ms": bounds_bf16[name][0],
+                   "with_host_ms": with_host[name]}
             for name in ("fwd", "dq", "dkv")}
 
 
@@ -1005,6 +1141,7 @@ def main() -> int:
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
+        "kernel_route": "ffma",
         "source": "determined_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "determined_tpu/ops/paged_attention.py:99",
         "launches": serve["launches"],
@@ -1019,6 +1156,7 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
+            "kernel_route": train["routes"][key],
             "source": "determined_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": train["launches"][key],

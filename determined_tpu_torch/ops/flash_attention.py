@@ -7,16 +7,21 @@ the model's `[B, S, H, D]`. Implementations, selected by
 
   - `kernel`: the hand-written CUDA kernels in ops/csrc/flash_attention.cu,
     the port of the JAX package's Pallas kernels (`pallas` there, and
-    `pallas` is accepted here as another spelling of `kernel`). The forward
-    kernel writes `o` and the per-row `lse`; `_FlashAttention`, a
-    `torch.autograd.Function`, saves `(q, k, v, o, lse)` and its backward
-    computes `delta = rowsum(dO * O)` in plain torch, then launches the dQ
-    kernel and the dK/dV kernel. The kernels read q, k and v in place
-    through their strides (the per-head views of the fused qkv product: no
-    `[BH, S, D]` copies) and write contiguous `[B, S, H, D]` outputs and
-    `[B*H, S]` fp32 statistics. The wrappers (`flash_fwd_cuda`,
-    `flash_dq_cuda`, `flash_dkv_cuda`) take CUDA tensors only and raise on
-    anything else; each counts its launches in `launches`.
+    `pallas` is accepted here as another spelling of `kernel`). bf16 inputs
+    at D 64 run the forward and dK/dV kernels on the tensor cores (wgmma,
+    the products with P or dS split exactly into three bf16 terms, see
+    `split_bf16`); fp32 inputs, D 128 and 256, and the dQ kernel run on
+    CUDA cores (FFMA). The forward kernel writes `o` and the per-row
+    `lse`; `_FlashAttention`, a `torch.autograd.Function`, saves `(q, k,
+    v, o, lse)` and its backward computes `delta = rowsum(dO * O)` in
+    plain torch, then launches the dQ kernel and the dK/dV kernel. The
+    kernels read q, k and v in place through their strides (the per-head
+    views of the fused qkv product: no `[BH, S, D]` copies; in bf16 the
+    pointers and strides must be 16-byte aligned) and write contiguous
+    `[B, S, H, D]` outputs and `[B*H, S]` fp32 statistics. The wrappers
+    (`flash_fwd_cuda`, `flash_dq_cuda`, `flash_dkv_cuda`) take CUDA tensors
+    only and raise on anything else; each counts its launches in
+    `launches`.
   - `reference`: plain torch with exactly the dense arithmetic (fp32 logits
     times 1/sqrt(d), the mask at finfo(float32).min, fp32 softmax, the
     probabilities cast to bf16 when `bf16` else to q's dtype), differentiated
@@ -195,6 +200,21 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, causal: bool = True,
 flash_dkv_reference.calls = 0
 
 
+def split_bf16(x: torch.Tensor, terms: int = 3):
+    """Plain version of the tensor-core kernels' split of an fp32 operand
+    (`split_pair` in ops/csrc/flash_attention.cu): `terms` bf16 tensors, the
+    first bf16(x) and each next one bf16 of what the earlier ones left. With
+    3 terms they sum to x exactly (24 bits of significand in three 8-bit
+    pieces; bf16 has fp32's exponent range), so for a bf16 y, x.y is the sum
+    of the three bf16 products; with 1 it is the `bf16=True` rounding."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16)
+        out.append(t)
+        rest = rest - t.float()
+    return out
+
+
 # ---------------------------------------------------------- CUDA kernels
 
 
@@ -230,6 +250,13 @@ def _check_layout(name: str, tensors) -> None:
         raise ValueError(f"{name}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if b * h > 65535:
         raise ValueError(f"{name}: B*H {b * h} > 65535")
+    if q.dtype == torch.bfloat16:
+        # The tensor-core route copies rows by 16-byte cp.async.
+        for tname, t in tensors:
+            if t.data_ptr() % 16 or any(st * 2 % 16 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"{name}: {tname}'s data pointer or (batch, seq, head) "
+                    f"strides {t.stride()[:3]} are not 16-byte aligned")
 
 
 def _check_stats(name: str, q: torch.Tensor, **stats) -> None:
