@@ -13,12 +13,17 @@ fails:
   2. build: compile every kernel source in ops/csrc/ with nvcc (sm_90a)
      into build/kernels/, one nvcc per source, all started together; print
      each kernel function's registers and spill bytes from ptxas.
-  3. the paged decode-attention kernel against its plain version at the
-     serving shapes: slots 1/8/32, H 12, Dh 64, block 16, 64 blocks a
-     slot, permuted and shared pool blocks, an all-trash inactive slot,
-     positions 0, 15, 16 and 1023. Tolerances: fp32 atol=rtol=1e-5; bf16
+  3. the paged decode-attention kernels (the split kernel and the combine
+     of the splits) against their plain version at the serving shapes:
+     slots 1/8/32, H 12, Dh 64, block 16, 64 blocks a slot, permuted and
+     shared pool blocks, an all-trash inactive slot, positions 0, 15, 16
+     and 1023; then long contexts of 4096 keys (256 blocks, 8 splits of
+     512) at slots 1 and 8 with positions at the splits' edges (511, 512,
+     513, 1023, 1024, 4095). Tolerances: fp32 atol=rtol=1e-5; bf16
      atol=rtol=2e-2 (the kernel keeps P in fp32 where the plain version
-     casts the probabilities to bf16).
+     casts the probabilities to bf16). Every case is launched twice and
+     the two outputs must be bit-identical (the splits merge in a fixed
+     order).
   4. the flash-attention kernels (forward, dQ, dK/dV) against their plain
      versions on the same GPU tensors: the training shape (B 8, H 12, S
      1024, D 64, causal), a non-causal case, S 128 and D 128, each in fp32
@@ -37,13 +42,16 @@ fails:
      dK scaled by 1.1 (what a dS 10 % off gives), o scaled by 1.05, and
      the backward kernels run with the other `bf16` setting (P and dS
      rounded where they must not be, or not rounded where they must).
-     For bf16 inputs with `bf16` off, also the share of o, dk and dv
+     For bf16 inputs with `bf16` off, also the share of o, dq, dk and dv
      values whose bf16 value differs from the plain version's must stay
      within `MISMATCH_LIMIT` (0.5 %): the tensor-core kernels split each
      fp32 operand exactly into three bf16 terms, so they differ only near
-     rounding ties. The forward and dK/dV kernels run with one term of the
-     split on the same tensors (P and dS rounded once) must differ in at
-     least 10x that share: the one rounding atol 1e-3 cannot see in o.
+     rounding ties. (dq's first row is left out of that share when
+     causal: its exact value is 0, one key with P = 1 gives dS = dP -
+     delta = 0, so both versions hold fp32 noise there; atol holds it.)
+     The three kernels run with one term of the split on the same tensors
+     (P and dS rounded once) must differ in at least 10x that share: the
+     one rounding atol 1e-3 cannot see in o.
   5. serving at full width: GPT-2 small (124M, random weights from a seed)
      saved with `save_params_npz`, served through `build_replica` and
      `ServingServer` in bf16 (8 slots, max_seq_len 1024, KV block 16,
@@ -65,8 +73,8 @@ fails:
      the op-end validation 12 forward launches a batch; the plain
      attention must never run; the op end must leave one COMMITTED
      checkpoint that `restore_state` reads back bit-identical; the
-     profiled steps must show the forward and dK/dV on their tensor-core
-     (wgmma) kernel functions.
+     profiled steps must show all three flash kernels on their
+     tensor-core (wgmma) kernel functions.
   8. training parity in fp32: the same GPT-2 small-width params (2 layers)
      and batches through the kernels and through the plain attention.
      Every leaf's step-0 gradient must agree to 1e-5 of that leaf's
@@ -79,7 +87,9 @@ fails:
      host's launch work hidden behind a device-side wait): each
      kernel, its plain version and one library call (a yardstick the port
      never calls): `scaled_dot_product_attention` over the gathered lane
-     for the paged kernel, SDPA(is_causal) forward for the flash forward,
+     for the paged kernel (at slots 1 and 8 and positions 320, 1023 and
+     4095, and 12 launches over 12 layers' pools as a decode step makes
+     them), SDPA(is_causal) forward for the flash forward,
      and SDPA's autograd backward (dQ, dK and dV together) for both flash
      backward kernels; each beside the least time the card could take,
      the larger of the bytes it must move at 3.35 TB/s and its products
@@ -218,11 +228,12 @@ def ptxas_summary(log):
 # ------------------------------------------------------------------ phase 3
 
 
-def make_case(slots, dtype, gen, H=12, Dh=64, bs=16, mb=64):
+def make_case(slots, dtype, gen, H=12, Dh=64, bs=16, mb=64,
+              fixed=(1023, 600, 0, 15, 16)):
     """Kernel inputs at serving shapes: a permuted pool, slot 1 sharing the
     first half of slot 0's blocks, the last slot inactive (all-trash table,
-    position 0) when there are several, positions 1023, 600, 0, 15, 16 and
-    then random."""
+    position 0) when there are several, positions `fixed` and then
+    random."""
     import torch
 
     P = slots * mb + 1  # + trash
@@ -233,15 +244,23 @@ def make_case(slots, dtype, gen, H=12, Dh=64, bs=16, mb=64):
     vp = torch.randn(P, bs, H, Dh, generator=gen, device=dev).to(dtype)
     tables = torch.randperm(trash, generator=gen, device=dev)
     tables = tables[:slots * mb].reshape(slots, mb).to(torch.int32)
-    fixed = [1023, 600, 0, 15, 16]
     pos = torch.randint(0, mb * bs, (slots,), generator=gen, device=dev)
-    pos[:min(slots, len(fixed))] = torch.tensor(fixed[:slots], device=dev)
+    n = min(slots, len(fixed))
+    pos[:n] = torch.tensor(fixed[:n], device=dev)
     if slots > 2:
         tables[1, :mb // 2] = tables[0, :mb // 2]
     if slots > 1:
         tables[-1] = trash
         pos[-1] = 0
     return q, kp, vp, tables.contiguous(), pos.to(torch.int32)
+
+
+# (slots, mb, positions): the serving shapes, then contexts of 4096 keys
+# (8 splits of 512) with positions at the splits' edges.
+PAGED_CASES = (
+    (1, 64, (1023, 600, 0, 15, 16)), (8, 64, (1023, 600, 0, 15, 16)),
+    (32, 64, (1023, 600, 0, 15, 16)), (1, 256, (4095,)), (1, 256, (512,)),
+    (8, 256, (4095, 511, 512, 513, 1023, 1024, 4000)))
 
 
 def phase_kernel_check():
@@ -254,25 +273,32 @@ def phase_kernel_check():
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for slots in (1, 8, 32):
-            args = make_case(slots, dtype, gen)
+        for slots, mb, fixed in PAGED_CASES:
+            args = make_case(slots, dtype, gen, mb=mb, fixed=fixed)
             out = paged_attention_cuda(*args)
+            again = paged_attention_cuda(*args)
             torch.cuda.synchronize()
             ref = paged_attention_reference(*args)
             err = (out.float() - ref.float()).abs()
             bad = err > tol[dtype] + tol[dtype] * ref.float().abs()
             max_err = float(err.max())
             worst = max(worst, max_err)
+            same = torch.equal(out, again)
             say(f"[kernel] paged_attention {str(dtype)[6:]} slots={slots} "
-                f"positions={args[4].tolist()[:5]}... max_abs_err="
-                f"{max_err:.3e} (atol=rtol={tol[dtype]:g})")
+                f"keys={mb * 16} positions={args[4].tolist()[:8]}"
+                f"{'...' if slots > 8 else ''} max_abs_err={max_err:.3e} "
+                f"(atol=rtol={tol[dtype]:g}); two launches bit-identical: "
+                f"{same}")
             if not torch.isfinite(out.float()).all():
                 fail(f"paged_attention {dtype} slots={slots}: non-finite "
                      "output")
             if bad.any():
-                fail(f"paged_attention {dtype} slots={slots}: "
-                     f"{int(bad.sum())} elements outside tolerance "
-                     f"(max err {max_err:.3e})")
+                fail(f"paged_attention {dtype} slots={slots} keys="
+                     f"{mb * 16}: {int(bad.sum())} elements outside "
+                     f"tolerance (max err {max_err:.3e})")
+            if not same:
+                fail(f"paged_attention {dtype} slots={slots} keys="
+                     f"{mb * 16}: two launches on the same inputs differ")
     return worst
 
 
@@ -305,18 +331,26 @@ def flash_tolerances(dtype, bf16):
     return {"o": o_tol, "lse": (1e-4, 1e-5), "grad": (1e-3, 1e-2)}
 
 
-# The share of bf16 elements of o, dk and dv that may differ from the plain
-# version's bf16 value, for bf16 inputs with `bf16` off. The exact split
-# differs from the fp32 plain version only in the order of its sums, so a
-# bf16 value differs only near a rounding tie: a calibration run measured
-# 0.104-0.113 % at the training shape, where the kernels run with one term
-# of the split (P and dS rounded to bf16 once) differ in 38.7-41.8 %.
+# The share of bf16 elements of o, dq, dk and dv that may differ from the
+# plain version's bf16 value, for bf16 inputs with `bf16` off. The exact
+# split differs from the fp32 plain version only in the order of its sums,
+# so a bf16 value differs only near a rounding tie: a calibration run
+# measured 0.104-0.113 % (o, dk, dv) and 0.112 % (dq) at the training
+# shape, where the kernels run with one term of the split (P and dS rounded
+# to bf16 once) differ in 38.7-42.1 %.
 MISMATCH_LIMIT = 0.005
 
 
 def mismatch(got, want):
     """Share of elements whose values differ (both in the output dtype)."""
     return float((got != want).float().mean())
+
+
+def dq_rows(t, causal):
+    """dq [B, S, H, D] without its first row when causal: there the exact
+    gradient is 0 (one key, P = 1, dS = dP - delta = 0) and both versions
+    hold fp32 noise, which no bf16 comparison can hold; atol does."""
+    return t[:, 1:] if causal else t
 
 
 def held(got, want, atol, rtol):
@@ -374,13 +408,16 @@ def phase_flash_check():
                     + ", ".join(errs))
                 if dtype == torch.bfloat16 and not bf16:
                     shares = {what: mismatch(got, want) for what, got, want in
-                              (("o", o, o_ref), ("dq", dq, dq_ref),
+                              (("o", o, o_ref),
+                               ("dq", dq_rows(dq, causal),
+                                dq_rows(dq_ref, causal)),
                                ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
                     say("[flash]   bf16 values that differ from the plain "
                         "version's: " + ", ".join(
                             f"{w} {x * 100:.3f}%" for w, x in shares.items())
-                        + f" (o, dk, dv held to {MISMATCH_LIMIT * 100:g}%)")
-                    for what in ("o", "dk", "dv"):
+                        + f" (each held to {MISMATCH_LIMIT * 100:g}%; dq "
+                        f"without row 0 when causal)")
+                    for what in ("o", "dq", "dk", "dv"):
                         if shares[what] > MISMATCH_LIMIT:
                             fail(f"flash {what} B{b} S{s} H{h} D{d} bf16 "
                                  f"inputs: {shares[what] * 100:.3f}% of the "
@@ -390,12 +427,12 @@ def phase_flash_check():
                         dtype == torch.bfloat16:
                     planted_faults(fa, (q, k, v, dout, lse, delta), tol,
                                    bf16, o_ref, dq_ref, dk_ref, dv_ref,
-                                   o, dq, dk)
+                                   o, dq, dk, causal)
     return worst
 
 
 def planted_faults(fa, args, tol, bf16, o_ref, dq_ref, dk_ref, dv_ref, o,
-                   dq, dk):
+                   dq, dk, causal):
     """Wrong results the checks above must refuse, at the training shape:
     fails the run if any of them would pass."""
     import torch
@@ -427,8 +464,10 @@ def planted_faults(fa, args, tol, bf16, o_ref, dq_ref, dk_ref, dv_ref, o,
     o_x = fa.flash_fwd_cuda(q, k, v, True, True)[0]
     torch.cuda.synchronize()
     seen = []
-    for what, got, want in (("o", o_x, o_ref), ("dk", dk_x, dk_ref),
-                            ("dv", dv_x, dv_ref)):
+    for what, got, want in (("o", o_x, o_ref),
+                            ("dq", dq_rows(dq_x, causal),
+                             dq_rows(dq_ref, causal)),
+                            ("dk", dk_x, dk_ref), ("dv", dv_x, dv_ref)):
         share = mismatch(got, want)
         seen.append(f"{what} {share * 100:.3f}%")
         if share <= 10 * MISMATCH_LIMIT:
@@ -748,8 +787,8 @@ def phase_train(workdir):
     step_ms = sum(window_s) / n_timed * 1e3
     breakdown = profile_train_steps(trainer, trial)
     # Which route each flash kernel took on the main path, from the kernel
-    # functions the profiler saw: bf16 at D 64 must run forward and dK/dV
-    # on the tensor cores.
+    # functions the profiler saw: bf16 at D 64 must run all three on the
+    # tensor cores.
     routes = {}
     for key in ("fwd", "dq", "dkv"):
         names = [g for g in breakdown["groups"]
@@ -759,7 +798,7 @@ def phase_train(workdir):
                  "steps")
         routes[key] = "wgmma" if all("wgmma" in n for n in names) else "ffma"
     say(f"[train] flash kernel routes on the main path: {routes}")
-    if routes["fwd"] != "wgmma" or routes["dkv"] != "wgmma":
+    if any(route != "wgmma" for route in routes.values()):
         fail(f"bf16 at D 64 must run the wgmma kernels, ran {routes}")
     idle = max(0.0, 1.0 - breakdown["busy_ms"] / step_ms)
     say(f"[train] fit's step time over steps {TRAIN_REPORT_PERIOD + 1}-"
@@ -909,7 +948,8 @@ def phase_train_parity():
 SLEEP_CYCLES = 2_000_000
 
 
-def time_cold(fn, args, flush, iters=50, hide_host=True):
+def time_cold(fn, args, flush, iters=50, hide_host=True,
+              sleep_cycles=SLEEP_CYCLES):
     """Median ms of `fn(*args)` over `iters` launches, each timed with its
     own CUDA events after a write that evicts the 50 MB L2. A device-side
     wait sits between the flush and the first event: the host's launch
@@ -926,7 +966,7 @@ def time_cold(fn, args, flush, iters=50, hide_host=True):
     for _ in range(iters):
         flush.zero_()
         if hide_host:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -937,6 +977,43 @@ def time_cold(fn, args, flush, iters=50, hide_host=True):
     return statistics.median(times)
 
 
+def paged_bound(slots, pos, H=12, Dh=64, itemsize=2):
+    """(least ms, what bounds it, bytes) of one paged launch with every slot
+    at `pos`: q read and out written once, the visible K and V rows read
+    once, the table entries and positions read once, at 3.35 TB/s; its
+    4 (pos + 1) H Dh flops a slot at the bf16 peak."""
+    keys = slots * (pos + 1)
+    mb = -(-(pos + 1) // 16)
+    nbytes = (2 * slots * H * Dh * itemsize + 2 * keys * H * Dh * itemsize
+              + slots * mb * 4 + slots * 4)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = 4 * keys * H * Dh / PEAK_FLOPS["torch.bfloat16"]
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", nbytes)
+
+
+def paged_inputs(slots, pos, gen, H=12, Dh=64, bs=16):
+    """bf16 kernel inputs with every slot at `pos`, a permuted pool of
+    max(64, enough) blocks a slot (64: the serving run's max_seq_len 1024),
+    and the same lane gathered for the library call: [slots, H, S, Dh]."""
+    import torch
+
+    mb = max(64, -(-(pos + 1) // bs))
+    P = slots * mb + 1
+    dtype = torch.bfloat16
+    q = torch.randn(slots, H, Dh, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(P, bs, H, Dh, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(P, bs, H, Dh, generator=gen, device="cuda").to(dtype)
+    tables = torch.randperm(P - 1, generator=gen, device="cuda")
+    tables = tables.reshape(slots, mb).to(torch.int32).contiguous()
+    pos_t = torch.full((slots,), pos, dtype=torch.int32, device="cuda")
+    lanes = [p[tables.long()].reshape(slots, mb * bs, H, Dh).transpose(1, 2)
+             .contiguous() for p in (kp, vp)]
+    mask = (torch.arange(mb * bs, device="cuda")[None, :]
+            <= pos_t[:, None].long())[:, None, None, :]
+    return (q, kp, vp, tables, pos_t), (q[:, :, None, :], *lanes, mask)
+
+
 def phase_paged_times(card):
     import torch
     import torch.nn.functional as F
@@ -944,57 +1021,48 @@ def phase_paged_times(card):
     from determined_tpu_torch.ops.paged_attention import (
         paged_attention_cuda, paged_attention_reference)
 
-    dtype = torch.bfloat16
-    slots, H, Dh, bs, mb = 8, 12, 64, 16, 64
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    P = slots * mb + 1
-    q = torch.randn(slots, H, Dh, generator=gen, device="cuda").to(dtype)
-    kp = torch.randn(P, bs, H, Dh, generator=gen, device="cuda").to(dtype)
-    vp = torch.randn(P, bs, H, Dh, generator=gen, device="cuda").to(dtype)
-    tables = torch.randperm(P - 1, generator=gen, device="cuda")
-    tables = tables.reshape(slots, mb).to(torch.int32).contiguous()
-    pos = torch.full((slots,), 1023, dtype=torch.int32, device="cuda")
-    args = (q, kp, vp, tables, pos)
-    # The library yardstick works on the gathered lane: [slots, H, S, Dh].
-    k_lane = kp[tables.long()].reshape(slots, mb * bs, H, Dh).transpose(1, 2)
-    v_lane = vp[tables.long()].reshape(slots, mb * bs, H, Dh).transpose(1, 2)
-    k_lane, v_lane = k_lane.contiguous(), v_lane.contiguous()
-    mask = (torch.arange(mb * bs, device="cuda")[None, :]
-            <= pos[:, None].long())[:, None, None, :]
-
     def sdpa(q4, k4, v4, m4):
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
 
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     launches0 = paged_attention_cuda.launches
-    ms = time_cold(paged_attention_cuda, args, flush)
-    plain_ms = time_cold(paged_attention_reference, args, flush)
-    library_ms = time_cold(sdpa, (q[:, :, None, :], k_lane, v_lane, mask),
-                           flush)
-    # The serving run's contexts are 288..352 tokens: time that middle too.
-    mid_ms = time_cold(paged_attention_cuda,
-                       (q, kp, vp, tables, torch.full_like(pos, 320)), flush)
+    rows = {}
+    for slots in (8, 1):
+        for pos in (1023, 320, 4095):
+            args, lib_args = paged_inputs(slots, pos, gen)
+            ms = time_cold(paged_attention_cuda, args, flush)
+            library_ms = time_cold(sdpa, lib_args, flush)
+            bound_ms, bound_by, nbytes = paged_bound(slots, pos)
+            rows[slots, pos] = {"ms": ms, "library_ms": library_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by}
+            if (slots, pos) == (8, 1023):  # the row of the kernels line
+                rows[slots, pos]["plain_ms"] = time_cold(
+                    paged_attention_reference, args, flush)
+            say(f"[times] [{card}] paged_attention bf16 slots={slots} H=12 "
+                f"Dh=64 bs=16 pos={pos}: kernel {ms:.4f} ms, SDPA over the "
+                f"gathered lane {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {nbytes / 1e6:.2f} MB at 3.35 TB/s; "
+                f"{bound_ms / ms * 100:.1f}% of bound)"
+                + (f", plain {rows[slots, pos]['plain_ms']:.4f} ms"
+                   if "plain_ms" in rows[slots, pos] else ""))
+            del args, lib_args
+    # A decode step's 12 launches at pos 320, as serving makes them: one a
+    # layer, each over its own layer's pool, timed together after one
+    # flush (the 12 pools, 151 MB, do not fit in L2).
+    layers = [paged_inputs(8, 320, gen)[0] for _ in range(12)]
+    step_ms = time_cold(lambda: [paged_attention_cuda(*a) for a in layers],
+                        (), flush, sleep_cycles=4 * SLEEP_CYCLES)
     paged_attention_cuda.launches = launches0  # timing runs do not count
-    keys = int((pos.long() + 1).sum())
-    itemsize = q.element_size()
-    bytes_moved = (2 * q.numel() * itemsize            # q in, out
-                   + 2 * keys * H * Dh * itemsize     # visible K and V
-                   + tables.numel() * 4 + pos.numel() * 4)
-    flops = 4 * keys * H * Dh
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S,
-                   flops / PEAK_FLOPS[str(dtype)]) * 1e3
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
-                >= flops / PEAK_FLOPS[str(dtype)] else "operations")
-    say(f"[times] [{card}] paged_attention bf16 slots={slots} H={H} Dh={Dh} "
-        f"bs={bs} pos=1023: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA over the gathered lane {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bytes_moved / 1e6:.2f} MB at 3.35 TB/s; "
-        f"{bound_ms / ms * 100:.1f}% of bound)")
-    say(f"[times] [{card}] paged_attention bf16 slots={slots} pos=320: "
-        f"kernel {mid_ms:.4f} ms (x 12 layers = {12 * mid_ms:.3f} ms a "
-        "decode step)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    say(f"[times] [{card}] paged_attention bf16 slots=8 pos=320: 12 "
+        f"launches x one launch's time = {12 * rows[8, 320]['ms']:.4f} ms; "
+        f"12 launches over 12 layers' pools, timed together = "
+        f"{step_ms:.4f} ms a decode step")
+    del layers
+    head = dict(rows[8, 1023])
+    head["times"] = {f"slots{s}_pos{p}": r for (s, p), r in rows.items()}
+    head["decode_step_12_launches_ms"] = step_ms
+    return head
 
 
 def flash_bound(b, s, h, d, causal=True, bf16=False):
@@ -1146,11 +1214,7 @@ def main() -> int:
         "replaces": "determined_tpu/ops/paged_attention.py:99",
         "launches": serve["launches"],
         "max_abs_err": paged_err,
-        "ms": paged["ms"],
-        "plain_ms": paged["plain_ms"],
-        "bound_ms": paged["bound_ms"],
-        "bound_by": paged["bound_by"],
-        "library_ms": paged["library_ms"],
+        **paged,
     }]
     for key, name, replaces in FLASH_KERNELS:
         kernels.append({

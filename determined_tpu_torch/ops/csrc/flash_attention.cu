@@ -5,7 +5,7 @@
 //
 // Replaces the three TPU kernels of determined_tpu/ops/flash_attention.py:
 //   flash_fwd_wgmma_kernel, flash_fwd_kernel  <- `_fwd_kernel` (`_flash_fwd`)
-//   flash_dq_kernel                           <- `_dq_kernel`  (`_flash_bwd`)
+//   flash_dq_wgmma_kernel, flash_dq_kernel    <- `_dq_kernel`  (`_flash_bwd`)
 //   flash_dkv_wgmma_kernel, flash_dkv_kernel  <- `_dkv_kernel` (`_flash_bwd`)
 // and computes the same functions:
 //
@@ -26,10 +26,9 @@
 // Two routes, picked by `run` from the dtype and head dim alone (nothing is
 // tried and caught):
 //
-//   tensor cores (wgmma): bf16 inputs at D 64, the forward and dK/dV
-//     kernels. GPT-2 small through XL all have D 64.
-//   FFMA on CUDA cores: fp32 inputs at every D, bf16 at D 128 and 256, and
-//     the dQ kernel at every dtype and D.
+//   tensor cores (wgmma): bf16 inputs at D 64, all three kernels. GPT-2
+//     small through XL all have D 64.
+//   FFMA on CUDA cores: fp32 inputs at every D, bf16 at D 128 and 256.
 //
 // The fp32 products on tensor cores: the exact three-way bf16 split. A
 // float x is x1 + x2 + x3 with x1 = bf16(x), x2 = bf16(x - x1), x3 =
@@ -56,11 +55,12 @@
 // What the tensor-core design does about it: one warpgroup (128 threads)
 // per 64-row tile, every product on `wgmma.mma_async m64n64k16` (bf16 x
 // bf16 -> fp32). Q.K^T (forward), K.Q^T and V.dO^T (dK/dV: the transposed
-// scores, so the accumulator holds keys as rows) read both operands from
-// shared memory. The products with P or dS take the accumulator of the
-// scores, split, as the A operand straight from registers (the RS form),
-// and V, dO or Q as B with the transpose bit set, because the reduction
-// runs over their rows. Tiles come to shared memory by 16-byte cp.async in
+// scores, so the accumulator holds keys as rows) and Q.K^T with dO.V^T (dQ)
+// read both operands from shared memory. The products with P or dS take the
+// accumulator of the scores, split, as the A operand straight from
+// registers (the RS form), and V, dO, Q or K (dQ: the same K tile as its
+// scores) as B with the transpose bit set, because the reduction runs over
+// their rows. Tiles come to shared memory by 16-byte cp.async in
 // a ring of two stages (the next tile's copy overlaps this tile's
 // products). Softmax, masks and dS stay in registers. The notes marked (1)
 // to (7) below mark where the hard parts are dealt with:
@@ -73,7 +73,8 @@
 //       in `run` and in the wrapper);
 //   (5) a ragged S: zero-filled loads, masked columns, skipped stores;
 //   (6) register pressure in dK/dV (64 accumulators held across the q
-//       loop, 64 of scores, the split fragments): ptxas -v prints it;
+//       loop, 64 of scores, the split fragments) and dQ (32 held, 64 of
+//       scores): ptxas -v prints it;
 //   (7) TMA and warp specialisation are not used: TMA needs
 //       cuTensorMapEncodeTiled from the driver API, which this ctypes
 //       build does not link. They are left to a later change.
@@ -905,6 +906,119 @@ flash_fwd_wgmma_kernel(const Args a) {
   }
 }
 
+// dQ = sum over k tiles of dS.K, dS = P (dP - delta) scale. The forward's
+// loop with dO beside Q and K in V's place: S = Q.K^T and dP = dO.V^T from
+// shared memory, P and dS in registers, then the split dS as the register
+// A operand and the same K tile, read with the transpose bit, as B.
+template <int TERMS>
+__global__ void __launch_bounds__(kTcThreads)
+flash_dq_wgmma_kernel(const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;                   // Q tile
+  const uint32_t sO = base + kTileBytes;      // dO tile
+  const uint32_t sK = base + 2 * kTileBytes;  // K tiles, 2 stages
+  const uint32_t sV = base + 4 * kTileBytes;  // V tiles, 2 stages
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nq = gridDim.x;
+  const int qt = a.causal ? nq - 1 - blockIdx.x : blockIdx.x;  // heavy first
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int S = a.S, q0 = qt * kTcRows;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
+                            b * a.sq.b + h * a.sq.h;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) +
+                            b * a.sk.b + h * a.sk.h;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) +
+                            b * a.sv.b + h * a.sv.h;
+  const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(a.dout) +
+                             b * a.sdo.b + h * a.sdo.h;
+
+  const int q_last = min(S, q0 + kTcRows) - 1;
+  const int nk = a.causal ? q_last / kTcRows + 1 : (S + kTcRows - 1) / kTcRows;
+  load_tile_async(qg, a.sq.s, q0, S, sQ);
+  load_tile_async(dog, a.sdo.s, q0, S, sO);
+  load_tile_async(kg, a.sk.s, 0, S, sK);
+  load_tile_async(vg, a.sv.s, 0, S, sV);
+  cp_async_commit();
+
+  // This thread's two query rows, their lse and delta.
+  const int r[2] = {q0 + warp * 16 + (lane >> 2),
+                    q0 + warp * 16 + (lane >> 2) + 8};
+  float lse[2], delta[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    lse[hr] = r[hr] < S ? a.lse_in[(long long)bh * S + r[hr]] : 0.f;
+    delta[hr] = r[hr] < S ? a.delta[(long long)bh * S + r[hr]] : 0.f;
+  }
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1, k0 = kt * kTcRows;
+    if (kt + 1 < nk) {  // the next tile's copy overlaps this tile's work
+      load_tile_async(kg, a.sk.s, k0 + kTcRows, S, sK + (st ^ 1) * kTileBytes);
+      load_tile_async(vg, a.sv.s, k0 + kTcRows, S, sV + (st ^ 1) * kTileBytes);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q.K^T and dP = dO.V^T: queries as rows, keys as columns.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+    wg_hold(s);
+    wg_hold(dp);
+    wgmma_abt(s, sQ, sK + st * kTileBytes);
+    wgmma_abt(dp, sO, sV + st * kTileBytes);
+    wg_commit();
+    wg_wait_all();
+    wg_hold(s);
+    wg_hold(dp);
+
+    // P = exp(scale S - lse) and dS = P (dP - delta) scale, in place in s;
+    // masked (5) entries are 0.
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + 2 * (lane & 3) + e;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const bool ok = col < S && (!a.causal || col <= r[hr]);
+          const int i = 4 * j + 2 * hr + e;
+          const float p = ok ? expf(s[i] * a.scale - lse[hr]) : 0.f;
+          s[i] = p * (dp[i] - delta[hr]) * a.scale;
+        }
+      }
+
+    // dQ += dS.K: dS split from the score registers (1), K read transposed.
+    uint32_t f[4][TERMS][4];
+    split_fragments<TERMS>(s, f);
+    wg_fence();  // (2) the fragments were written above
+    wg_hold(dq);
+    wgmma_split<TERMS>(dq, f, smem_desc(sK + st * kTileBytes));
+    wg_commit();
+    wg_wait_all();
+    wg_hold(dq);
+    __syncthreads();  // this stage is free for the copy two tiles on
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out0);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (r[hr] >= S) continue;  // (5)
+    store_row(out + (((long long)b * S + r[hr]) * a.H + h) * 64, dq, hr, 1.f,
+              lane);
+  }
+}
+
 template <int TERMS>
 __global__ void __launch_bounds__(kTcThreads)
 flash_dkv_wgmma_kernel(const Args a) {
@@ -1043,6 +1157,7 @@ flash_dkv_wgmma_kernel(const Args a) {
 }
 
 constexpr size_t kFwdTcSmem = 5 * kTileBytes + 1024;
+constexpr size_t kDqTcSmem = 6 * kTileBytes + 1024;
 constexpr size_t kDkvTcSmem = 6 * kTileBytes + 2 * 128 * sizeof(float) + 1024;
 
 // ---------------------------------------------------------------- launch
@@ -1101,7 +1216,7 @@ cudaError_t launch(Kind kind, const Args& a, cudaStream_t stream) {
                           stream);
 }
 
-// The tensor-core route: bf16 at D 64, forward and dK/dV. (4) Every row a
+// The tensor-core route: bf16 at D 64, all three kernels. (4) Every row a
 // cp.async copy reads must start on 16 bytes: the pointers and the
 // (batch, seq, head) strides of q, k, v (and dout) must be multiples of 16
 // bytes (8 elements). Anything else is refused, never rerouted.
@@ -1121,6 +1236,12 @@ cudaError_t launch_tc(Kind kind, const Args& a, cudaStream_t stream) {
                                   kFwdTcSmem, a, stream)
                : launch_with_smem(flash_fwd_wgmma_kernel<3>, grid, kTcThreads,
                                   kFwdTcSmem, a, stream);
+  }
+  if (kind == kDq) {
+    return one ? launch_with_smem(flash_dq_wgmma_kernel<1>, grid, kTcThreads,
+                                  kDqTcSmem, a, stream)
+               : launch_with_smem(flash_dq_wgmma_kernel<3>, grid, kTcThreads,
+                                  kDqTcSmem, a, stream);
   }
   return one ? launch_with_smem(flash_dkv_wgmma_kernel<1>, grid, kTcThreads,
                                 kDkvTcSmem, a, stream)
@@ -1154,7 +1275,7 @@ int run(Kind kind, Args& a, const long long* strides, int head_dim,
   a.sdo = {strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The route, from the dtype and head dim alone (see the note at the top).
-  if (dtype == 1 && head_dim == 64 && kind != kDq) return launch_tc(kind, a, s);
+  if (dtype == 1 && head_dim == 64) return launch_tc(kind, a, s);
   if (dtype == 0) return dispatch_d<float>(kind, head_dim, a, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(kind, head_dim, a, s);
   return cudaErrorInvalidValue;

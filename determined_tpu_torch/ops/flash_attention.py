@@ -8,10 +8,10 @@ the model's `[B, S, H, D]`. Implementations, selected by
   - `kernel`: the hand-written CUDA kernels in ops/csrc/flash_attention.cu,
     the port of the JAX package's Pallas kernels (`pallas` there, and
     `pallas` is accepted here as another spelling of `kernel`). bf16 inputs
-    at D 64 run the forward and dK/dV kernels on the tensor cores (wgmma,
-    the products with P or dS split exactly into three bf16 terms, see
-    `split_bf16`); fp32 inputs, D 128 and 256, and the dQ kernel run on
-    CUDA cores (FFMA). The forward kernel writes `o` and the per-row
+    at D 64 run all three kernels on the tensor cores (wgmma, the products
+    with P or dS split exactly into three bf16 terms, see `split_bf16`);
+    fp32 inputs and D 128 and 256 run on CUDA cores (FFMA). The forward
+    kernel writes `o` and the per-row
     `lse`; `_FlashAttention`, a `torch.autograd.Function`, saves `(q, k,
     v, o, lse)` and its backward computes `delta = rowsum(dO * O)` in
     plain torch, then launches the dQ kernel and the dK/dV kernel. The

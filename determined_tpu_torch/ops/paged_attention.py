@@ -11,9 +11,12 @@ table at the trash block (the pool's last) and sit at position 0.
     lane (`pool[table]`) and then the arithmetic of the dense decode step:
     fp32 logits, the `idx <= pos` mask, fp32 softmax, probabilities cast to
     `q.dtype`. The CPU path, and what the kernel is held against.
-  - `paged_attention_cuda`: the wrapper of the hand-written CUDA kernel
-    (ops/csrc/paged_attention.cu). It takes CUDA tensors only and raises on
-    anything else; `launches` counts its kernel launches.
+  - `paged_attention_cuda`: the wrapper of the hand-written CUDA kernels
+    (ops/csrc/paged_attention.cu): each context is split into chunks of
+    `SPLIT_KEYS` keys, one thread block per (slot, head, chunk), and a
+    second kernel merges the chunks' partial softmax states in a fixed
+    order. It takes CUDA tensors only and raises on anything else;
+    `launches` counts its calls (one a layer a decode step).
   - `paged_decode_attention(..., impl)`: the dispatcher the decode step
     calls. `"kernel"` launches the kernel, `"reference"` runs the plain
     version, `"auto"` picks by the tensors' device.
@@ -30,6 +33,10 @@ from determined_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_BLOCK_SIZE = 128
+# Keys of one split of a context (a multiple of every block size the
+# kernels take): ceil(max_blocks * block_size / SPLIT_KEYS) thread blocks
+# per (slot, head).
+SPLIT_KEYS = 512
 
 
 def paged_attention_reference(
@@ -107,6 +114,17 @@ def _check_layout(q, k_pool, v_pool, block_tables, positions) -> None:
         raise ValueError(
             f"paged_attention_cuda: block_size {bs} is not a power of two "
             f"<= {MAX_BLOCK_SIZE}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"paged_attention_cuda: {name}'s data pointer is not 16-byte "
+                "aligned (the kernel reads rows with 16-byte loads)")
+
+
+def num_splits(max_blocks: int, block_size: int) -> int:
+    """Chunks of `SPLIT_KEYS` keys a context of `max_blocks` blocks is cut
+    into: the kernel's grid depth, and the partials the workspace holds."""
+    return -(-max_blocks * block_size // SPLIT_KEYS)
 
 
 def _library() -> ctypes.CDLL:
@@ -114,8 +132,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.dtt_paged_attention
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                       ctypes.c_float, vp]
+        fn.argtypes = [vp] * 7 + [ci] * 8 + [ctypes.c_float, vp]
         fn.restype = ci
         lib.dtt_error_string.argtypes = [ci]
         lib.dtt_error_string.restype = ctypes.c_char_p
@@ -129,23 +146,28 @@ def paged_attention_cuda(
     block_tables: torch.Tensor,  # [slots, max_blocks] int32
     positions: torch.Tensor,     # [slots] int32, each >= 0
 ) -> torch.Tensor:
-    """Launch the CUDA paged decode-attention kernel -> [slots, H, Dh].
+    """Launch the CUDA paged decode-attention kernels -> [slots, H, Dh].
 
     Runs on `torch.cuda.current_stream()` and does not synchronise. Raises
-    on a CPU tensor, a dtype, shape or layout the kernel does not take, and
+    on a CPU tensor, a dtype, shape or layout the kernels do not take, and
     on a refused launch: there is no fallback to the plain version."""
     _check(q, k_pool, v_pool, block_tables, positions)
     lib = _library()
     slots, nh, dh = q.shape
     p, bs = k_pool.shape[:2]
+    mb = block_tables.shape[1]
     out = torch.empty_like(q)
+    n_splits = num_splits(mb, bs)
+    # Each split's partial (acc[Dh], m, l) in fp32; unused with one split.
+    ws = (torch.empty(slots * nh * n_splits * (dh + 2), dtype=torch.float32,
+                      device=q.device) if n_splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dtt_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            slots, nh, dh, bs, block_tables.shape[1], p,
-            _DTYPE_CODES[q.dtype], 1.0 / (dh ** 0.5), stream)
+            None if ws is None else ws.data_ptr(), slots, nh, dh, bs, mb, p,
+            SPLIT_KEYS, _DTYPE_CODES[q.dtype], 1.0 / (dh ** 0.5), stream)
     if err != 0:
         raise RuntimeError(
             "paged_attention_cuda: launch failed: "

@@ -8,7 +8,8 @@ The file imports no JAX, so it also runs on a GPU host without JAX:
 Tolerances against the plain version on the same GPU tensors: fp32
 atol=rtol=1e-5 (another summation order); bf16 atol=rtol=2e-2 (the kernel
 keeps the probabilities in fp32 where the plain version casts them to
-bf16).
+bf16). The paged kernel's splits merge in a fixed order and the flash
+backward uses no atomics, so repeated launches are bit-identical.
 """
 
 import dataclasses
@@ -62,6 +63,32 @@ def test_kernel_matches_plain_version(cuda, dtype, dh, bs):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh, bs", [(16, 1), (32, 8), (64, 16), (128, 32),
+                                    (256, 128)])
+@pytest.mark.parametrize("slots", [1, 8])
+def test_split_kernel_long_contexts_at_split_edges(cuda, dtype, dh, bs,
+                                                   slots):
+    """Contexts of 4096 keys (16 splits of `SPLIT_KEYS`), positions at the
+    splits' edges; two launches on the same inputs are bit-identical (the
+    splits merge in a fixed order)."""
+    keys = 4096
+    q, kp, vp, tables, pos = _inputs(slots, 2, dh, bs, keys // bs, dtype,
+                                     seed=dh + slots)
+    edge = pa.SPLIT_KEYS
+    fixed = [keys - 1, edge - 1, edge, edge + 1, 2 * edge, 3 * edge - 1, 1]
+    pos[:len(fixed[:slots])] = torch.tensor(fixed[:slots], device="cuda")
+    if slots > 1:
+        pos[-1] = 0
+    out = pa.paged_attention_cuda(q, kp, vp, tables, pos)
+    again = pa.paged_attention_cuda(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = pa.paged_attention_reference(q, kp, vp, tables, pos)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, kp, vp, tables, pos = _inputs(2, 2, 64, 16, 4, torch.float32, 0)
     with pytest.raises(ValueError, match="not cuda"):
@@ -71,6 +98,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
             0, 1), kp, vp, tables, pos)
     with pytest.raises(ValueError, match="int32"):
         pa.paged_attention_cuda(q, kp, vp, tables.long(), pos)
+    # The kernel reads rows with 16-byte loads: an 8-byte offset pool.
+    flat = torch.zeros(kp.numel() + 2, device="cuda")
+    shifted = flat[2:].view(kp.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attention_cuda(q, shifted, vp, tables, pos)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention_cuda(q[..., :48].contiguous(),
+                                kp[..., :48].contiguous(),
+                                vp[..., :48].contiguous(), tables, pos)
 
 
 def test_engine_kernel_greedy_equals_reference_engine(cuda):
@@ -175,24 +211,31 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, bf16, b, s, h, d,
     (1, 200, 2, True), (2, 256, 3, True), (1, 256, 2, False)])
 def test_wgmma_route_differs_from_plain_only_at_rounding_ties(cuda, b, s, h,
                                                               causal):
-    """bf16 at D 64 runs the forward and dK/dV on the tensor cores with P
-    and dS split exactly into three bf16 terms: at most 0.5 % of the bf16
-    values of o, dk and dv differ from the fp32 plain version's (a
-    calibration run on an H100 measured 0.01-0.11 %). Run with one term
-    (P and dS rounded to bf16 once, `bf16=True` on the same tensors) they
-    must differ in more (38-42 % measured at the training shape)."""
+    """bf16 at D 64 runs all three kernels on the tensor cores with P and
+    dS split exactly into three bf16 terms: at most 0.5 % of the bf16
+    values of o, dq, dk and dv differ from the fp32 plain version's (a
+    calibration run on an H100 measured 0.01-0.11 %; dq without its first
+    row when causal, whose exact value is 0 and which both versions hold as
+    fp32 noise). Run with one term (P and dS rounded to bf16 once,
+    `bf16=True` on the same tensors) they must differ in more (38-42 %
+    measured at the training shape)."""
     from determined_tpu_torch.ops import flash_attention as fa
 
     q, k, v, dout = _flash_inputs(b, s, h, 64, torch.bfloat16, seed=s + 1)
     o, lse = fa.flash_fwd_cuda(q, k, v, causal)
     delta = fa.flash_delta(dout, o)
-    got = (o, *fa.flash_dkv_cuda(q, k, v, dout, lse, delta, causal))
+    rows = slice(1, None) if causal else slice(None)
+    got = (o, fa.flash_dq_cuda(q, k, v, dout, lse, delta, causal)[:, rows],
+           *fa.flash_dkv_cuda(q, k, v, dout, lse, delta, causal))
     one_term = (fa.flash_fwd_cuda(q, k, v, causal, True)[0],
+                fa.flash_dq_cuda(q, k, v, dout, lse, delta, causal,
+                                 True)[:, rows],
                 *fa.flash_dkv_cuda(q, k, v, dout, lse, delta, causal, True))
     torch.cuda.synchronize()
     want = (fa.flash_fwd_reference(q, k, v, causal)[0],
+            fa.flash_dq_reference(q, k, v, dout, lse, delta, causal)[:, rows],
             *fa.flash_dkv_reference(q, k, v, dout, lse, delta, causal))
-    for name, g, x, w in zip(("o", "dk", "dv"), got, one_term, want):
+    for name, g, x, w in zip(("o", "dq", "dk", "dv"), got, one_term, want):
         share = float((g != w).float().mean())
         share_one = float((x != w).float().mean())
         assert share <= 0.005, (name, share)
