@@ -52,14 +52,33 @@ fails:
      The three kernels run with one term of the split on the same tensors
      (P and dS rounded once) must differ in at least 10x that share: the
      one rounding atol 1e-3 cannot see in o.
-  5. serving at full width: GPT-2 small (124M, random weights from a seed)
-     saved with `save_params_npz`, served through `build_replica` and
-     `ServingServer` in bf16 (8 slots, max_seq_len 1024, KV block 16,
-     prefix cache on). Eight concurrent requests share a 256-token prefix
+  5. serving at full width through CUDA graphs: GPT-2 small (124M, random
+     weights from a seed) saved with `save_params_npz`, served through
+     `build_replica` and `ServingServer` in bf16 (8 slots, max_seq_len
+     1024, KV block 16, prefix cache on). `compile()` must have captured
+     decode (holding the paged kernel's 12 launches), every prefill bucket
+     and the block copy. Eight concurrent requests share a 256-token prefix
      and carry distinct 32-token suffixes (64 new tokens, temperature 0),
      plus one at temperature 0.8. Every response must be 200 with 64
-     tokens, the prefix cache must hit, every decode step must launch the
-     paged kernel once per layer, and its plain version must never run.
+     tokens, the prefix cache must hit, every replayed decode step must
+     launch the paged kernel once per layer (`attention_launches == 12 x
+     decode_steps`), and its plain version must never run. Then, in turns
+     with new prompts, the same burst with the engine's functions called
+     eagerly (no graphs) and through the graphs again: decode step p50,
+     tokens/s and TTFT of each; and one decode step at a fixed state (8
+     slots at position 320) as a replay and as `paged_decode_step` called
+     eagerly: host time, and device time under torch.profiler.
+ 5b. graphs against eager calls at full width: GPT-2 small in fp32, then
+     bf16, 8 slots, max_seq_len 1024: two prefills (buckets 512 and 64,
+     the second after a 256-token prefix-cache hit) and 16 decode steps
+     through the engine's graphs and through the module functions eagerly
+     on a copy of the same pool. Greedy tokens must be equal, fp32 logits
+     within 1e-3 (phase 6's bound); whether they are bitwise equal is
+     printed.
+ 5c. the dense layout at full width: GPT-2 small fp32, `attention_impl:
+     dense`, captured like the paged engine: the same two prompts (no
+     prefix hit) and 16 decode steps must give the paged engine's greedy
+     tokens, logits within 1e-3.
   6. serving parity: the same weights in fp32, one prompt, 16 decode steps
      through the kernel and through the plain version (teacher-forced on
      the kernel run's tokens); the logits must agree to atol 1e-3.
@@ -75,6 +94,14 @@ fails:
      checkpoint that `restore_state` reads back bit-identical; the
      profiled steps must show all three flash kernels on their
      tensor-core (wgmma) kernel functions.
+ 7b. a replica restored from phase 7's checkpoints: `build_replica` with
+     `checkpoint: latest` and one adapter, a second committed checkpoint of
+     the trained params with `wte` perturbed from the seed; a newer
+     checkpoint is committed and corrupted first, and `latest` must fall
+     back past it. GPT-2 small fp32, 8 slots, max_seq_len 256. Requests for
+     the base and the adapter answered over HTTP (200, routed by name);
+     the adapter-routed logits must equal a direct replica of the
+     fine-tune's full params within fp32 1e-3, and differ from the base's.
   8. training parity in fp32: the same GPT-2 small-width params (2 layers)
      and batches through the kernels and through the plain attention.
      Every leaf's step-0 gradient must agree to 1e-5 of that leaf's
@@ -96,7 +123,8 @@ fails:
      at 989 TFLOP/s bf16, a product with P or dS in it counted as three
      bf16 products (`flash_bound`). Each flash kernel is timed again with
      `bf16=True`, which rounds P and dS as SDPA does. Then the
-     main paths: the decode step, tokens/s and TTFT of serving; the
+     main paths: the decode step, tokens/s and TTFT of serving, through
+     the graphs and eager; the
      training step of `Trainer.fit` as it runs (its `steps_per_second`
      over the report windows after the first), tokens/s, MFU
      (`flops_per_token` against 989 TFLOP/s), and the device's idle share
@@ -514,7 +542,40 @@ def write_model(workdir):
     return path
 
 
-def phase_serve(workdir, ckpt):
+def serve_burst(url, rng, vocab):
+    """The phase's traffic over HTTP: 8 concurrent requests sharing a
+    256-token prefix with distinct 32-token suffixes (64 new tokens,
+    temperature 0), plus one unrelated at temperature 0.8. Checks every
+    answer -> (responses, wall seconds)."""
+    prefix = rng.integers(0, vocab, 256).tolist()
+    bodies = [{"tokens": prefix + rng.integers(0, vocab, 32).tolist(),
+               "max_new_tokens": 64, "temperature": 0.0} for _ in range(8)]
+    bodies.append({"tokens": rng.integers(0, vocab, 64).tolist(),
+                   "max_new_tokens": 64, "temperature": 0.8})
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+        results = list(pool.map(
+            lambda b: _post(url + "/v1/generate", b), bodies))
+    wall = time.perf_counter() - t0
+    for i, (status, body) in enumerate(results):
+        if status != 200:
+            fail(f"request {i}: HTTP {status} {body}")
+        toks = body["tokens"]
+        if len(toks) != 64 or not all(0 <= t < vocab for t in toks):
+            fail(f"request {i}: {len(toks)} tokens, expected 64 in "
+                 f"[0, {vocab})")
+    return [body for _, body in results], wall
+
+
+def burst_summary(bodies, wall, step_s):
+    tokens = sum(len(b["tokens"]) for b in bodies)
+    return {"decode_step_ms": statistics.median(step_s) * 1e3,
+            "decode_steps": len(step_s), "tokens_per_s": tokens / wall,
+            "tokens": tokens, "wall_s": wall,
+            "ttft_p50_ms": statistics.median(b["ttft_ms"] for b in bodies)}
+
+
+def phase_serve(workdir, ckpt, card):
     import numpy as np
 
     from determined_tpu_torch.ops.paged_attention import (
@@ -552,70 +613,371 @@ def phase_serve(workdir, ckpt):
 
     engine.decode = timed_decode
     batcher.start()
-    say(f"[serve] replica built and warmed in {time.monotonic() - t0:.1f} s: "
-        f"{json.dumps(engine.compile_stats)}")
+    say(f"[serve] replica built and captured in {time.monotonic() - t0:.1f} "
+        f"s: {json.dumps(engine.compile_stats)}")
+    n_layer = engine.cfg.n_layer
+    graphs = engine.stats()["cuda_graphs"]
+    want = {"decode", "copy_block"} | {
+        f"prefill_{b}" for b in engine.prefill_buckets}
+    say(f"[serve] CUDA graphs captured (paged-kernel launches each holds): "
+        f"{graphs}")
+    if set(graphs) != want or graphs["decode"] != n_layer:
+        fail(f"captured graphs {graphs}: expected {sorted(want)} with "
+             f"{n_layer} paged launches in decode")
     server = ServingServer(batcher, host="127.0.0.1", port=0).start()
     url = f"http://127.0.0.1:{server.port}"
+    vocab = engine.cfg.vocab_size
+    rng = np.random.default_rng(SEED)
+    captured = engine._graphs
+    runs = {"graph": [], "eager": []}
     try:
-        rng = np.random.default_rng(SEED)
-        vocab = engine.cfg.vocab_size
-        prefix = rng.integers(0, vocab, 256).tolist()
-        bodies = [{"tokens": prefix + rng.integers(0, vocab, 32).tolist(),
-                   "max_new_tokens": 64, "temperature": 0.0}
-                  for _ in range(8)]
-        bodies.append({"tokens": rng.integers(0, vocab, 64).tolist(),
-                       "max_new_tokens": 64, "temperature": 0.8})
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
-            results = list(pool.map(
-                lambda b: _post(url + "/v1/generate", b), bodies))
-        wall = time.perf_counter() - t0
-        for i, (status, body) in enumerate(results):
-            if status != 200:
-                fail(f"request {i}: HTTP {status} {body}")
-            toks = body["tokens"]
-            if len(toks) != 64 or not all(0 <= t < vocab for t in toks):
-                fail(f"request {i}: {len(toks)} tokens, expected 64 in "
-                     f"[0, {vocab})")
-        say(f"[serve] {len(results)} requests answered 200 with 64 tokens "
-            "each")
+        bodies, wall = serve_burst(url, rng, vocab)
         status, raw = _get(url + "/v1/stats")
         stats = json.loads(raw)
+        wrapper_launches = paged_attention_cuda.launches
+        ref_calls = paged_attention_reference.calls
         m_status, metrics = _get(url + "/metrics")
         h_status, health = _get(url + "/healthz")
         if (status, m_status, h_status) != (200, 200, 200):
             fail(f"stats/metrics/healthz: {status}/{m_status}/{h_status}")
         if b"det_serve_prefix_cache_hit_rate" not in metrics:
             fail("/metrics lacks det_serve_prefix_cache_hit_rate")
+        say(f"[serve] {len(bodies)} requests answered 200 with 64 tokens "
+            "each")
+        runs["graph"].append(burst_summary(bodies, wall, decode_s))
+        # In turns (graph, eager, eager, graph), with new prompts each time:
+        # the same burst with the engine's functions called eagerly (its CPU
+        # branch: no graphs) and through the graphs. The eager runs launch
+        # the kernel through its wrapper: timing runs do not count.
+        for mode in ("eager", "eager", "graph"):
+            engine._graphs = None if mode == "eager" else captured
+            decode_s.clear()
+            bodies_m, wall_m = serve_burst(url, rng, vocab)
+            runs[mode].append(burst_summary(bodies_m, wall_m, decode_s))
     finally:
+        engine._graphs = captured
         server.stop()
         batcher.stop()
     kv = stats["kv_blocks"]
     est = stats["engine"]
-    launches = paged_attention_cuda.launches
+    replayed = est["attention_launches"]
+    # + the decode graph's one replay at compile (not through decode()).
+    launches = wrapper_launches + replayed + graphs["decode"]
     say(f"[serve] kv_blocks: prefix_hit_tokens={kv['prefix_hit_tokens']} "
         f"prefix_hits={kv['prefix_hits']} hit_rate="
         f"{kv['prefix_cache_hit_rate']}")
     say(f"[serve] decode_steps={est['decode_steps']} attention_launches="
-        f"{est['attention_launches']} (kernel launches on the whole path, "
-        f"warm-up included: {launches}) reference calls="
-        f"{paged_attention_reference.calls}")
+        f"{replayed} (replayed from the decode graph); paged kernel launches "
+        f"on the whole path: {launches} ({wrapper_launches} through the "
+        f"wrapper: the warm-up and the capture; {graphs['decode']} in the "
+        f"replay at compile) reference calls={ref_calls}")
     if kv["prefix_hit_tokens"] <= 0:
         fail("the shared 256-token prefix never hit the prefix cache")
-    n_layer = engine.cfg.n_layer
-    if est["decode_steps"] <= 0 or \
-            est["attention_launches"] != n_layer * est["decode_steps"]:
-        fail(f"attention_launches {est['attention_launches']} != "
-             f"{n_layer} x decode_steps {est['decode_steps']}")
-    if paged_attention_reference.calls != 0:
-        fail(f"the plain version ran {paged_attention_reference.calls} "
-             "times on the serving path")
-    ttft = statistics.median(body["ttft_ms"] for _, body in results)
-    tokens = sum(len(body["tokens"]) for _, body in results)
-    return {"launches": launches, "decode_step_ms": statistics.median(
-        decode_s) * 1e3, "decode_steps": len(decode_s),
-        "tokens_per_s": tokens / wall, "tokens": tokens, "wall_s": wall,
-        "ttft_p50_ms": ttft}
+    if est["decode_steps"] <= 0 or replayed != n_layer * est["decode_steps"]:
+        fail(f"attention_launches {replayed} != {n_layer} x decode_steps "
+             f"{est['decode_steps']}")
+    if ref_calls != 0:
+        fail(f"the plain version ran {ref_calls} times on the serving path")
+    for mode in ("graph", "eager"):
+        for i, r in enumerate(runs[mode]):
+            say(f"[serve] [{card}] burst {mode} #{i + 1}: decode step p50 "
+                f"{r['decode_step_ms']:.3f} ms over {r['decode_steps']} "
+                f"steps, {r['tokens_per_s']:.1f} tokens/s ({r['tokens']} "
+                f"tokens in {r['wall_s']:.2f} s), TTFT p50 "
+                f"{r['ttft_p50_ms']:.1f} ms")
+    steps = decode_step_times(engine, card)
+    paged_attention_cuda.launches = wrapper_launches
+    del engine, batcher, captured
+    _free_cuda()
+    return {"launches": launches, "runs": runs, "steps": steps,
+            **runs["graph"][0]}
+
+
+def _free_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_step_times(engine, card, n=30):
+    """One decode step two ways at one state of the serving engine (8
+    slots at position 320 over their own blocks, greedy): the replayed
+    graph (`engine.decode`: inputs copied in, replay, sample, one
+    device-to-host copy) and `smodel.paged_decode_step` called eagerly on
+    the same engine state, then the same sampler and copy. Host clock
+    around each step, in turns (graph, eager, eager, graph); then the
+    device time of one step each: CUDA events around 20 back-to-back
+    replays of the decode graph alone, and torch.profiler over 5 steps of
+    each (kernel time summed, kernels counted)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from determined_tpu_torch.serve import model as smodel
+
+    slots, mb = engine.slots, engine.max_blocks_per_seq
+    tables = np.arange(slots * mb, dtype=np.int32).reshape(slots, mb)
+    engine._tables[:] = tables
+    tokens = np.random.default_rng(SEED + 9).integers(
+        0, engine.cfg.vocab_size, slots).astype(np.int32)
+    positions = np.full((slots,), 320, np.int32)
+    temps = np.zeros((slots,), np.float32)
+    dev = engine.device
+    t_tokens, t_pos, t_tables = (torch.from_numpy(a).to(dev)
+                                 for a in (tokens, positions, tables))
+    t_temps = torch.from_numpy(temps).to(dev)
+
+    def graph_step():
+        return engine.decode(tokens, positions, temps)
+
+    def eager_step():
+        with torch.inference_mode():
+            logits = smodel.paged_decode_step(
+                engine.params, engine._cache, t_tokens, t_pos, t_tables,
+                engine.cfg, attention_impl=engine.attention_impl)[1]
+            return smodel.sample(logits, t_temps, engine._generator).cpu()
+
+    fns = {"graph": graph_step, "eager": eager_step}
+    host = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        fns[mode]()
+        for _ in range(n):
+            t = time.perf_counter()
+            fns[mode]()
+            host[mode].append(time.perf_counter() - t)
+    graph = engine._graphs["decode"][0]
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(20):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    replay_ms = e0.elapsed_time(e1) / 20
+    device = {}
+    for mode, fn in fns.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        us, kernels, top = 0.0, 0, []
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            t = ev.self_cuda_time_total if t is None else t
+            if t > 0:
+                us += t
+                kernels += ev.count
+                top.append((t / 1e3 / 5, ev.count / 5, ev.key))
+        device[mode] = {"device_ms": us / 1e3 / 5, "kernels": kernels / 5,
+                        "top": sorted(top, reverse=True)[:8]}
+    out = {mode: {"host_p50_ms": statistics.median(v) * 1e3, **device[mode]}
+           for mode, v in host.items()}
+    out["replay_event_ms"] = replay_ms
+    for mode in ("graph", "eager"):
+        r = out[mode]
+        say(f"[serve] [{card}] decode step at 8 slots, position 320, "
+            f"{mode}: host p50 {r['host_p50_ms']:.3f} ms over {2 * n} steps; "
+            f"device {r['device_ms']:.3f} ms a step in {r['kernels']:.0f} "
+            f"kernels (torch.profiler, 5 steps; sampler and copies included)")
+        for ms, count, name in r["top"]:
+            say(f"[serve]   {ms:7.4f} ms a step in {count:5.1f} kernels  "
+                f"{name[:100]}")
+    say(f"[serve] [{card}] one replay of the decode graph alone: "
+        f"{replay_ms:.3f} ms of device time (CUDA events, 20 replays back "
+        "to back)")
+    return out
+
+
+# ------------------------------------------------------------ phase 5b, 5c
+
+
+class EagerTwin:
+    """The module functions called eagerly on a copy of an engine's paged
+    cache, with the inputs the engine's graphs read: the graphs' yardstick.
+    It takes the engine's block tables as they stand after each prefill."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.cache = {k: v.clone() for k, v in engine._cache.items()}
+
+    def prefill_logits(self, slot, tokens, block_table, cached_len):
+        import torch
+
+        from determined_tpu_torch.serve import model as smodel
+
+        e, dev = self.engine, self.engine.device
+        suffix = tokens[cached_len:]
+        padded = torch.zeros(e.bucket_for(len(suffix)), dtype=torch.int32,
+                             device=dev)
+        padded[:len(suffix)] = torch.from_numpy(suffix).to(dev)
+        table = torch.from_numpy(block_table).to(dev)
+        with torch.inference_mode():
+            return smodel.paged_prefill(e.params, self.cache, padded,
+                                        len(suffix), cached_len, table,
+                                        e.cfg)[1]
+
+    def decode_logits(self, tokens, positions):
+        import torch
+
+        from determined_tpu_torch.serve import model as smodel
+
+        e, dev = self.engine, self.engine.device
+        t, p, tbl = (torch.from_numpy(a).to(dev)
+                     for a in (tokens, positions, e._tables))
+        with torch.inference_mode():
+            return smodel.paged_decode_step(
+                e.params, self.cache, t, p, tbl, e.cfg,
+                attention_impl=e.attention_impl)[1]
+
+
+def two_prompts(engine, rng):
+    """Prompt A (300 tokens: bucket 512) for slot 0 over slot 0's blocks;
+    prompt B = A's first 256 tokens + 40 (a prefix-cache hit of 16 blocks,
+    its suffix in bucket 64) for slot 1, sharing A's first 16 blocks."""
+    import numpy as np
+
+    a = rng.integers(0, engine.cfg.vocab_size, 300).astype(np.int32)
+    b = np.concatenate([a[:256], rng.integers(0, engine.cfg.vocab_size, 40)
+                        ]).astype(np.int32)
+    mb = engine.max_blocks_per_seq
+    table_a = np.arange(mb, dtype=np.int32)
+    table_b = np.concatenate([table_a[:16], np.arange(
+        2 * mb, 3 * mb - 16, dtype=np.int32)])
+    return ((0, a, table_a, 0), (1, b, table_b, 256))
+
+
+def generate_logits(engine, prompts, steps, twin=None):
+    """Greedy generation through `engine.prefill_logits` / `decode_logits`
+    (the graphs) of `prompts` [(slot, tokens, table, cached_len)], and the
+    same inputs through `twin` when given (fed the engine's tokens) ->
+    (tokens per slot, engine logits, twin logits, all steps' equal argmax)."""
+    import numpy as np
+
+    slots = engine.slots
+    last = np.zeros((slots,), np.int32)
+    positions = np.zeros((slots,), np.int32)
+    got, want, same = [], [], True
+    for slot, tokens, table, cached in prompts:
+        g = engine.prefill_logits(slot, tokens, block_table=table,
+                                  cached_len=cached).clone()
+        got.append(g[None])
+        if twin is not None:
+            w = twin.prefill_logits(slot, tokens, table, cached)
+            want.append(w[None])
+            same &= int(w.argmax()) == int(g.argmax())
+        last[slot], positions[slot] = int(g.argmax()), len(tokens)
+    active = [slot for slot, *_ in prompts]
+    out_tokens = {slot: [int(last[slot])] for slot in active}
+    for _ in range(steps):
+        g = engine.decode_logits(last, positions)[active].clone()
+        got.append(g)
+        if twin is not None:
+            w = twin.decode_logits(last, positions)[active]
+            want.append(w)
+            same &= bool((w.argmax(-1) == g.argmax(-1)).all())
+        nxt = g.argmax(-1).int().cpu().numpy()
+        for i, slot in enumerate(active):
+            last[slot] = nxt[i]
+            positions[slot] += 1
+            out_tokens[slot].append(int(nxt[i]))
+    for slot in active:
+        engine.release_slot(slot)
+    return out_tokens, got, want, same
+
+
+def max_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def phase_graph_vs_eager(ckpt, card):
+    """GPT-2 small at full width, fp32 then bf16, 8 slots, max_seq_len
+    1024: two prefills (buckets 512 and 64, the second a prefix-cache hit)
+    and 16 decode steps through the engine's graphs and through the module
+    functions eagerly on a copy of the same pool. Greedy tokens must be
+    equal; fp32 logits within 1e-3 (phase 6's bound). Returns the fp32
+    engine's greedy generation for phase 5c."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.serve.engine import ServingEngine
+
+    params = gpt2.load_params_npz(ckpt)
+    fp32_ref = None
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(gpt2.Config.small(), dtype=dtype)
+        engine = ServingEngine(params, cfg, slots=8, max_seq_len=1024,
+                               kv_block_size=16, seed=SEED, device="cuda")
+        t0 = time.monotonic()
+        engine.compile()
+        capture_s = time.monotonic() - t0
+        prompts = two_prompts(engine, np.random.default_rng(SEED + 10))
+        toks, got, want, same = generate_logits(
+            engine, prompts, 16, twin=EagerTwin(engine))
+        worst = max_diff(got, want)
+        bitwise = all(torch.equal(x, y) for x, y in zip(got, want))
+        say(f"[graphs] [{card}] GPT-2 small {str(dtype)[6:]}: captured in "
+            f"{capture_s:.1f} s; prefills (bucket 512, bucket 64 after a "
+            f"256-token prefix hit) + 16 decode steps, graph vs eager: greedy "
+            f"tokens equal {same}, max |logit diff| {worst:.3e}, bitwise "
+            f"equal {bitwise}")
+        if not same:
+            fail(f"graph and eager greedy tokens differ ({dtype})")
+        if dtype == torch.float32:
+            if worst > 1e-3:
+                fail(f"graph vs eager fp32 logits differ by {worst:.3e} > "
+                     "1e-3")
+            # Phase 5c's yardstick: the same two prompts without the
+            # prefix hit (the dense layout has no prefix cache), each over
+            # its own slot's blocks.
+            mb = engine.max_blocks_per_seq
+            no_hit = [(s, t, np.arange(s * mb, (s + 1) * mb, dtype=np.int32),
+                       0) for s, t, _, _ in prompts]
+            toks, got, _, _ = generate_logits(engine, no_hit, 16)
+            fp32_ref = (no_hit, toks, got)
+        del engine
+        _free_cuda()
+    return fp32_ref
+
+
+def phase_dense(ckpt, paged_ref, card):
+    """The dense layout at full width: GPT-2 small fp32, attention_impl
+    dense, 8 slots, max_seq_len 1024, captured like the paged engine. The
+    same two prompts must give the paged replica's greedy tokens, and
+    logits within 1e-3."""
+    import dataclasses
+
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.serve.engine import ServingEngine
+
+    cfg = dataclasses.replace(gpt2.Config.small(), dtype=torch.float32)
+    engine = ServingEngine(gpt2.load_params_npz(ckpt), cfg, slots=8,
+                           max_seq_len=1024, attention_impl="dense",
+                           seed=SEED, device="cuda")
+    engine.compile()
+    graphs = engine.stats()["cuda_graphs"]
+    prompts, want_toks, want = paged_ref
+    toks, got, _, _ = generate_logits(engine, prompts, 16)
+    worst = max_diff(got, want)
+    say(f"[dense] [{card}] GPT-2 small fp32, attention_impl dense, graphs "
+        f"{sorted(graphs)}: the two prompts (300 and 296 tokens) + 16 "
+        f"decode steps, greedy tokens equal the paged replica's "
+        f"{toks == want_toks}, max |logit diff| {worst:.3e} (atol 1e-3)")
+    if toks != want_toks or worst > 1e-3:
+        fail(f"the dense layout differs from the paged one: tokens equal "
+             f"{toks == want_toks}, max |logit diff| {worst:.3e}")
+    del engine
+    _free_cuda()
 
 
 # ------------------------------------------------------------------ phase 6
@@ -813,7 +1175,123 @@ def phase_train(workdir):
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms,
             "tokens_per_s": tokens_per_s, "mfu": mfu, "steps": n_timed,
-            "idle_share": idle, "breakdown": breakdown, "routes": routes}
+            "idle_share": idle, "breakdown": breakdown, "routes": routes,
+            "ckpt_dir": ckpt_dir}
+
+
+def phase_restored_replica(ckpt_dir, card):
+    """A replica restored from `Trainer.fit`'s own checkpoints (phase 7's
+    storage): `checkpoint: latest` for the base and one adapter, a second
+    committed checkpoint of the trained params whose `wte` is perturbed
+    from the seed (trial 1). A newer checkpoint of trial 0 is committed and
+    then corrupted first: `latest` must fall back to phase 7's. GPT-2
+    small, fp32, 8 slots, max_seq_len 256 (the capture covers 4 buckets).
+    Requests for the base and the adapter are answered over HTTP; the
+    adapter-routed logits must equal a direct replica of the fine-tune's
+    full params within fp32 1e-3 (logits, not tokens)."""
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.core._checkpoint import CheckpointContext
+    from determined_tpu_torch.ops.paged_attention import (
+        paged_attention_cuda, paged_attention_reference)
+    from determined_tpu_torch.serve.http import ServingServer
+    from determined_tpu_torch.serve.task import build_replica
+    from determined_tpu_torch.train.state import TrainState
+
+    base_ctx = CheckpointContext(ckpt_dir, trial_id=0)
+    trained_sid = base_ctx.lineage()[0]
+    trained = base_ctx.restore_params(trained_sid)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    ft = dict(trained)
+    ft["wte"] = trained["wte"] + 0.02 * torch.randn(
+        trained["wte"].shape, generator=gen)
+    ft_sid = CheckpointContext(ckpt_dir, trial_id=1).save_state(
+        TrainState(step=TRAIN_STEPS, params=ft, opt_state=None), TRAIN_STEPS)
+    bad_sid = base_ctx.save_state(
+        TrainState(step=TRAIN_STEPS + 1, params=ft, opt_state=None),
+        TRAIN_STEPS + 1)
+    victim = os.path.join(ckpt_dir, bad_sid, "state", "state.pt")
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) // 2)
+    serving = {"model_config": {"model_size": "small", "dtype": "float32"},
+               "max_batch_size": 8, "max_seq_len": 256, "kv_block_size": 16,
+               "seed": SEED}
+    storage = {"type": "shared_fs", "host_path": ckpt_dir}
+
+    # This path runs from here: its counts start at 0.
+    paged_attention_cuda.launches = 0
+    paged_attention_reference.calls = 0
+    engine, batcher = build_replica({
+        "serving": {**serving, "checkpoint": "latest",
+                    "adapters": [{"name": "ft", "checkpoint": ft_sid}]},
+        "checkpoint_storage": storage})
+    fell_back = torch.equal(engine.params["wte"].cpu(), trained["wte"])
+    say(f"[restore] lineage {base_ctx.lineage()}: the newest, {bad_sid}, "
+        f"truncated; `latest` restored {trained_sid}'s params: {fell_back}; "
+        f"adapter 'ft' from {ft_sid}")
+    if not fell_back:
+        fail("checkpoint: latest did not fall back past the corrupt newest "
+             "checkpoint")
+    batcher.start()
+    server = ServingServer(batcher, host="127.0.0.1", port=0).start()
+    url = f"http://127.0.0.1:{server.port}/v1/generate"
+    rng = np.random.default_rng(SEED + 11)
+    vocab = engine.cfg.vocab_size
+    try:
+        bodies = [{"tokens": rng.integers(0, vocab, 48).tolist(),
+                   "max_new_tokens": 32, "model": m}
+                  for m in ("base", "ft", "base", "ft")]
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            results = list(pool.map(lambda b: _post(url, b), bodies))
+        status, raw = _get(url.replace("/v1/generate", "/v1/stats"))
+        stats = json.loads(raw)
+    finally:
+        server.stop()
+        batcher.stop()
+    launches = stats["engine"]["attention_launches"]
+    ref_calls = paged_attention_reference.calls
+    for i, (code, body) in enumerate(results):
+        if code != 200 or len(body.get("tokens", [])) != 32:
+            fail(f"restored replica, request {i} ({bodies[i]['model']}): "
+                 f"HTTP {code} {body}")
+    say(f"[restore] [{card}] 4 requests over HTTP answered 200 with 32 "
+        f"tokens, routed {stats['adapter_requests']}; decode steps "
+        f"{stats['engine']['decode_steps']}, paged launches replayed "
+        f"{launches}, reference calls {ref_calls}")
+    if stats["adapter_requests"] != {"base": 2, "ft": 2} or launches <= 0 \
+            or ref_calls != 0:
+        fail(f"restored replica: routing {stats['adapter_requests']}, "
+             f"launches {launches}, reference calls {ref_calls}")
+    direct, _ = build_replica({
+        "serving": {**serving, "checkpoint": ft_sid},
+        "checkpoint_storage": storage})
+    direct.compile()
+    prompt = rng.integers(0, vocab, 40).astype(np.int32)
+    logits = {}
+    for name, eng, adapter in (("routed", engine, 1), ("direct", direct, 0)):
+        out = [eng.prefill_logits(0, prompt, adapter=adapter).clone()]
+        tokens = np.zeros((eng.slots,), np.int32)
+        positions = np.zeros((eng.slots,), np.int32)
+        for step in range(16):
+            # The direct replica is fed the routed run's tokens.
+            tokens[0] = int((logits["routed"][step] if name == "direct"
+                             else out[-1]).argmax())
+            positions[0] = len(prompt) + step
+            out.append(eng.decode_logits(tokens, positions)[0].clone())
+        logits[name] = out
+    worst = max_diff(logits["routed"], logits["direct"])
+    base_gap = float((logits["routed"][0] - engine.prefill_logits(
+        1, prompt).float()).abs().max())
+    say(f"[restore] [{card}] fp32, adapter-routed vs a direct replica of the "
+        f"fine-tune, prefill + 16 decode steps (the direct one fed the "
+        f"routed tokens): max |logit diff| {worst:.3e} (atol 1e-3); the "
+        f"adapter moves the prefill logits from the base's by {base_gap:.3f}")
+    if worst > 1e-3 or base_gap < 1e-2:
+        fail(f"adapter routing: max |logit diff| {worst:.3e} against a direct "
+             f"replica, {base_gap:.3e} against the base")
+    del engine, batcher, direct
+    _free_cuda()
 
 
 def profile_train_steps(trainer, trial, n_steps=3):
@@ -1188,17 +1666,25 @@ def main() -> int:
     workdir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
     ckpt = write_model(workdir)
-    serve = phase_serve(workdir, ckpt)
+    serve = phase_serve(workdir, ckpt, card)
+    paged_ref = phase_graph_vs_eager(ckpt, card)
+    phase_dense(ckpt, paged_ref, card)
     phase_parity(ckpt)
     train = phase_train(workdir)
+    phase_restored_replica(train["ckpt_dir"], card)
     phase_train_parity()
     paged = phase_paged_times(card)
     flash = phase_flash_times(card)
-    say(f"[times] [{card}] serving GPT-2 small bf16, 8 slots: decode step "
-        f"p50 {serve['decode_step_ms']:.3f} ms over {serve['decode_steps']} "
-        f"steps, {serve['tokens_per_s']:.1f} tokens/s ({serve['tokens']} "
-        f"tokens in {serve['wall_s']:.2f} s), TTFT p50 "
-        f"{serve['ttft_p50_ms']:.1f} ms")
+    for mode in ("graph", "eager"):
+        r = serve["runs"][mode][0]
+        say(f"[times] [{card}] serving GPT-2 small bf16, 8 slots, {mode} "
+            f"(first {mode} burst): decode step p50 "
+            f"{r['decode_step_ms']:.3f} ms over {r['decode_steps']} steps, "
+            f"{r['tokens_per_s']:.1f} tokens/s ({r['tokens']} tokens in "
+            f"{r['wall_s']:.2f} s), TTFT p50 {r['ttft_p50_ms']:.1f} ms; one "
+            f"step at 8 slots, position 320: host p50 "
+            f"{serve['steps'][mode]['host_p50_ms']:.3f} ms, device "
+            f"{serve['steps'][mode]['device_ms']:.3f} ms")
     say(f"[times] [{card}] training GPT-2 small bf16, B 8, S 1024, through "
         f"Trainer.fit: step {train['step_ms']:.2f} ms (mean over "
         f"{train['steps']} steps after the first report window), "

@@ -10,6 +10,10 @@ two-phase commit (core/_integrity.py):
   2. it then writes the manifest and the COMMIT marker and reports it
      COMPLETED, before it returns.
 
+Serving restores only the params, with no train state to shape them:
+`restore_params` (the counterpart of the serve engine's template-free
+`_restore_raw`) verifies the checkpoint and returns its `params` subtree.
+
 The write is synchronous: the JAX package's async orbax save, which defers
 the commit to a later `wait()`, is not ported (ROADMAP.md), so `wait()` has
 nothing to do and is kept only for the API. Storage ids are
@@ -135,10 +139,9 @@ class CheckpointContext:
         self._span("harness.checkpoint.commit", t1_us, storage_id=storage_id)
         return storage_id
 
-    def restore_state(self, storage_id: str, template: Any) -> Any:
-        """Read checkpoint `storage_id` back in the structure, devices and
-        dtypes of `template` (e.g. a freshly initialised TrainState).
-        Raises FileNotFoundError when it does not exist and
+    def verify(self, storage_id: str) -> str:
+        """Verify checkpoint `storage_id` before any of it is read; returns
+        its state file. Raises FileNotFoundError when it does not exist and
         CorruptCheckpoint when it fails integrity verification."""
         path = self.path_for(storage_id)
         state_file = os.path.join(path, _STATE_SUBDIR, _STATE_FILE)
@@ -146,9 +149,29 @@ class CheckpointContext:
             raise FileNotFoundError(
                 f"checkpoint {storage_id} not found at {path}")
         _integrity.verify(path, storage_id)
-        loaded = torch.load(state_file, map_location="cpu",
+        return state_file
+
+    def restore_state(self, storage_id: str, template: Any) -> Any:
+        """Read checkpoint `storage_id` back in the structure, devices and
+        dtypes of `template` (e.g. a freshly initialised TrainState).
+        Raises as `verify` does."""
+        loaded = torch.load(self.verify(storage_id), map_location="cpu",
                             weights_only=False)
         return _like(template, loaded)
+
+    def restore_params(self, storage_id: str) -> Any:
+        """The `params` subtree of checkpoint `storage_id` as saved (CPU
+        tensors), without a template: what a serve replica restores, having
+        no optimizer to build a TrainState from. Raises as `verify` does,
+        and ValueError for a checkpoint without params."""
+        loaded = torch.load(self.verify(storage_id), map_location="cpu",
+                            weights_only=False)
+        params = loaded.get("params") if isinstance(loaded, dict) else None
+        if params is None:
+            raise ValueError(
+                f"checkpoint {storage_id} has no 'params' subtree — not a "
+                "TrainState checkpoint")
+        return params
 
     def lineage(self) -> List[str]:
         """This trial's COMPLETED checkpoints, newest first, from the

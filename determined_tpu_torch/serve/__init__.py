@@ -1,15 +1,21 @@
 """GPT-2 serving on PyTorch and CUDA: paged KV, continuous batching, HTTP.
 
-Counterpart of determined_tpu/serve/ for the paged layout.
+Counterpart of determined_tpu/serve/ (warm AOT and MoE decode are not
+ported yet; ROADMAP.md).
 
 Layout:
-  model.py      paged prefill / decode steps over the KV block pool
+  model.py      prefill / decode steps over the paged KV block pool or the
+                dense slot lanes, with per-lane adapter tables
   kv_cache.py   KV block manager: paged admission accounting, refcounted
                 prefix caching, copy-on-write
-  engine.py     params + pool + block tables on the device, warm-up
+  engine.py     params + adapters + cache on the device; decode, every
+                prefill bucket and the block copy captured as CUDA graphs;
+                checkpoint restore through the integrity lineage
   scheduler.py  bounded admission queue + the continuous batcher
+  tracing.py    per-request span trees (RequestTracer)
   http.py       HTTP front-end (generate/stats/metrics/health)
-  task.py       local entry point (`python -m determined_tpu_torch.serve`)
+  task.py       replica entry point (`python -m determined_tpu_torch.serve`):
+                local, or attached to a master (heartbeat, span sink)
 
 Decode attention runs the hand-written CUDA kernel in
 ops/csrc/paged_attention.cu (ops/paged_attention.py).

@@ -27,12 +27,14 @@ sheds the request as if the queue were full; error fails the submit.
 Observability (docs/serving.md "Request latency & SLOs"): every request
 records wall-clock phase timestamps (submitted → admitted → prefill →
 first token → finished) so retire can fold it into the token-latency
-histograms — TTFT, TPOT (inter-token), e2e, queue wait. That is
-retire-time work: the decode loop itself never touches a clock beyond the
-per-step timestamps it already takes.
+histograms — TTFT, TPOT (inter-token), e2e, queue wait — and hand it to
+an attached RequestTracer (serve/tracing.py) for the per-request span
+tree. Both are retire-time work: the decode loop itself never touches a
+clock beyond the per-step timestamps it already takes.
 
-The port's copy of determined_tpu/serve/scheduler.py: the host logic is the
-same; the per-request span tracer (serve/tracing.py) is not ported yet.
+The port's copy of determined_tpu/serve/scheduler.py, with the same host
+logic. Engines are captured as CUDA graphs at `start()`, not AOT-compiled
+through a compile farm (warm AOT is not ported; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -329,14 +331,23 @@ class ContinuousBatcher:
         self.engine = engine
         self.queue = queue or AdmissionQueue()
         bm = block_manager
+        paged = engine.paged
         if bm is None:
-            # Mirror the engine's device pool exactly: tables the manager
-            # hands out index real pool blocks.
-            bm = BlockManager(num_blocks=engine.num_blocks,
-                              block_size=engine.block_size)
-        else:
+            if paged:
+                # Mirror the engine's device pool exactly: tables the
+                # manager hands out index real pool blocks.
+                bm = BlockManager(num_blocks=engine.num_blocks,
+                                  block_size=engine.block_size)
+            else:
+                # Dense layout: accounting-only pool sized to the cache
+                # (slots lanes of max_seq tokens).
+                bm = BlockManager(
+                    num_blocks=engine.slots * max(
+                        1, engine.max_seq_len // 16), block_size=16)
+        elif paged:
             # An external manager defines the geometry; sync the device
-            # pool to it before compile() allocates the pool.
+            # pool to it before compile() allocates the pool and captures
+            # the graphs.
             engine.set_block_geometry(bm.block_size, bm.num_blocks)
         self.blocks = bm
         self._idle_wait = idle_wait_s
@@ -346,6 +357,9 @@ class ContinuousBatcher:
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()  # events/counters only
         self.events: List[Tuple[str, str, int]] = []
+        # Optional per-request span tracer (serve/tracing.py), attached by
+        # the task entry point / tests; None = no request tracing.
+        self.tracer = None
         self.steps = 0
         self.active_steps = 0      # steps with >= 1 active slot
         self.occupancy_sum = 0     # sum of active slots over active steps
@@ -373,7 +387,7 @@ class ContinuousBatcher:
     def start(self) -> "ContinuousBatcher":
         if self._thread is not None:
             return self
-        # Build the kernels and warm every call before the first admit.
+        # Build the kernels and capture every call before the first admit.
         self.engine.compile()
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="serve-batcher")
@@ -479,6 +493,7 @@ class ContinuousBatcher:
         Paged engines admit through BlockManager.admit: a prompt whose
         prefix is cached reuses those blocks (refcounted) and is charged
         only its novel suffix — prefill then runs only that suffix."""
+        paged = self.engine.paged
         while True:
             free = [i for i, s in enumerate(self._slots) if s is None]
             if not free:
@@ -486,11 +501,18 @@ class ContinuousBatcher:
             req = self.queue.peek()
             if req is None:
                 return
-            admitted = self.blocks.admit(
-                req.id, req.tokens.tolist(), req.total_budget)
-            if admitted is None:
-                return  # pool exhausted: wait for a retire
-            table, cached_len, cow_pairs = admitted
+            cached_len = 0
+            cow_pairs = ()
+            if paged:
+                admitted = self.blocks.admit(
+                    req.id, req.tokens.tolist(), req.total_budget)
+                if admitted is None:
+                    return  # pool exhausted: wait for a retire
+                table, cached_len, cow_pairs = admitted
+            else:
+                table = self.blocks.allocate(req.id, req.total_budget)
+                if table is None:
+                    return  # pool exhausted: wait for a retire
             popped = self.queue.pop()
             assert popped is req, "single-consumer queue invariant"
             slot_id = free[0]
@@ -498,7 +520,9 @@ class ContinuousBatcher:
             req.admitted_us = now_us()
             req.cached_len = cached_len
             req.occupancy_at_admit = self.engine.slots - len(free) + 1
-            req.blocks_allocated = len(table)
+            req.blocks_allocated = (
+                len(table) if paged
+                else self.blocks.blocks_for_tokens(req.total_budget))
             req.bucket = self.engine.bucket_for(
                 int(req.tokens.size) - cached_len) or 0
             req.prefill_start_us = req.admitted_us
@@ -512,10 +536,15 @@ class ContinuousBatcher:
                 # a block other sequences still reference.
                 for src, dst in cow_pairs:
                     self.engine.copy_block(src, dst)
-                first = self.engine.prefill_request(
-                    slot_id, req.tokens, req.temperature,
-                    block_table=table, cached_len=cached_len,
-                    adapter=adapter)
+                if paged:
+                    first = self.engine.prefill_request(
+                        slot_id, req.tokens, req.temperature,
+                        block_table=table, cached_len=cached_len,
+                        adapter=adapter)
+                else:
+                    first = self.engine.prefill_request(
+                        slot_id, req.tokens, req.temperature,
+                        adapter=adapter)
             except Exception as e:
                 # discard=True: the blocks' K/V were never (fully)
                 # written; they must not linger in the prefix cache.
@@ -579,9 +608,10 @@ class ContinuousBatcher:
         if not admitted_only:
             self._slots[slot_id] = None
         # The retired slot keeps riding the decode batch as an inactive
-        # lane (position 0); its table must point at the trash block so
-        # that lane's dead write can never land in a block the pool hands
-        # to the next sequence.
+        # lane (position 0). Paged: its table must point at the trash block
+        # so that lane's dead write can never land in a block the pool
+        # hands to the next sequence. Either layout: its adapter goes back
+        # to base.
         self.engine.release_slot(slot_id)
         self.blocks.free(req.id)
         req._finish(notify=False)
@@ -600,7 +630,8 @@ class ContinuousBatcher:
 
     def _observe_finished(self, req: Request) -> None:
         """Retire-time observability: fold the request into the latency
-        histograms."""
+        histograms and hand it to the tracer (which samples + buffers;
+        span-sink loss can never reach the decode loop)."""
         with self._lock:
             self.e2e_hist.observe(
                 (req.finished_us - req.submitted_us) / 1e6)
@@ -614,6 +645,12 @@ class ContinuousBatcher:
                     self.tpot_hist.observe(
                         (req.finished_us - req.first_token_us) / 1e6
                         / (len(req.out_tokens) - 1))
+        tracer = self.tracer
+        if tracer is not None:
+            try:
+                tracer.record(req)
+            except Exception:
+                logger.warning("request tracer failed", exc_info=True)
 
     # -- stats ---------------------------------------------------------
 

@@ -15,6 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "determined_tpu_torch",
     "determined_tpu_torch._device",
+    "determined_tpu_torch.common.api",
     "determined_tpu_torch.common.faultpoint",
     "determined_tpu_torch.common.trace",
     "determined_tpu_torch.core",
@@ -38,6 +39,7 @@ PORT_MODULES = [
     "determined_tpu_torch.serve.model",
     "determined_tpu_torch.serve.scheduler",
     "determined_tpu_torch.serve.task",
+    "determined_tpu_torch.serve.tracing",
     "determined_tpu_torch.train",
     "determined_tpu_torch.train.health",
     "determined_tpu_torch.train.optim",
