@@ -57,7 +57,7 @@ fails:
      `build_replica` and `ServingServer` in bf16 (8 slots, max_seq_len
      1024, KV block 16, prefix cache on). `compile()` must have captured
      decode (holding the paged kernel's 12 launches), every prefill bucket
-     and the block copy. Eight concurrent requests share a 256-token prefix
+     and the block copy, and prepared the sampler (`sample_s`). Eight concurrent requests share a 256-token prefix
      and carry distinct 32-token suffixes (64 new tokens, temperature 0),
      plus one at temperature 0.8. Every response must be 200 with 64
      tokens, the prefix cache must hit, every replayed decode step must
@@ -102,6 +102,38 @@ fails:
      the base and the adapter answered over HTTP (200, routed by name);
      the adapter-routed logits must equal a direct replica of the
      fine-tune's full params within fp32 1e-3, and differ from the base's.
+     Then the same replica as a cluster runs it, a process of its own
+     (`python -m determined_tpu_torch.serve`) attached to an in-process
+     fake master: with 4 requests accepted (200 new tokens each) the
+     master answers the allocation's preemption long-poll; the replica
+     must ack, report draining, answer all 4 in full and exit 0.
+ 7c. a managed trial: phase 7's trial and hparams as a cluster trial
+     (`DET_MASTER`, `DET_TRIAL_ID`, `DET_ALLOCATION_ID`,
+     `DET_SESSION_TOKEN`, `DET_HPARAMS`, `DET_EXPERIMENT_CONFIG` with
+     `shared_fs` storage under build/smoke, set for the phase only) against
+     an in-process stdlib fake master that records every request; the
+     prefetcher and async checkpoints on, one searcher op of 30 steps, a
+     report every 5. Run A: the master answers the preemption long-poll
+     (deadline 120 s) once it has seen the report of step 15; `fit` must
+     ack, save, commit and register trial1-step15 (PARTIAL, then
+     COMPLETED) and return at step 15; its losses at steps 5, 10 and 15
+     are held to phase 7's (same init, data and kernels: atol 1e-5, and
+     whether they are bitwise equal is printed). Run B: a fresh
+     `core.init()` with `DET_LATEST_CHECKPOINT` = the registered id; the
+     checkpoint must restore A's params and Adam moments bitwise; `fit`
+     trains to 30, commits trial1-step30 and completes the op, and the
+     searcher answers `done`. The master's record must hold both
+     `run_prepare`s, training reports at 5-30, two COMPLETED checkpoints,
+     one completed op, spans and progress; the flash launches over A and
+     B must equal phase 7's formula and the plain attention never run.
+     Prints each report window's step, `input_wait_ms`, `h2d_ms` and
+     `prefetch_queue_depth`.
+ 7d. information, not a claim: 15-step fits of phase 7's trial, prefetcher
+     off and on in turns (off, on, on, off), each with an async checkpoint
+     at step 10 whose write overlaps steps 11-15: fit's step per report
+     window, and the ms the loop spent on that save (in `save_state`, and
+     blocked in the wait that committed it, from its spans), against a
+     synchronous save (`async_save` off) of the same state.
   8. training parity in fp32: the same GPT-2 small-width params (2 layers)
      and batches through the kernels and through the plain attention.
      Every leaf's step-0 gradient must agree to 1e-5 of that leaf's
@@ -129,7 +161,8 @@ fails:
      over the report windows after the first), tokens/s, MFU
      (`flops_per_token` against 989 TFLOP/s), and the device's idle share
      of that step from the device time of 3 more steps under
-     torch.profiler.
+     torch.profiler. Also the first graph burst's tokens/s against the
+     second's, and the managed trial's checkpoint costs.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
@@ -145,8 +178,10 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -615,6 +650,8 @@ def phase_serve(workdir, ckpt, card):
     batcher.start()
     say(f"[serve] replica built and captured in {time.monotonic() - t0:.1f} "
         f"s: {json.dumps(engine.compile_stats)}")
+    if "sample_s" not in engine.compile_stats:
+        fail("compile() did not prepare the sampler")
     n_layer = engine.cfg.n_layer
     graphs = engine.stats()["cuda_graphs"]
     want = {"decode", "copy_block"} | {
@@ -686,11 +723,12 @@ def phase_serve(workdir, ckpt, card):
                 f"tokens in {r['wall_s']:.2f} s), TTFT p50 "
                 f"{r['ttft_p50_ms']:.1f} ms")
     steps = decode_step_times(engine, card)
+    engine_stats = engine.compile_stats
     paged_attention_cuda.launches = wrapper_launches
     del engine, batcher, captured
     _free_cuda()
     return {"launches": launches, "runs": runs, "steps": steps,
-            **runs["graph"][0]}
+            "compile_stats": dict(engine_stats), **runs["graph"][0]}
 
 
 def _free_cuda():
@@ -1051,13 +1089,27 @@ def write_tokens(workdir, vocab, n_phrases=64, phrase_len=64,
     return path
 
 
-def phase_train(workdir):
+def train_hparams(workdir):
+    """Phase 7's hparams: GPT-2 small, S 1024, B 8, bf16, remat, lr 3e-4,
+    on the learnable token stream."""
+    return {"model_size": "small", "seq_len": 1024,
+            "global_batch_size": 8, "learning_rate": 3e-4,
+            "warmup_steps": 5, "decay_steps": 10000, "remat": True,
+            "attention_impl": "auto",
+            "tokens_path": write_tokens(workdir, 50257)}
+
+
+def gpt2_trial_class():
+    sys.path.insert(0, os.path.join(ROOT, "examples", "gpt2_cuda"))
+    from model_def import GPT2Trial
+
+    return GPT2Trial
+
+
+def phase_train(workdir, hparams):
     import shutil
 
     import torch
-
-    sys.path.insert(0, os.path.join(ROOT, "examples", "gpt2_cuda"))
-    from model_def import GPT2Trial
 
     from determined_tpu_torch import core
     from determined_tpu_torch.models import gpt2
@@ -1065,13 +1117,9 @@ def phase_train(workdir):
     from determined_tpu_torch.train import Trainer
     from determined_tpu_torch.train.trial import TrialContext
 
+    GPT2Trial = gpt2_trial_class()
     ckpt_dir = os.path.join(workdir, "train_checkpoints")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    hparams = {"model_size": "small", "seq_len": 1024,
-               "global_batch_size": 8, "learning_rate": 3e-4,
-               "warmup_steps": 5, "decay_steps": 10000, "remat": True,
-               "attention_impl": "auto",
-               "tokens_path": write_tokens(workdir, 50257)}
     ctx = core.init(max_length=TRAIN_STEPS, checkpoint_dir=ckpt_dir)
     trial = GPT2Trial(TrialContext(hparams=hparams, core_context=ctx))
     cfg = trial.cfg
@@ -1176,7 +1224,9 @@ def phase_train(workdir):
     return {"launches": launches, "step_ms": step_ms,
             "tokens_per_s": tokens_per_s, "mfu": mfu, "steps": n_timed,
             "idle_share": idle, "breakdown": breakdown, "routes": routes,
-            "ckpt_dir": ckpt_dir}
+            "ckpt_dir": ckpt_dir, "n_val": n_val,
+            "losses": {r["steps_completed"]: r["metrics"]["loss"]
+                       for r in reports}}
 
 
 def phase_restored_replica(ckpt_dir, card):
@@ -1292,6 +1342,454 @@ def phase_restored_replica(ckpt_dir, card):
              f"replica, {base_gap:.3e} against the base")
     del engine, batcher, direct
     _free_cuda()
+    replica_drains_on_preemption(
+        {**serving, "checkpoint": "latest",
+         "adapters": [{"name": "ft", "checkpoint": ft_sid}]}, storage, card)
+
+
+# ------------------------------------------------------------ phase 7c / 7d
+
+
+class FakeMaster:
+    """An in-process stdlib master speaking the endpoints a managed trial
+    and a serve replica call, every request recorded as (method, path,
+    query, body). The searcher hands out one op of `length`, then `done`;
+    COMPLETED checkpoint reports go into a registry that the lineage
+    query returns, newest first. The preemption long-poll is held until
+    `arm()` (or, with `preempt_after`, until the training report of that
+    step has arrived: that report's answer waits until the signal is out,
+    so the trial sees it at that step's poll)."""
+
+    def __init__(self, length=0, preempt_after=None, deadline_s=120):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.requests = []
+        self.registry = []
+        self.length = length
+        self.preempt_after = preempt_after
+        self.deadline_s = deadline_s
+        self._armed = threading.Event()
+        self._sent = threading.Event()
+        self._closed = threading.Event()
+        master = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _answer(self):
+                url = urllib.parse.urlsplit(self.path)
+                query = dict(urllib.parse.parse_qsl(url.query))
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n)) if n else None
+                out = master.answer(self.command, url.path, query, body)
+                data = json.dumps(out).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                if out.get("preempt"):
+                    master._sent.set()
+
+            do_GET = do_POST = _answer
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
+        threading.Thread(target=self._server.serve_forever,
+                         daemon=True).start()
+
+    def arm(self):
+        self._armed.set()
+
+    def answer(self, method, path, query, body):
+        if path.endswith("/signals/preemption"):
+            end = time.monotonic() + float(query.get("timeout_seconds", 60))
+            while not (self._armed.is_set() or self._closed.is_set()) and \
+                    time.monotonic() < end:
+                self._armed.wait(0.05)
+            if self._armed.is_set():
+                return {"preempt": True, "deadline_seconds": self.deadline_s,
+                        "reason": "chip_smoke"}
+            time.sleep(0.05)
+            return {}
+        self.requests.append((method, path, query, body))
+        if path.endswith("/searcher/operation"):
+            return ({"done": True} if int(query["last"]) >= self.length
+                    else {"op": {"length": self.length}})
+        if path == "/api/v1/checkpoints" and body["state"] == "COMPLETED":
+            self.registry.insert(0, body["uuid"])
+        if path.endswith("/checkpoints"):
+            return {"checkpoints": [{"uuid": u} for u in self.registry]}
+        if path.endswith("/metrics") and body["group"] == "training" and \
+                body["steps_completed"] == self.preempt_after and \
+                not self._armed.is_set():
+            self.arm()
+            if not self._sent.wait(30):
+                fail("the trial never long-polled for preemption")
+            time.sleep(0.2)  # the watcher takes the signal in
+        return {}
+
+    def posted(self, suffix):
+        return [b for m, p, q, b in self.requests
+                if m == "POST" and p.endswith(suffix)]
+
+    def release(self):
+        """Answer held long-polls at once, so a closing watcher exits."""
+        self._closed.set()
+
+    def close(self):
+        self.release()
+        self._server.shutdown()
+        self._server.server_close()
+
+
+class cluster_env:
+    """The `DET_*` variables an agent sets, for the `with` block only."""
+
+    def __init__(self, **env):
+        self._env = env
+
+    def __enter__(self):
+        self._saved = {k: os.environ.get(k) for k in self._env}
+        os.environ.update(self._env)
+
+    def __exit__(self, *exc):
+        for k, v in self._saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def state_tensors(state):
+    from determined_tpu_torch.core._checkpoint import _map_tensors
+
+    out = []
+    _map_tensors(state, out.append)
+    return out
+
+
+MANAGED_TRIAL = 1
+MANAGED_PREEMPT_AT = 15
+
+
+def phase_managed_trial(workdir, hparams, train, card):
+    """GPT-2 small trained as a cluster trial against an in-process fake
+    master: `core.init()` reads the `DET_*` environment, the prefetcher
+    and async checkpoints are on. Run A is preempted (deadline 120 s)
+    after the report of step 15 and must ack, save, commit and register
+    trial1-step15 and return there; its losses at 5, 10 and 15 are held
+    to phase 7's. Run B, a fresh `core.init()` with
+    `DET_LATEST_CHECKPOINT`, restores A's state bitwise, trains to 30,
+    commits trial1-step30 and completes the op; the searcher then says
+    `done`."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trial import TrialContext
+
+    GPT2Trial = gpt2_trial_class()
+    storage = os.path.join(workdir, "managed_checkpoints")
+    shutil.rmtree(storage, ignore_errors=True)
+    sid = f"trial{MANAGED_TRIAL}-step{MANAGED_PREEMPT_AT}"
+    base_env = {
+        "DET_TRIAL_ID": str(MANAGED_TRIAL), "DET_EXPERIMENT_ID": "1",
+        "DET_ALLOCATION_ID": "smoke-alloc", "DET_SESSION_TOKEN": "smoke",
+        "DET_HPARAMS": json.dumps(hparams),
+        "DET_EXPERIMENT_CONFIG": json.dumps({"checkpoint_storage": {
+            "type": "shared_fs", "host_path": storage}})}
+
+    def run(master, **extra):
+        with cluster_env(DET_MASTER=master.url, **base_env, **extra):
+            ctx = core.init()
+            if ctx.info is None or ctx.checkpoint._session is None:
+                fail("core.init() did not take the cluster environment")
+            trainer = Trainer(GPT2Trial(TrialContext(
+                hparams=ctx.hparams, core_context=ctx)), core_context=ctx)
+            return ctx, trainer
+
+    # This path runs from here: its counts start at 0.
+    for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+        fn.launches = 0
+    fa.reference_attention.calls = 0
+    master_a = FakeMaster(TRAIN_STEPS, preempt_after=MANAGED_PREEMPT_AT)
+    t0 = time.monotonic()
+    try:
+        ctx, trainer = run(master_a)
+        state_a = trainer.fit(report_period=TRAIN_REPORT_PERIOD,
+                              preempt_period=TRAIN_REPORT_PERIOD)
+        ctx.train.report_progress(state_a.step / TRAIN_STEPS)
+        master_a.release()
+        ctx.close()
+    finally:
+        master_a.close()
+    wall_a = time.monotonic() - t0
+    ckpts_a = [(c["uuid"], c["state"])
+               for c in master_a.posted("/api/v1/checkpoints")]
+    say(f"[managed] run A: fit returned at step {state_a.step} in "
+        f"{wall_a:.1f} s; preemption acked "
+        f"{len(master_a.posted('/signals/ack_preemption'))}x; checkpoint "
+        f"reports {ckpts_a}; registry {master_a.registry}")
+    if state_a.step != MANAGED_PREEMPT_AT or ckpts_a != [
+            (sid, "PARTIAL"), (sid, "COMPLETED")] or \
+            master_a.registry != [sid] or \
+            not master_a.posted("/signals/ack_preemption") or \
+            master_a.posted("/searcher/completed_operation"):
+        fail("run A did not stop at the preemption with a committed, "
+             "registered checkpoint")
+    reports_a = [b for b in master_a.posted("/metrics")
+                 if b["group"] == "training" and "loss" in b["metrics"]]
+    worst = 0.0
+    for r in reports_a:
+        step = r["steps_completed"]
+        diff = abs(r["metrics"]["loss"] - train["losses"][step])
+        worst = max(worst, diff)
+        say(f"[managed] run A step {step}: loss {r['metrics']['loss']:.6f}, "
+            f"phase 7 {train['losses'][step]:.6f}, |diff| {diff:.3e}")
+    say(f"[managed] run A losses against phase 7's: max |diff| {worst:.3e} "
+        f"(tolerance 1e-5; bitwise equal: {worst == 0.0})")
+    if [r["steps_completed"] for r in reports_a] != [5, 10, 15] or \
+            worst > 1e-5:
+        fail(f"run A's losses differ from phase 7's by {worst:.3e}")
+
+    master_b = FakeMaster(TRAIN_STEPS)
+    t0 = time.monotonic()
+    try:
+        ctx, trainer = run(master_b, DET_LATEST_CHECKPOINT=sid)
+        if ctx.latest_checkpoint != sid:
+            fail(f"DET_LATEST_CHECKPOINT read as {ctx.latest_checkpoint}")
+        restored = ctx.checkpoint.restore_state(sid, state_a)
+        got, want = state_tensors(restored), state_tensors(state_a)
+        same = len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        say(f"[managed] run B: {sid} restored bitwise equal to run A's "
+            f"final state ({len(got)} tensors: params and Adam moments): "
+            f"{same}")
+        if not same:
+            fail("the registered checkpoint differs from run A's state")
+        del restored, got, want
+        state_b = trainer.fit(report_period=TRAIN_REPORT_PERIOD,
+                              preempt_period=TRAIN_REPORT_PERIOD)
+        ctx.train.report_progress(state_b.step / TRAIN_STEPS)
+        master_b.release()
+        ctx.close()
+    finally:
+        master_b.close()
+    torch.cuda.synchronize()
+    wall_b = time.monotonic() - t0
+    launches = {"fwd": fa.flash_fwd_cuda.launches,
+                "dq": fa.flash_dq_cuda.launches,
+                "dkv": fa.flash_dkv_cuda.launches}
+    ref_calls = fa.reference_attention.calls
+    end = f"trial{MANAGED_TRIAL}-step{TRAIN_STEPS}"
+    ckpts_b = [(c["uuid"], c["state"])
+               for c in master_b.posted("/api/v1/checkpoints")]
+    ops = master_b.posted("/searcher/completed_operation")
+    polls = [q["last"] for m, p, q, b in master_b.requests
+             if p.endswith("/searcher/operation")]
+    say(f"[managed] run B: fit returned at step {state_b.step} in "
+        f"{wall_b:.1f} s; checkpoint reports {ckpts_b}; completed op {ops}; "
+        f"searcher polls last={polls}")
+    if state_b.step != TRAIN_STEPS or ckpts_b != [
+            (end, "PARTIAL"), (end, "COMPLETED")] or len(ops) != 1 or \
+            ops[0]["length"] != TRAIN_STEPS or polls != ["0", "30"]:
+        fail("run B did not resume, finish the op and stop at done")
+
+    record = master_a.requests + master_b.requests
+    steps = sorted(b["steps_completed"] for b in master_a.posted("/metrics")
+                   + master_b.posted("/metrics")
+                   if b["group"] == "training" and "loss" in b["metrics"])
+    counts = {name: sum(1 for m, p, q, b in record if p.endswith(name))
+              for name in ("/run_prepare", "/spans", "/progress",
+                           "/ack_preemption")}
+    completed = [u for u in master_a.registry + master_b.registry]
+    say(f"[managed] the master's record: {len(record)} requests; training "
+        f"reports at steps {steps}; COMPLETED checkpoints {completed}; "
+        f"{counts}; validation reports "
+        f"{[b['steps_completed'] for b in master_b.posted('/metrics') if b['group'] == 'validation']}")
+    if steps != list(range(5, 31, 5)) or len(completed) != 2 or \
+            counts["/run_prepare"] != 2 or counts["/spans"] == 0 or \
+            counts["/progress"] != 2 or counts["/ack_preemption"] != 1:
+        fail(f"the master's record is incomplete: {steps} {counts}")
+    n_layer = trainer.trial.cfg.n_layer
+    want = {"fwd": (2 * TRAIN_STEPS + train["n_val"]) * n_layer,
+            "dq": TRAIN_STEPS * n_layer, "dkv": TRAIN_STEPS * n_layer}
+    say(f"[managed] flash launches over runs A and B {launches} (expected "
+        f"{want}); reference_attention calls {ref_calls}")
+    if launches != want or ref_calls != 0:
+        fail(f"managed trial: flash launches {launches} != {want} or plain "
+             f"attention calls {ref_calls}")
+    for name, master in (("A", master_a), ("B", master_b)):
+        for b in master.posted("/metrics"):
+            m = b["metrics"]
+            if b["group"] == "training" and "input_wait_ms" in m:
+                say(f"[managed] [{card}] run {name} window to step "
+                    f"{b['steps_completed']}: "
+                    f"{1e3 / m['steps_per_second']:.2f} ms a step, "
+                    f"input_wait_ms {m['input_wait_ms']:.4f}, h2d_ms "
+                    f"{m['h2d_ms']:.4f}, prefetch_queue_depth "
+                    f"{m['prefetch_queue_depth']:.2f}")
+    del trainer, state_a, state_b
+    _free_cuda()
+    return launches
+
+
+def _span_ms(spans, name, storage_id):
+    return sum((s["end_us"] - s["start_us"]) / 1e3 for s in spans
+               if s["name"] == name
+               and s["attrs"].get("storage_id") == storage_id)
+
+
+def phase_prefetch_pairs(workdir, hparams, card):
+    """Information, not a claim: 15-step fits of phase 7's trial in local
+    mode with the prefetcher off and on in turns (off, on, on, off), a
+    periodic async checkpoint at step 10 (its write overlaps steps 11-15),
+    and fit's step per report window; then the blocking cost of that
+    async save (the part save_state paid plus the wait that committed it,
+    from the checkpoint spans) against a synchronous save of the same
+    state (`async_save` off)."""
+    import shutil
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.core._checkpoint import CheckpointContext
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trial import TrialContext
+
+    GPT2Trial = gpt2_trial_class()
+    ckpt_dir = os.path.join(workdir, "pair_checkpoints")
+    rows = []
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        ctx = core.init(max_length=15, checkpoint_dir=ckpt_dir)
+        trial = GPT2Trial(TrialContext(hparams=hparams, core_context=ctx))
+        trial.prefetch = mode == "on"
+        state = Trainer(trial, core_context=ctx).fit(
+            report_period=TRAIN_REPORT_PERIOD, checkpoint_period=10)
+        ctx.close()
+        reports = ctx.train.local_training_metrics
+        windows = [1e3 / r["metrics"]["steps_per_second"] for r in reports]
+        spans = ctx.tracer.local_spans
+        sid = "trial0-step10"
+        save_ms = _span_ms(spans, "harness.checkpoint.save", sid)
+        commit_ms = _span_ms(spans, "harness.checkpoint.commit", sid)
+        rows.append((mode, windows, save_ms, commit_ms, reports[-1]))
+        say(f"[pairs] [{card}] #{i + 1} prefetch {mode}: fit's step by "
+            f"window (1-5, 6-10, 11-15 with the step-10 write in flight) "
+            f"{[round(w, 2) for w in windows]} ms; async save of step 10: "
+            f"{save_ms:.1f} ms in save_state + {commit_ms:.1f} ms blocked "
+            f"in the wait that committed it")
+        if len(windows) != 3:
+            fail(f"prefetch pair {i + 1}: {len(windows)} report windows")
+        last_state = state
+    sync = CheckpointContext(os.path.join(workdir, "sync_checkpoint"),
+                             async_save=False)
+    sync.save_state(last_state, 15)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(os.path.join(workdir, "sync_checkpoint"),
+                  ignore_errors=True)
+    async_ms = statistics.median(r[2] + r[3] for r in rows)
+    size_gb = sum(t.numel() * t.element_size()
+                  for t in state_tensors(last_state)) / 1e9
+    say(f"[pairs] [{card}] checkpoint of GPT-2 small's train state "
+        f"({size_gb:.3f} GB): synchronous last_save_ms "
+        f"{sync.last_save_ms:.1f}; async, the loop blocked {async_ms:.1f} "
+        f"ms (median of 4)")
+    sync_ms = sync.last_save_ms
+    del last_state, state, sync
+    _free_cuda()
+    return {"rows": rows, "sync_ms": sync_ms, "async_ms": async_ms}
+
+
+REPLICA_PROMPT, REPLICA_NEW_TOKENS = 48, 200
+
+
+def replica_drains_on_preemption(serving, storage, card):
+    """The replica as a cluster runs it (`python -m
+    determined_tpu_torch.serve`, a process of its own) attached to a fake
+    master: with requests in flight the master answers the allocation's
+    preemption long-poll; the replica must ack, report draining, finish
+    every accepted request and exit 0."""
+    import numpy as np
+
+    from determined_tpu_torch.serve.task import build_model
+
+    vocab = build_model(serving).vocab_size
+    master = FakeMaster()
+    env = dict(os.environ, PYTHONPATH=ROOT, DET_MASTER=master.url,
+               DET_ALLOCATION_ID="smoke-replica",
+               DET_SERVING_CONFIG=json.dumps({
+                   "serving": {**serving, "heartbeat_period_s": 30},
+                   "checkpoint_storage": storage}))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "determined_tpu_torch.serve"], cwd=ROOT,
+        env=env, stderr=subprocess.PIPE, text=True)
+    lines, up = [], threading.Event()
+
+    def read_stderr():
+        for line in proc.stderr:
+            lines.append(line)
+            if "serve replica up on port" in line:
+                up.set()
+
+    reader = threading.Thread(target=read_stderr, daemon=True)
+    reader.start()
+    try:
+        if not up.wait(600):
+            fail("the replica process never came up: "
+                 + "".join(lines[-20:]))
+        port = int(re.search(r"serve replica up on port (\d+)",
+                             [x for x in lines if "up on port" in x][0])
+                   .group(1))
+        url = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(SEED + 12)
+        bodies = [{"tokens": rng.integers(0, vocab, REPLICA_PROMPT).tolist(),
+                   "max_new_tokens": REPLICA_NEW_TOKENS, "model": m}
+                  for m in ("base", "ft", "base", "ft")]
+        pool = concurrent.futures.ThreadPoolExecutor(len(bodies))
+        futures = [pool.submit(_post, url + "/v1/generate", b)
+                   for b in bodies]
+        deadline = time.monotonic() + 120
+        while True:
+            stats = json.loads(_get(url + "/v1/stats")[1])
+            if stats["active"] + stats["completed"] == len(bodies):
+                break
+            if time.monotonic() > deadline:
+                fail(f"the replica never admitted the requests: {stats}")
+            time.sleep(0.02)
+        in_flight = stats["active"]
+        t0 = time.monotonic()
+        master.arm()
+        rc = proc.wait(timeout=300)
+        drain_s = time.monotonic() - t0
+        results = [f.result(timeout=60) for f in futures]
+        pool.shutdown()
+    finally:
+        master.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=30)
+    est = stats["engine"]
+    acks = master.posted("/signals/ack_preemption")
+    beats = master.posted("/serve_stats")
+    say(f"[restore] [{card}] replica process: {len(bodies)} requests "
+        f"accepted, {in_flight} in flight when the master sent the "
+        f"preemption; exit code {rc} {drain_s:.2f} s later; answers "
+        f"{[(c, len(b.get('tokens', []))) for c, b in results]}; acked "
+        f"{len(acks)}x, last heartbeat draining="
+        f"{beats[-1]['draining'] if beats else None}; paged launches "
+        f"replayed before the drain {est['attention_launches']}, reference "
+        f"calls {est['attention_reference_calls']}")
+    if rc != 0 or not acks or not beats or not beats[-1]["draining"] or \
+            any(c != 200 or len(b.get("tokens", [])) != REPLICA_NEW_TOKENS
+                for c, b in results) or est["attention_launches"] <= 0 or \
+            est["attention_reference_calls"] != 0:
+        fail("the replica did not drain cleanly on the preemption signal: "
+             + "".join(lines[-20:]))
 
 
 def profile_train_steps(trainer, trial, n_steps=3):
@@ -1670,11 +2168,24 @@ def main() -> int:
     paged_ref = phase_graph_vs_eager(ckpt, card)
     phase_dense(ckpt, paged_ref, card)
     phase_parity(ckpt)
-    train = phase_train(workdir)
+    hparams = train_hparams(workdir)
+    train = phase_train(workdir, hparams)
     phase_restored_replica(train["ckpt_dir"], card)
+    managed_launches = phase_managed_trial(workdir, hparams, train, card)
+    pairs = phase_prefetch_pairs(workdir, hparams, card)
     phase_train_parity()
     paged = phase_paged_times(card)
     flash = phase_flash_times(card)
+    graph = serve["runs"]["graph"]
+    say(f"[times] [{card}] serving: compile() prepared the sampler in "
+        f"{serve['compile_stats']['sample_s']} s; the first graph burst "
+        f"ran {graph[0]['tokens_per_s']:.1f} tokens/s, the second "
+        f"{graph[1]['tokens_per_s']:.1f}: the second "
+        f"{graph[1]['tokens_per_s'] / graph[0]['tokens_per_s']:.2f}x the "
+        f"first")
+    say(f"[times] [{card}] managed trial: flash launches {managed_launches}; "
+        f"checkpoint of the train state: synchronous {pairs['sync_ms']:.1f} "
+        f"ms, async {pairs['async_ms']:.1f} ms blocking the loop")
     for mode in ("graph", "eager"):
         r = serve["runs"][mode][0]
         say(f"[times] [{card}] serving GPT-2 small bf16, 8 slots, {mode} "

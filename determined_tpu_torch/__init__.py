@@ -6,11 +6,18 @@ each module's counterpart is easy to find, imports `torch`, numpy and the
 standard library only, and never imports `jax` or `determined_tpu`.
 
 Slices ported so far:
-  serve/   GPT-2 serving with a paged KV pool: prefill, decode through the
-           hand-written CUDA paged decode-attention kernel
-           (ops/csrc/paged_attention.cu), the continuous batcher, the HTTP
-           front-end and the local entry point
+  serve/   GPT-2 serving with a paged (or dense) KV pool through CUDA
+           graphs: the hand-written CUDA paged decode-attention kernel
+           (ops/csrc/paged_attention.cu), the continuous batcher, adapters,
+           request tracing, the HTTP front-end and the replica entry point
            (`python -m determined_tpu_torch.serve cfg.json`).
+  train/   GPT-2 training through `Trainer(trial).fit()` with the
+           hand-written flash-attention kernels
+           (ops/csrc/flash_attention.cu), the device prefetcher (data/)
+           and background checkpoint writes.
+  core/    the Core API in local and managed mode (`_info.py`: the
+           `DET_*` environment; `common/api.py`: the master session;
+           `experimental/core_v2`: unmanaged runs; `tensorboard/`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`
 (`_device.resolve_device`).

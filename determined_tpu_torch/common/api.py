@@ -1,15 +1,15 @@
 """Minimal HTTP client for the master REST API.
 
-The port's copy of determined_tpu/common/api.py (stdlib only), cut to what
-a serve replica speaks: `Session.post` for the replica heartbeat
-(`serve_stats`), the request-span sink (`request_spans`) and the ready
-report, with the same retry policy, TLS pinning and idempotency keys.
-Login, and the trial-side endpoints of managed mode, are not ported
-(ROADMAP.md).
+The port's copy of determined_tpu/common/api.py (stdlib only): `Session`
+with `get`, `post`, `patch`, `delete` and `login`, the same retry policy,
+TLS pinning, idempotency keys and the extra `headers` every request
+carries (managed mode's `X-Allocation-Epoch` fence). A serve replica and
+a managed trial (`core.init()`) both speak through it.
 """
 
 from __future__ import annotations
 
+import hashlib
 import http.client
 import json
 import os
@@ -36,6 +36,15 @@ def _https_context() -> Optional[ssl.SSLContext]:
         ctx.check_hostname = False
         return ctx
     return ssl.create_default_context()
+
+
+def salted_hash(username: str, password: str) -> str:
+    """Client-side salted password hash, as the master stores it: raw
+    passwords never reach the wire. An empty password maps to ""."""
+    if not password:
+        return ""
+    salted = f"determined-tpu${username}${password}".encode()
+    return hashlib.sha256(salted).hexdigest()
 
 
 class APIError(Exception):
@@ -95,6 +104,16 @@ class Session:
         if retry_after is not None:
             delay = max(delay, retry_after)
         time.sleep(delay)
+
+    @classmethod
+    def login(cls, master_url: str, user: str = "determined",
+              password: str = "") -> "Session":
+        s = cls(master_url)
+        resp = s.post("/api/v1/auth/login",
+                      body={"username": user,
+                            "password": salted_hash(user, password)})
+        s.token = resp["token"]
+        return s
 
     def _request(
         self,
@@ -162,8 +181,18 @@ class Session:
                 last_exc = e
         raise ConnectionError(f"master unreachable at {url}: {last_exc}")
 
+    def get(self, path: str, params: Optional[Dict[str, Any]] = None,
+            timeout: Optional[float] = None) -> Any:
+        return self._request("GET", path, params=params, timeout=timeout)
+
     def post(self, path: str, body: Optional[Dict[str, Any]] = None,
              params: Optional[Dict[str, Any]] = None,
              idempotent: bool = False) -> Any:
         return self._request("POST", path, body=body, params=params,
                              idempotent=idempotent)
+
+    def patch(self, path: str, body: Optional[Dict[str, Any]] = None) -> Any:
+        return self._request("PATCH", path, body=body)
+
+    def delete(self, path: str) -> Any:
+        return self._request("DELETE", path)

@@ -1,12 +1,14 @@
 """Trial-lifecycle tracing: spans of the training harness.
 
-The port's copy of determined_tpu/common/trace.py for local mode. A span is
+The port's copy of determined_tpu/common/trace.py. A span is
 `{trace_id, span_id, parent, name, start_us, end_us, attrs}` with wall-clock
 epoch microseconds. `span()` and `emit()` append to an in-memory buffer (no
-I/O on the step path); `flush()` moves the buffer into `local_spans`, at the
-metrics-flush cadence, as the JAX package's tracer does when it has no
-master to post to. The master's span sink is not ported (ROADMAP.md:
-managed mode). `DET_TRACE_OFF=1` disables emission.
+I/O on the step path); `flush()`, at the metrics-flush cadence and on
+`close()`, posts the batch to the master's span sink
+(`POST /api/v1/trials/{id}/spans`, idempotency-keyed) in managed mode, or
+moves it into `local_spans` without a master. A lost sink never hurts the
+trial: a failed post logs and drops the batch. `DET_TRACE_OFF=1` disables
+emission.
 """
 
 from __future__ import annotations
@@ -63,10 +65,14 @@ class Span:
 
 
 class Tracer:
-    """Buffered span emitter for one trial process (local mode)."""
+    """Buffered span emitter for one trial process. Chief-only: core.init
+    builds it with the session on the chief alone."""
 
-    def __init__(self, trace_id: Optional[str] = None,
+    def __init__(self, session=None, trial_id: int = 0,
+                 trace_id: Optional[str] = None,
                  enabled: Optional[bool] = None):
+        self._session = session
+        self._trial_id = trial_id
         self.trace_id = trace_id or os.environ.get("DET_TRACE_ID") or \
             uuid.uuid4().hex[:16]
         if enabled is None:
@@ -79,7 +85,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._tls = threading.local()  # per-thread current-parent stack
         self.local_spans: List[Dict[str, Any]] = []
-        self.dropped = 0  # batches lost to the fault point
+        self.dropped = 0  # batches lost to the fault point or the sink
 
     def _parent(self) -> str:
         stack = getattr(self._tls, "stack", None)
@@ -124,8 +130,8 @@ class Tracer:
                 self._buf.append(sp.to_dict())
 
     def flush(self) -> int:
-        """Move the buffered batch into `local_spans`; returns its size.
-        Never raises."""
+        """Ship the buffered batch (post it, or keep it in `local_spans`
+        without a master); returns the spans shipped. Never raises."""
         with self._lock:
             if not self._buf:
                 return 0
@@ -134,8 +140,20 @@ class Tracer:
             logger.warning("faultpoint dropped %d span(s)", len(batch))
             self.dropped += 1
             return 0
-        self.local_spans.extend(batch)
-        return len(batch)
+        if self._session is None:
+            self.local_spans.extend(batch)
+            return len(batch)
+        try:
+            # Idempotent: a retry after a lost response must not insert the
+            # batch twice.
+            self._session.post(f"/api/v1/trials/{self._trial_id}/spans",
+                               body={"spans": batch}, idempotent=True)
+            return len(batch)
+        except Exception:
+            self.dropped += 1
+            logger.warning("span flush failed; dropped %d span(s)",
+                           len(batch), exc_info=True)
+            return 0
 
     def close(self) -> None:
         self.flush()

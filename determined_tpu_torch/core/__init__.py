@@ -1,5 +1,5 @@
-"""Core API — the training services, local mode (counterpart of
-determined_tpu/core/)."""
+"""Core API — the training services, managed (a master) or local
+(counterpart of determined_tpu/core/)."""
 
 from determined_tpu_torch.core._checkpoint import CheckpointContext, state_id_step  # noqa: F401
 from determined_tpu_torch.core._context import Context, init  # noqa: F401

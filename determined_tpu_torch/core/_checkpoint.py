@@ -1,27 +1,31 @@
-"""CheckpointContext — train-state checkpoints in a local directory.
+"""CheckpointContext — train-state checkpoints under a two-phase commit.
 
-Counterpart of determined_tpu/core/_checkpoint.py for local mode. The JAX
-package writes array shards with orbax; here the whole state goes through
-`torch.save` into `<base>/<storage_id>/state/state.pt`, under the same
-two-phase commit (core/_integrity.py):
+Counterpart of determined_tpu/core/_checkpoint.py. The JAX package writes
+array shards with orbax; here the whole state goes through `torch.save`
+into `<base>/<storage_id>/state/state.pt`, under the same two-phase commit
+(core/_integrity.py):
 
-  1. `save_state` writes the state file and `metadata.json` and reports the
-     checkpoint PARTIAL;
-  2. it then writes the manifest and the COMMIT marker and reports it
-     COMPLETED, before it returns.
+  1. `save_state` snapshots the state, writes `metadata.json` and reports
+     the checkpoint PARTIAL. The state file and its manifest are written
+     by a background thread (`async_save`, core.init's default) or before
+     `save_state` returns;
+  2. the next `wait()`, `save_state` or `close()` waits for that write,
+     writes the COMMIT marker and reports the checkpoint COMPLETED. A
+     write that failed raises there.
 
-Serving restores only the params, with no train state to shape them:
-`restore_params` (the counterpart of the serve engine's template-free
-`_restore_raw`) verifies the checkpoint and returns its `params` subtree.
+The snapshot is what makes the background write safe: the optimizer
+updates params and moments in place, so the thread must never read the
+live tensors. Each CUDA leaf is copied into a pinned host buffer on a
+side stream (the buffers are kept and reused by the next save) and the
+compute stream waits on that copy's event before it runs anything more;
+CPU leaves are copied into reused buffers at once. At most one save is
+pending: `save_state` commits the previous one first.
 
-The write is synchronous: the JAX package's async orbax save, which defers
-the commit to a later `wait()`, is not ported (ROADMAP.md), so `wait()` has
-nothing to do and is kept only for the API. Storage ids are
-`trial{N}-step{M}`, so
-`lineage()` recovers the committed checkpoints, newest first, from the
-in-process reports and a scan of the directory. Cloud storage backends and
-the master's checkpoint registry are not ported (ROADMAP.md: managed
-mode).
+Reports go to the master's registry (`POST /api/v1/checkpoints`) in
+managed mode, where `lineage()` is the registry's COMPLETED checkpoints
+of the trial; without a master they are kept in `local_reported`, and the
+lineage is read from them and a scan of the committed `trial{N}-step{M}`
+directories. Serving restores only the params: `restore_params`.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import json
 import logging
 import os
 import re
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -54,19 +59,19 @@ def state_id_step(storage_id: str) -> Optional[int]:
     return int(m.group(2)) if m else None
 
 
-def _to_cpu(tree: Any) -> Any:
-    """The same structure with every tensor detached on the host; dataclass
-    states become dicts of their fields."""
+def _map_tensors(tree: Any, fn) -> Any:
+    """The same structure with `fn` applied to every tensor; dataclass
+    states become dicts of their fields (the saved format)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return fn(tree)
     if hasattr(tree, "__dataclass_fields__"):
         return {"__dataclass__": type(tree).__name__,
-                **{f: _to_cpu(getattr(tree, f))
+                **{f: _map_tensors(getattr(tree, f), fn)
                    for f in tree.__dataclass_fields__}}
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
+        return type(tree)(_map_tensors(v, fn) for v in tree)
     return tree
 
 
@@ -92,13 +97,117 @@ def _like(template: Any, loaded: Any) -> Any:
     return loaded
 
 
+class _Snapshot:
+    """Host copies of a state's tensors in buffers kept across saves."""
+
+    def __init__(self):
+        self._buffers: List[torch.Tensor] = []
+        self._stream = None  # the side CUDA stream, made at first use
+
+    def take(self, state: Any):
+        """-> (host tree, CUDA event the copies end with or None). The
+        compute stream waits on the event, so the next step cannot write
+        a tensor the copy still reads; the caller must let the previous
+        snapshot's write finish first (its buffers are reused)."""
+        leaves: List[torch.Tensor] = []
+        _map_tensors(state, leaves.append)
+        cuda = [t for t in leaves if t.is_cuda]
+        if cuda and self._stream is None:
+            self._stream = torch.cuda.Stream(device=cuda[0].device)
+        if cuda:
+            self._stream.wait_stream(torch.cuda.current_stream(cuda[0].device))
+        it = iter(range(len(leaves)))
+
+        def copy(t: torch.Tensor) -> torch.Tensor:
+            buf = self._buffer(next(it), t)
+            src = t.detach()
+            if t.is_cuda:
+                with torch.cuda.stream(self._stream):
+                    buf.copy_(src, non_blocking=True)
+                src.record_stream(self._stream)
+            else:
+                buf.copy_(src)
+            return buf
+
+        host = _map_tensors(state, copy)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(self._stream)
+            torch.cuda.current_stream(cuda[0].device).wait_event(event)
+        return host, event
+
+    def _buffer(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        if i < len(self._buffers):
+            buf = self._buffers[i]
+            if buf.shape == t.shape and buf.dtype == t.dtype:
+                return buf
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        if i < len(self._buffers):
+            self._buffers[i] = buf
+        else:
+            self._buffers.append(buf)
+        return buf
+
+
+class _Write:
+    """One checkpoint's phase-1 write: the state file (written under a
+    temporary name, fsync'd, renamed) and its manifest, on a thread or
+    inline."""
+
+    def __init__(self, path: str, host: Any, event, background: bool):
+        self.path = path
+        self.manifest: Optional[Dict] = None
+        self.error: Optional[BaseException] = None
+        self._host, self._event = host, event
+        self._thread = None
+        if background:
+            self._thread = threading.Thread(
+                target=self._run, daemon=True, name="checkpoint-writer")
+            self._thread.start()
+        else:
+            self._run()
+
+    def _run(self) -> None:
+        try:
+            if self._event is not None:
+                self._event.synchronize()  # the snapshot copies landed
+            target = os.path.join(self.path, _STATE_SUBDIR, _STATE_FILE)
+            with open(target + ".tmp", "wb") as f:
+                torch.save(self._host, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(target + ".tmp", target)
+            self.manifest = _integrity.write_manifest(self.path)
+        except BaseException as e:  # raised to the caller of wait()
+            self.error = e
+        finally:
+            self._host = None
+
+    def join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+
+
 class CheckpointContext:
-    def __init__(self, base_path: str, trial_id: int = 0):
+    def __init__(self, base_path: str, trial_id: int = 0, session=None,
+                 allocation_id: Optional[str] = None,
+                 async_save: bool = False):
         self.base_path = os.path.abspath(base_path)
         self._trial_id = trial_id
-        # Observed durable-save cost of the newest checkpoint (the write
-        # plus the commit that made it COMPLETED), for the Trainer's
-        # preemption budget.
+        self._session = session
+        self._allocation_id = allocation_id
+        self._async = async_save
+        self._snapshot = _Snapshot()
+        # (storage_id, metadata, write) of the save whose phase 2 (COMMIT,
+        # the COMPLETED report) is pending.
+        self._pending: Optional[tuple] = None
+        self._pending_sync_ms = 0.0
+        # Observed durable-save cost of the newest checkpoint: the part of
+        # save_state the loop paid plus the blocking part of the wait that
+        # committed it (the Trainer's preemption budget). Under async
+        # overlap it underestimates a cold synchronous save; the budget's
+        # safety factor covers that.
         self.last_save_ms: Optional[float] = None
         self.local_reported: List[Dict[str, Any]] = []
         self.tracer = None  # set by core.init
@@ -112,32 +221,61 @@ class CheckpointContext:
 
     def save_state(self, state: Any, steps_completed: int,
                    metadata: Optional[Dict[str, Any]] = None) -> str:
-        """Write `state` (tensors anywhere) as checkpoint
-        `trial{N}-step{steps_completed}` and commit it: reported PARTIAL
-        after the write, COMPLETED after the commit. Returns the storage
-        id."""
+        """Snapshot `state` (tensors anywhere) as checkpoint
+        `trial{N}-step{steps_completed}`, reported PARTIAL; it is committed
+        and reported COMPLETED at the next `wait()`, `save_state` or
+        `close()` (before this returns when `async_save` is off). Returns
+        the storage id."""
+        self.wait()  # never two pending: the buffers are reused
         storage_id = f"trial{self._trial_id}-step{steps_completed}"
         path = self.path_for(storage_id)
         os.makedirs(os.path.join(path, _STATE_SUBDIR), exist_ok=True)
-        t0 = time.monotonic()
-        t0_us = trace_mod.now_us()
-        torch.save(_to_cpu(state),
-                   os.path.join(path, _STATE_SUBDIR, _STATE_FILE))
-        self._span("harness.checkpoint.save", t0_us, storage_id=storage_id,
-                   steps_completed=steps_completed)
         md = dict(metadata or {})
         md.update({"steps_completed": steps_completed,
                    "trial_id": self._trial_id, "format": "torch",
                    "time": time.time()})
         with open(os.path.join(path, _METADATA_FILE), "w") as f:
             json.dump(md, f)
+        # Reported before the write starts, so the report lists what the
+        # JAX package's lists: the metadata, never the manifest.
         self._report(storage_id, md, state="PARTIAL")
-        t1_us = trace_mod.now_us()
-        _integrity.commit(path, storage_id)
-        self._report(storage_id, md, state="COMPLETED")
-        self.last_save_ms = (time.monotonic() - t0) * 1000.0
-        self._span("harness.checkpoint.commit", t1_us, storage_id=storage_id)
+        t0 = time.monotonic()
+        t0_us = trace_mod.now_us()
+        host, event = self._snapshot.take(state)
+        write = _Write(path, host, event, background=self._async)
+        self._pending_sync_ms = (time.monotonic() - t0) * 1000.0
+        # Phase 1 on the trace: the part of the save the loop paid for.
+        self._span("harness.checkpoint.save", t0_us, storage_id=storage_id,
+                   steps_completed=steps_completed)
+        self._pending = (storage_id, md, write)
+        if not self._async:
+            self.wait()
         return storage_id
+
+    def wait(self) -> None:
+        """Block until the pending save is written and committed (COMMIT
+        marker written, COMPLETED reported). Raises the write's error, if
+        it failed; the checkpoint then stays PARTIAL."""
+        if self._pending is None:
+            return
+        storage_id, md, write = self._pending
+        self._pending = None
+        t0 = time.monotonic()
+        t0_us = trace_mod.now_us()
+        write.join()
+        if write.error is not None:
+            raise RuntimeError(
+                f"checkpoint {storage_id}: the state write failed") \
+                from write.error
+        _integrity.commit(write.path, storage_id, write.manifest)
+        self._report(storage_id, md, state="COMPLETED")
+        self.last_save_ms = self._pending_sync_ms + \
+            (time.monotonic() - t0) * 1000.0
+        # Phase 2 on the trace: the wait for the write, COMMIT and report.
+        self._span("harness.checkpoint.commit", t0_us, storage_id=storage_id)
+
+    def close(self) -> None:
+        self.wait()
 
     def verify(self, storage_id: str) -> str:
         """Verify checkpoint `storage_id` before any of it is read; returns
@@ -174,9 +312,20 @@ class CheckpointContext:
         return params
 
     def lineage(self) -> List[str]:
-        """This trial's COMPLETED checkpoints, newest first, from the
-        in-process reports plus the committed `trial{N}-step{M}`
-        directories in storage (so a restarted process still sees them)."""
+        """This trial's COMPLETED checkpoints, newest first. Managed mode
+        asks the master's registry, which marks a checkpoint COMPLETED only
+        on the phase-2 report; without a master (or when the query fails)
+        it is read from the in-process reports plus the committed
+        `trial{N}-step{M}` directories (so a restarted process sees them)."""
+        if self._session is not None:
+            try:
+                resp = self._session.get(
+                    f"/api/v1/trials/{self._trial_id}/checkpoints",
+                    params={"state": "COMPLETED"})
+                return [c["uuid"] for c in resp.get("checkpoints", [])]
+            except Exception:
+                logger.warning("lineage query failed; falling back to a "
+                               "storage scan", exc_info=True)
         steps: Dict[str, int] = {}
         for rec in self.local_reported:
             if rec.get("state", "COMPLETED") != "COMPLETED":
@@ -195,22 +344,37 @@ class CheckpointContext:
                     steps[name] = int(m.group(2))
         return sorted(steps, key=steps.__getitem__, reverse=True)
 
-    def wait(self) -> None:
-        """Nothing to wait for: `save_state` commits before it returns."""
+    def _list_files(self, storage_id: str) -> Dict[str, int]:
+        path = self.path_for(storage_id)
+        out: Dict[str, int] = {}
+        for root, _, files in os.walk(path):
+            for f in files:
+                full = os.path.join(root, f)
+                out[os.path.relpath(full, path)] = os.path.getsize(full)
+        return out
 
     def _report(self, storage_id: str, metadata: Dict[str, Any],
                 state: str = "COMPLETED") -> None:
         record = {
             "uuid": storage_id,
             "trial_id": self._trial_id,
+            "allocation_id": self._allocation_id,
             "metadata": metadata,
             "steps_completed": metadata.get("steps_completed", 0),
+            "resources": {},
             "state": state,
         }
-        # The COMPLETED report replaces the PARTIAL record in place: one
-        # record per checkpoint.
-        for i, rec in enumerate(self.local_reported):
-            if rec["uuid"] == storage_id:
-                self.local_reported[i] = record
-                return
-        self.local_reported.append(record)
+        if self._session is None:
+            # The COMPLETED report replaces the PARTIAL record in place: one
+            # record per checkpoint, as the master's registry keeps it.
+            for i, rec in enumerate(self.local_reported):
+                if rec["uuid"] == storage_id:
+                    self.local_reported[i] = record
+                    return
+            self.local_reported.append(record)
+            return
+        record["resources"] = self._list_files(storage_id)
+        # Idempotent: a retried report must not register the checkpoint
+        # twice or move the trial's resume pointer again.
+        self._session.post("/api/v1/checkpoints", body=record,
+                           idempotent=True)

@@ -1,20 +1,31 @@
-"""core.init() — one context bundling the training services, local mode.
+"""core.init() — one context bundling the training services.
 
-Counterpart of determined_tpu/core/_context.py. The JAX package runs in two
-modes: managed (launched by an agent, talking to the master) and local (no
-master: metrics in memory, one searcher op of `max_length`, checkpoints in
-a local directory). The port has local mode only. A process launched
-inside a cluster (any of the `DET_*` variables an agent sets) makes
-`init()` raise NotImplementedError: it never trains as local mode in
-silence there.
+Counterpart of determined_tpu/core/_context.py, in its two modes:
+
+  - **managed**: launched by an agent. `ClusterInfo` comes from the
+    `DET_*` environment (`_info.py`); a `Session` fenced with the
+    allocation's epoch talks to the master: metric and progress reports,
+    the searcher's ops, the preemption long-poll, the checkpoint registry
+    and the span sink. Checkpoints go to the trial config's
+    `checkpoint_storage`.
+  - **local**: no master. Metrics accumulate in memory, the searcher
+    yields one op of `max_length`, checkpoints go to a local directory.
+
+The same user code runs in both. What the port cannot do yet it refuses,
+and never runs as local mode in silence instead: a rendezvous of more than
+one host (multi-process training, ROADMAP Queue 1 item 5) and any
+`checkpoint_storage` type but `shared_fs` (item 12) raise.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import tempfile
 from typing import Any, Dict, Optional
 
+from determined_tpu_torch._info import ClusterInfo, get_cluster_info
+from determined_tpu_torch.common.api import Session
 from determined_tpu_torch.common.trace import Tracer
 from determined_tpu_torch.core._checkpoint import CheckpointContext
 from determined_tpu_torch.core._distributed import DistributedContext
@@ -23,11 +34,7 @@ from determined_tpu_torch.core._profiler import ProfilerContext
 from determined_tpu_torch.core._searcher import SearcherContext
 from determined_tpu_torch.core._train import TrainContext
 
-# The variables that mark a process the cluster launched
-# (determined_tpu/_info.py reads them).
-CLUSTER_ENV = ("DET_MASTER", "DET_TRIAL_ID", "DET_ALLOCATION_ID",
-               "DET_SESSION_TOKEN", "DET_CONTAINER_ADDRS",
-               "DET_LATEST_CHECKPOINT", "DET_HPARAMS")
+logger = logging.getLogger("determined_tpu_torch.core")
 
 
 def default_checkpoint_dir() -> str:
@@ -35,10 +42,33 @@ def default_checkpoint_dir() -> str:
                         "checkpoints")
 
 
+def checkpoint_base(storage: Optional[Dict[str, Any]],
+                    default_base: Optional[str] = None) -> str:
+    """`checkpoint_storage` -> the directory the checkpoints live in.
+
+    Only `shared_fs` is ported (`host_path`, joined with `storage_path`
+    when given); without a block, `default_base` (default: the port's
+    local directory). Any other type raises, naming it."""
+    default_base = default_base or default_checkpoint_dir()
+    storage = dict(storage or {"type": "shared_fs",
+                               "host_path": default_base})
+    stype = storage.get("type", "shared_fs")
+    if stype != "shared_fs":
+        raise NotImplementedError(
+            f"checkpoint_storage type {stype!r} is not ported; the port "
+            "reads and writes shared_fs only (ROADMAP.md Queue 1 item 12: "
+            "checkpoint storage backends)")
+    base = storage.get("host_path", default_base)
+    if storage.get("storage_path"):
+        base = os.path.join(base, storage["storage_path"])
+    return base
+
+
 class Context:
     def __init__(self, train: TrainContext, searcher: SearcherContext,
                  checkpoint: CheckpointContext, preempt: PreemptContext,
                  distributed: DistributedContext, profiler: ProfilerContext,
+                 info: Optional[ClusterInfo] = None,
                  tracer: Optional[Tracer] = None):
         self.train = train
         self.searcher = searcher
@@ -46,25 +76,32 @@ class Context:
         self.preempt = preempt
         self.distributed = distributed
         self.profiler = profiler
-        # Local mode has no cluster info: no experiment config, hparams or
-        # resume pointer come from outside the process.
-        self.info = None
+        self.info = info  # None in local mode
         self.tracer = tracer if tracer is not None else Tracer()
 
     @property
     def hparams(self) -> Dict[str, Any]:
-        return {}
+        return self.info.trial.hparams if (self.info and self.info.trial) \
+            else {}
 
     @property
     def trial_seed(self) -> int:
-        return 0
+        return self.info.trial.trial_seed if (self.info and self.info.trial) \
+            else 0
 
     @property
     def latest_checkpoint(self) -> Optional[str]:
-        return None
+        return self.info.trial.latest_checkpoint \
+            if (self.info and self.info.trial) else None
 
     def close(self) -> None:
+        # The order matters: drain the checkpoint write first, so the
+        # phase-2 commit spans make the tracer's final batch; then the
+        # final tensorboard sync, the watchers, distributed.
+        self.checkpoint.close()
         self.tracer.close()
+        if self.train._tb is not None:
+            self.train._tb.close()
         self.profiler.close()
         self.preempt.close()
         self.distributed.shutdown()
@@ -77,20 +114,59 @@ class Context:
 
 
 def init(*, max_length: Optional[int] = None,
-         checkpoint_dir: Optional[str] = None) -> Context:
-    """Bring up the Core API in local mode. Checkpoints go to
+         storage_config: Optional[Dict[str, Any]] = None,
+         checkpoint_dir: Optional[str] = None,
+         async_checkpointing: bool = True) -> Context:
+    """Bring up the Core API: managed mode when the environment names a
+    master (`DET_MASTER`), else local mode. Checkpoints go to
+    `storage_config`, else the trial config's `checkpoint_storage`, else
     `checkpoint_dir` (default: under the temporary directory)."""
-    found = sorted(k for k in CLUSTER_ENV if os.environ.get(k))
-    if found:
+    info = get_cluster_info()
+    if info is not None and info.rendezvous is not None and \
+            info.rendezvous.num_hosts > 1:
         raise NotImplementedError(
-            f"core.init(): cluster environment found ({', '.join(found)}), "
-            "but the PyTorch port runs in local mode only; managed mode "
-            "(the master session, searcher, preemption and checkpoint "
-            "registry) is not ported yet (ROADMAP.md)")
-    train = TrainContext()
-    checkpoint = CheckpointContext(checkpoint_dir or default_checkpoint_dir())
-    tracer = Tracer()
-    checkpoint.tracer = tracer
-    return Context(train, SearcherContext(local_max_length=max_length),
-                   checkpoint, PreemptContext(), DistributedContext.local(),
-                   ProfilerContext(train), tracer=tracer)
+            f"core.init(): the allocation spans {info.rendezvous.num_hosts} "
+            "hosts, but the port runs one process; multi-process training "
+            "(DistributedContext.from_allocation) is not ported "
+            "(ROADMAP.md Queue 1 item 5)")
+    session: Optional[Session] = None
+    trial_id, run_id, allocation_id = 0, 0, None
+    if info is not None:
+        # Every call carries the fencing epoch of this allocation run: a
+        # zombie of a superseded run gets a 409 instead of writing into
+        # its successor's lineage.
+        fence = ({"X-Allocation-Epoch": str(info.allocation_epoch)}
+                 if info.allocation_epoch is not None else None)
+        session = Session(info.master_url, info.session_token, headers=fence)
+        allocation_id = info.allocation_id
+        if info.trial is not None:
+            trial_id, run_id = info.trial.trial_id, info.trial.run_id
+            storage_config = storage_config or \
+                info.trial.config.get("checkpoint_storage")
+    base = checkpoint_base(storage_config, default_base=checkpoint_dir)
+
+    tb_manager = None
+    if info is not None and info.trial is not None:
+        from determined_tpu_torch.tensorboard import TensorboardManager
+
+        tb_manager = TensorboardManager(base, info.trial.experiment_id,
+                                        info.trial.trial_id)
+    train = TrainContext(session, trial_id=trial_id, run_id=run_id,
+                         tensorboard_manager=tb_manager)
+    searcher = SearcherContext(session, trial_id=trial_id,
+                               local_max_length=max_length)
+    checkpoint = CheckpointContext(
+        base, trial_id=trial_id, session=session,
+        allocation_id=allocation_id, async_save=async_checkpointing)
+    preempt = PreemptContext(session, allocation_id=allocation_id)
+    tracer = Tracer(session, trial_id=trial_id)
+    checkpoint.tracer = tracer  # phase-1 and phase-2 commit spans
+    ctx = Context(train, searcher, checkpoint, preempt,
+                  DistributedContext.local(), ProfilerContext(train), info,
+                  tracer=tracer)
+    if session is not None:
+        try:
+            session.post(f"/api/v1/trials/{trial_id}/run_prepare", body={})
+        except Exception:
+            logger.debug("run_prepare failed", exc_info=True)
+    return ctx

@@ -119,19 +119,25 @@ def build_manifest(path: str, checksums: bool = True) -> Dict:
     return {"version": 1, "files": files}
 
 
-def commit(path: str, storage_id: str) -> None:
-    """Phase 2: write manifest.json then the COMMIT marker, both atomic.
-
-    Must only be called after the phase-1 save is durable (the caller's
-    ``wait()``). The ordering is the protocol: a COMMIT implies a valid
-    manifest implies verified data.
-    """
+def write_manifest(path: str) -> Dict:
+    """Checksum every file under `path` into manifest.json (atomic) and
+    return the manifest. A manifest without a COMMIT is still PARTIAL."""
     manifest = build_manifest(path)
     _atomic_write(
         os.path.join(path, MANIFEST_FILE),
         json.dumps(manifest, sort_keys=True).encode(),
     )
+    return manifest
 
+
+def commit(path: str, storage_id: str, manifest: Dict) -> None:
+    """Phase 2: write the COMMIT marker (atomic) for a checkpoint whose
+    `manifest` was written by `write_manifest`.
+
+    Must only be called after the phase-1 save and its manifest are
+    durable (the caller's ``wait()``). The ordering is the protocol: a
+    COMMIT implies a valid manifest implies verified data.
+    """
     if faultpoint.fire(FAULT_WRITE_TRUNCATE) is not faultpoint.Action.NONE:
         # Torn-write chaos: corrupt the largest data file AFTER its
         # checksum was recorded, so only integrity verification — not the

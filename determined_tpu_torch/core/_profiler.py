@@ -138,8 +138,8 @@ class ProfilerContext:
 
     def observe_input(self, wait_ms_sum: float, h2d_ms_sum: float,
                       depth_sum: float, n_batches: int) -> None:
-        """Input-pipeline window sums. The port's Trainer copies batches
-        to the device without a prefetcher and reports none yet."""
+        """Input-pipeline window sums: the device prefetcher's, at each
+        metrics flush of the Trainer."""
         if not n_batches:
             return
         with self._lock:

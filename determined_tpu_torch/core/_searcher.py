@@ -1,12 +1,20 @@
-"""SearcherContext — the trial side of HP search, local mode.
+"""SearcherContext — the trial side of HP search.
 
-Counterpart of determined_tpu/core/_searcher.py without a master:
-`operations()` yields one op, "train until `local_max_length`", and a
-completed op's searcher metric is kept in `completed_metrics`.
+Counterpart of determined_tpu/core/_searcher.py. `operations()` yields
+`SearcherOperation`s: "train until `length`, then report the searcher
+metric". In managed mode the trial long-polls
+`GET /api/v1/trials/{id}/searcher/operation?last=&timeout_seconds=` for the
+next op and completes each with an idempotent
+`POST .../searcher/completed_operation`. A trial whose searcher has no op
+for it within the idle grace (an ASHA trial paused in its rung) stops
+cleanly and frees its device; the master reschedules it if a promotion
+comes. Without a master, one op of `local_max_length` is yielded and a
+completed op's metric is kept in `completed_metrics`.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Iterator, List, Optional, Tuple
 
 
@@ -25,19 +33,66 @@ class SearcherOperation:
         if self._completed:
             raise RuntimeError("operation already completed")
         self._completed = True
-        self._context.completed_metrics.append(
-            (self.length, float(searcher_metric)))
+        self._context._complete_operation(self, searcher_metric)
 
 
 class SearcherContext:
-    def __init__(self, local_max_length: Optional[int] = None):
+    def __init__(self, session=None, trial_id: int = 0,
+                 local_max_length: Optional[int] = None,
+                 poll_interval: float = 2.0):
+        self._session = session
+        self._trial_id = trial_id
         self._local_max_length = local_max_length
+        self._poll_interval = poll_interval
+        self._idle_grace = 15.0  # seconds to wait for an op before exiting
         self.completed_metrics: List[Tuple[int, float]] = []
 
-    def operations(self) -> Iterator[SearcherOperation]:
-        length = self._local_max_length
-        if length is None:
-            raise RuntimeError(
-                "local mode needs local_max_length (pass max_length to init())"
-            )
-        yield SearcherOperation(self, length)
+    def _get_next_op(self, last_length: int) -> dict:
+        """Long-poll the master for the op after `last_length`:
+        {"op": {"length": N}}, {"done": true}, or {"idle": true} once the
+        idle grace has passed with neither."""
+        deadline = time.time() + self._idle_grace
+        while True:
+            resp = self._session.get(
+                f"/api/v1/trials/{self._trial_id}/searcher/operation",
+                params={"last": last_length, "timeout_seconds": 10},
+                timeout=40.0)
+            if resp and (resp.get("done") or resp.get("op")):
+                return resp
+            if time.time() >= deadline:
+                return {"idle": True}
+            time.sleep(self._poll_interval)
+
+    def _complete_operation(self, op: SearcherOperation,
+                            metric: float) -> None:
+        if self._session is None:
+            self.completed_metrics.append((op.length, float(metric)))
+            return
+        # Idempotent: a replayed report would pop the next op and advance
+        # the searcher twice.
+        self._session.post(
+            f"/api/v1/trials/{self._trial_id}/searcher/completed_operation",
+            body={"length": op.length, "searcher_metric": float(metric)},
+            idempotent=True)
+
+    def operations(self, auto_ack: bool = True
+                   ) -> Iterator[SearcherOperation]:
+        """Yield ops until the searcher closes the trial (`done`) or has
+        none for it (`idle`). The port runs one process: it asks the master
+        itself, with nothing to broadcast to other ranks."""
+        if self._session is None:
+            length = self._local_max_length
+            if length is None:
+                raise RuntimeError(
+                    "local mode needs local_max_length (pass max_length to "
+                    "init())")
+            yield SearcherOperation(self, length)
+            return
+        last_length = 0
+        while True:
+            resp = self._get_next_op(last_length)
+            if resp.get("done") or resp.get("idle"):
+                return
+            length = int(resp["op"]["length"])
+            yield SearcherOperation(self, length)
+            last_length = length

@@ -1,8 +1,13 @@
-"""TrainContext — metric reporting, local mode.
+"""TrainContext — metric reporting.
 
-Counterpart of determined_tpu/core/_train.py without a master: reports are
-kept in memory (`local_training_metrics`, `local_validation_metrics`) and
-logged, as the JAX package does when it has no session.
+Counterpart of determined_tpu/core/_train.py. In managed mode reports go
+to the master: `POST /api/v1/trials/{id}/metrics` (idempotency-keyed),
+`/progress` and `/runner/metadata` (the trial's status). Without a master
+they are kept in memory (`local_training_metrics`,
+`local_validation_metrics`, and `local_other_metrics` for other groups
+such as the profiler's) and logged. The per-trial tensorboard manager,
+where core.init built one, sees every report. The port runs one process,
+so it always reports (the JAX package's non-chief ranks do not).
 """
 
 from __future__ import annotations
@@ -31,9 +36,12 @@ def _clean_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
 
 
 class TrainContext:
-    def __init__(self, trial_id: int = 0, run_id: int = 0):
+    def __init__(self, session=None, trial_id: int = 0, run_id: int = 0,
+                 tensorboard_manager=None):
+        self._session = session
         self._trial_id = trial_id
         self._run_id = run_id
+        self._tb = tensorboard_manager
         self.local_training_metrics: List[Dict[str, Any]] = []
         self.local_validation_metrics: List[Dict[str, Any]] = []
         self.local_other_metrics: List[Dict[str, Any]] = []
@@ -41,6 +49,8 @@ class TrainContext:
     def _report(self, group: str, steps_completed: int,
                 metrics: Dict[str, Any]) -> None:
         metrics = _clean_metrics(metrics)
+        if self._tb is not None:
+            self._tb.on_metrics(group, steps_completed, metrics)
         record = {
             "trial_id": self._trial_id,
             "trial_run_id": self._run_id,
@@ -49,6 +59,12 @@ class TrainContext:
             "metrics": metrics,
             "report_time": time.time(),
         }
+        if self._session is not None:
+            # Idempotent: a retry after a lost response must not count
+            # this report twice.
+            self._session.post(f"/api/v1/trials/{self._trial_id}/metrics",
+                               body=record, idempotent=True)
+            return
         store = {"training": self.local_training_metrics,
                  "validation": self.local_validation_metrics}.get(
                      group, self.local_other_metrics)
@@ -67,3 +83,19 @@ class TrainContext:
                        metrics: Dict[str, Any]) -> None:
         """Arbitrary metric groups (e.g. the profiler's "profiling")."""
         self._report(group, steps_completed, metrics)
+
+    def report_progress(self, progress: float) -> None:
+        if self._session is None:
+            return
+        self._session.post(f"/api/v1/trials/{self._trial_id}/progress",
+                           body={"progress": float(progress)})
+
+    def set_status(self, status: str) -> None:
+        if self._session is None:
+            return
+        try:
+            self._session.post(
+                f"/api/v1/trials/{self._trial_id}/runner/metadata",
+                body={"state": status})
+        except Exception:
+            logger.debug("set_status(%s) failed", status, exc_info=True)

@@ -43,7 +43,8 @@ input buffers.
 
 Sampling stays outside the graphs, as the JAX engine compiles `sample` as
 an executable of its own: it draws from the engine's generator, whose
-state a replayed graph would not advance.
+state a replayed graph would not advance. `compile()` runs it once at
+each of its shapes (`sample_s`), from a scratch generator.
 
 The decode graph holds the paged kernel's launches (one a layer): each
 replay adds that count to `attention_launches`, since the wrapper's
@@ -483,6 +484,19 @@ class ServingEngine:
                 with torch.inference_mode():
                     fn()
             self.compile_stats[f"{name}_s"] = round(time.monotonic() - t0, 3)
+        # The sampler runs outside the graphs: run it once at both shapes
+        # it is called with (decode [slots, V], prefill [1, V]), so no
+        # request pays its first use. A scratch generator leaves the
+        # engine's stream of draws untouched.
+        t0 = time.monotonic()
+        scratch = torch.Generator(device=self.device).manual_seed(0)
+        for rows in (self.slots, 1):
+            smodel.sample(
+                torch.zeros((rows, cfg.vocab_size), dtype=torch.float32,
+                            device=self.device),
+                torch.ones((rows,), dtype=torch.float32, device=self.device),
+                scratch)
+        self.compile_stats["sample_s"] = round(time.monotonic() - t0, 3)
         if cuda:
             torch.cuda.synchronize(self.device)
         self._compiled = True

@@ -11,17 +11,20 @@ on the command line. Lifecycle:
      verified against its manifest before a byte is used, with a fallback
      through the lineage (engine.load_checkpoint_params); or a `.npz` file
      written by `models.gpt2.save_params_npz`. Each `serving.adapters`
-     entry is restored the same way;
+     entry is restored the same way, from the trial of its checkpoint id,
+     else from the base checkpoint's trial (`_trial_id_for`);
   3. build the kernels and capture every call as a CUDA graph, start the
      batcher and the HTTP front-end; inside a cluster (DET_MASTER and
      DET_ALLOCATION_ID set) report the proxy address and readiness, push
      the load report on a heartbeat and ship request spans to the master;
-  4. on SIGTERM or SIGINT: stop admitting, report draining at once, finish
-     every accepted request within DRAIN_BUDGET_S, and exit 0.
+  4. on SIGTERM or SIGINT, or on the allocation's preemption signal (the
+     master's long-poll, through core's PreemptContext): stop admitting,
+     report draining at once, finish every accepted request within the
+     signal's deadline less DRAIN_SAFETY_MARGIN_S (DRAIN_BUDGET_S without
+     one), and exit 0.
 
 The config is JSON, or YAML when the file ends in .yaml/.yml (PyYAML is
-imported only then). Not ported yet (ROADMAP.md): the preemption
-long-poll of the allocation (managed-mode core), compile-farm warm AOT,
+imported only then). Not ported yet (ROADMAP.md): compile-farm warm AOT,
 MoE decode and the cloud storage backends.
 """
 
@@ -39,9 +42,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from determined_tpu_torch.core._context import checkpoint_base  # noqa: F401  (re-export)
+
 logger = logging.getLogger("determined_tpu_torch.serve")
 
 DRAIN_BUDGET_S = 60.0
+DRAIN_SAFETY_MARGIN_S = 2.0
 HEARTBEAT_PERIOD_S = 2.0
 
 
@@ -136,25 +142,15 @@ def build_model(serving: Dict[str, Any]):
     )
 
 
-def checkpoint_base(storage: Optional[Dict[str, Any]]) -> str:
-    """`checkpoint_storage` -> the directory the checkpoints live in.
+def _trial_id_for(serving: Dict[str, Any]) -> int:
+    """The trial whose lineage `serving.checkpoint` resolves in: the trial
+    of a `trial{N}-step{M}` id, else `serving.trial_id`."""
+    from determined_tpu_torch.core._checkpoint import _STATE_ID_RE
 
-    Only `shared_fs` is ported (`host_path`, joined with `storage_path`
-    when given); without a block, the port's local default, where
-    `core.init()` writes. Any other type raises, naming it."""
-    from determined_tpu_torch.core._context import default_checkpoint_dir
-
-    storage = dict(storage or {"type": "shared_fs",
-                               "host_path": default_checkpoint_dir()})
-    stype = storage.get("type", "shared_fs")
-    if stype != "shared_fs":
-        raise NotImplementedError(
-            f"checkpoint_storage type {stype!r} is not ported; the port "
-            "reads shared_fs only (ROADMAP.md: cloud storage backends)")
-    base = storage.get("host_path", default_checkpoint_dir())
-    if storage.get("storage_path"):
-        base = os.path.join(base, storage["storage_path"])
-    return base
+    m = _STATE_ID_RE.match(str(serving.get("checkpoint", "latest")))
+    if m:
+        return int(m.group(1))
+    return int(serving.get("trial_id", 0))
 
 
 def _restore(ckpt: str, base: str, trial_id: int) -> Dict[str, Any]:
@@ -185,13 +181,14 @@ def build_replica(config: Dict[str, Any], device=None):
     serving = config.get("serving") or {}
     cfg = build_model(serving)
     base = checkpoint_base(config.get("checkpoint_storage"))
-    trial_id = int(serving.get("trial_id", 0))
+    trial_id = _trial_id_for(serving)
     params = _restore(str(serving.get("checkpoint", "latest")), base,
                       trial_id)
     # Multi-adapter replicas: each serving.adapters entry restores a
     # head-tuned fine-tune through the same verified path, then lives as
     # one table of the engine's adapter stack, picked per request by its
-    # `model:` name.
+    # `model:` name. An adapter that is not an explicit id resolves in the
+    # base checkpoint's trial.
     adapters = {str(a["name"]): _restore(str(a["checkpoint"]), base,
                                          trial_id)
                 for a in serving.get("adapters") or []}
@@ -299,6 +296,12 @@ def main(argv=None) -> int:
         period_s=float(serving.get("heartbeat_period_s",
                                    HEARTBEAT_PERIOD_S))).start()
 
+    # The allocation's preemption long-poll (a watcher thread inside a
+    # cluster; nothing without a session) drains the replica as SIGTERM
+    # does.
+    from determined_tpu_torch.core._preempt import PreemptContext
+
+    preempt = PreemptContext(session, allocation_id)
     drain_requested = threading.Event()
 
     def _on_signal(signum, frame):
@@ -311,19 +314,27 @@ def main(argv=None) -> int:
     last_stats = time.monotonic()
     try:
         while not drain_requested.wait(0.5):
+            if preempt.should_preempt():
+                logger.info("preemption signal (%s): draining",
+                            preempt.preemption_reason() or "unspecified")
+                break
             if stats_every and time.monotonic() - last_stats >= stats_every:
                 last_stats = time.monotonic()
                 logger.info("stats: %s", json.dumps(batcher.stats()))
         # Drain: stop admitting (HTTP 503), report draining=true at once
         # (the router stops dispatching here without waiting a period),
-        # finish accepted work, exit 0.
+        # finish accepted work inside the grace window, exit 0 either way:
+        # a blown budget means the node is about to go.
+        deadline = preempt.preemption_deadline()
+        budget = (max(1.0, deadline - DRAIN_SAFETY_MARGIN_S)
+                  if deadline is not None else DRAIN_BUDGET_S)
         t0 = time.monotonic()
         batcher.queue.drain()
         heartbeat.beat()
-        finished = batcher.drain(timeout=DRAIN_BUDGET_S)
+        finished = batcher.drain(timeout=budget)
         logger.info("drain %s in %.2fs (budget %.1fs): %s",
                     "complete" if finished else "TIMED OUT",
-                    time.monotonic() - t0, DRAIN_BUDGET_S,
+                    time.monotonic() - t0, budget,
                     json.dumps(batcher.stats()))
         return 0
     finally:
@@ -332,6 +343,7 @@ def main(argv=None) -> int:
         batcher.stop()
         if tracer is not None:
             tracer.stop()  # final flush: drained requests keep traces
+        preempt.close()
 
 
 if __name__ == "__main__":

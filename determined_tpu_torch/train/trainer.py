@@ -2,21 +2,27 @@
 
 Counterpart of determined_tpu/train/trainer.py. `fit()` runs the searcher
 operations: train to each op's length, flush metrics every `report_period`
-steps (one device-to-host copy per flush, with `steps_per_second`),
+steps (one device-to-host copy per flush, with `steps_per_second` and the
+prefetcher's `input_wait_ms`, `h2d_ms` and `prefetch_queue_depth`),
 validate with the per-batch sums kept on the device, checkpoint at op
 boundaries and every `checkpoint_period` steps, and report the op
-completed. Around the loop: the `step.hang` fault point, the step watchdog,
-the divergence sentinel (`health.on_nan` fail / warn / rollback through
-`core.checkpoint.lineage()`), `resume_from` restore with fallback through
-the lineage, and the preemption checkpoint.
+completed. Batches reach the device through the `DevicePrefetcher`
+(data/prefetch.py) unless the trial or the experiment config turns it off.
+Around the loop: the `step.hang` fault point, the step watchdog, the
+divergence sentinel (`health.on_nan` fail / warn / rollback through
+`core.checkpoint.lineage()`), `resume_from` (or the cluster's
+`DET_LATEST_CHECKPOINT`) restore with fallback through the lineage, and
+the preemption checkpoint, whose COMMIT lands inside the signal's
+deadline. Checkpoints are written in the background and committed at the
+next `core.checkpoint.wait()`: before a rollback reads the lineage, at a
+preemption and at the end of `fit`.
 
 Not ported (ROADMAP.md): the compile farm and batch-size bucketing
 (`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
-nothing here), elastic resize, meshes (data, fsdp, tensor, pipeline and
-expert axes) and the device prefetcher. Batches reach the device with a
-plain copy at the step that uses them, so no `input_wait_ms`, `h2d_ms` or
-`prefetch_queue_depth` is reported. A trial whose `mesh_config()` asks for
-more than one device raises.
+nothing here), `make_multi_step`, meshes (data, fsdp, tensor, pipeline and
+expert axes) and elastic resize in process: a resize signal takes the
+preemption checkpoint path, as the JAX Trainer does in cluster mode. A
+trial whose `mesh_config()` asks for more than one device raises.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.common import faultpoint
+from determined_tpu_torch.data.prefetch import DevicePrefetcher, PrefetchConfig
 from determined_tpu_torch.train.health import (
     DivergenceError,
     HealthConfig,
@@ -56,7 +63,7 @@ def _repeat(iterable_factory) -> Iterator[Any]:
 
 def _to_device(batch: Any, device: torch.device) -> Any:
     """A host batch (numpy arrays or tensors, nested in dicts, lists or
-    tuples) on `device`."""
+    tuples) on `device`: the copy at the step, with the prefetcher off."""
     if isinstance(batch, torch.Tensor):
         return batch.to(device)
     if isinstance(batch, np.ndarray):
@@ -66,6 +73,13 @@ def _to_device(batch: Any, device: torch.device) -> Any:
     if isinstance(batch, (list, tuple)):
         return type(batch)(_to_device(v, device) for v in batch)
     return batch
+
+
+def _expconf(core) -> Optional[Dict[str, Any]]:
+    """The experiment config of a managed trial (None in local mode)."""
+    if core is not None and core.info is not None and core.info.trial:
+        return core.info.trial.config
+    return None
 
 
 def _to_host(metrics: Dict[str, Any]) -> Dict[str, Any]:
@@ -91,6 +105,7 @@ class Trainer:
         self._tx = None
         self._train_step = None
         self._eval_step = None
+        self._pf_cfg: Optional[PrefetchConfig] = None
         self._health_cfg: Optional[HealthConfig] = None
         self._preempt_cfg: Optional[PreemptionConfig] = None
         self._preempt_period = 0
@@ -166,10 +181,20 @@ class Trainer:
                                              n_devices=1)
             core.profiler.on()
 
-        health = self._health_cfg = HealthConfig.resolve(self.trial)
-        self._preempt_cfg = PreemptionConfig.resolve(self.trial)
+        expconf = _expconf(core)
+        self._pf_cfg = PrefetchConfig.resolve(self.trial, expconf)
+        health = self._health_cfg = HealthConfig.resolve(self.trial, expconf)
+        self._preempt_cfg = PreemptionConfig.resolve(self.trial, expconf)
         self._rollbacks = 0
         data_iter: Iterator[Any] = _repeat(self.trial.build_training_data)
+        prefetcher: Optional[DevicePrefetcher] = None
+        if self._pf_cfg.enabled:
+            prefetcher = DevicePrefetcher(data_iter, self.device,
+                                          depth=self._pf_cfg.depth,
+                                          name="train")
+            data_iter = prefetcher
+        else:
+            data_iter = (_to_device(b, self.device) for b in data_iter)
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         step = self.state.step
         preempt_period = self._preempt_period = max(1, preempt_period)
@@ -183,13 +208,16 @@ class Trainer:
         # Beaten at every metrics flush (a device-to-host copy proves the
         # device made progress); fires when nothing lands within
         # health.step_timeout_sec. 0 disables it.
-        watchdog = self._watchdog = StepWatchdog(health.step_timeout_sec)
+        watchdog = self._watchdog = StepWatchdog(
+            health.step_timeout_sec, session=core.checkpoint._session,
+            allocation_id=core.checkpoint._allocation_id)
 
         def flush() -> Optional[Dict[str, Any]]:
             nonlocal last, t_report, n_report
             host = None
             if last is not None:
-                host = self._flush_metrics(core, last, t_report, n_report)
+                host = self._flush_metrics(core, last, t_report, n_report,
+                                           prefetcher)
             last, t_report, n_report = None, time.time(), 0
             watchdog.beat()
             return host
@@ -217,6 +245,7 @@ class Trainer:
                     failed_step,
                     f"diverged again after {health.max_rollbacks} rollbacks")
             self._rollbacks += 1
+            core.checkpoint.wait()  # commit the pending save: a current lineage
             restored = self._restore_chain(core.checkpoint.lineage())
             if restored is None:
                 raise DivergenceError(
@@ -244,7 +273,7 @@ class Trainer:
                         # models a wedged host — what the watchdog exists
                         # to catch.
                         faultpoint.fire("step.hang")
-                        batch = _to_device(next(data_iter), self.device)
+                        batch = next(data_iter)
                         self.state, metrics = self._train_step(
                             self.state, batch, rng)
                         step += 1
@@ -261,6 +290,10 @@ class Trainer:
                             last_val = self._validate(core, step)
                             last_validated = step
                             watchdog.beat()
+                            # The pass polls and cuts itself short on a
+                            # preemption; pick the flag up here.
+                            if core.preempt.should_preempt():
+                                preempted = True
                         if checkpoint_period and \
                                 step % checkpoint_period == 0:
                             self._checkpoint(core, step)
@@ -283,6 +316,12 @@ class Trainer:
                 val = last_val if last_validated == step else \
                     self._validate(core, step)
                 watchdog.beat()
+                if core.preempt.should_preempt():
+                    # A preemption during the op-end validation: checkpoint
+                    # and exit without completing the op; the restart
+                    # finishes it.
+                    self._preempt_checkpoint(core, step, last_checkpointed)
+                    break
                 if last_checkpointed != step:
                     self._checkpoint(core, step)
                     last_checkpointed = step
@@ -291,21 +330,35 @@ class Trainer:
                               else float(self.state.step))
                     op.report_completed(metric)
         finally:
+            # Preemption, op ends and errors all pass here: the watchdog
+            # and the prefetch thread are joined, not orphaned.
             watchdog.stop()
+            if prefetcher is not None:
+                prefetcher.close()
 
+        core.checkpoint.wait()
         if profile:
             core.profiler.off()
         return self.state
 
     # -- helpers ---------------------------------------------------------
 
-    def _flush_metrics(self, core, last, t_start, n_steps) -> Dict[str, Any]:
+    def _flush_metrics(self, core, last, t_start, n_steps,
+                       prefetcher: Optional[DevicePrefetcher] = None
+                       ) -> Dict[str, Any]:
         last_step, last_metrics = last
         host = _to_host(last_metrics)
         dt = time.time() - t_start
         if n_steps and dt > 0:
             host["steps_per_second"] = n_steps / dt
             core.profiler.observe_steps(n_steps, dt)
+        if prefetcher is not None:
+            wait, h2d, depth, n = prefetcher.window_sums()
+            if n:
+                host["input_wait_ms"] = wait / n
+                host["h2d_ms"] = h2d / n
+                host["prefetch_queue_depth"] = depth / n
+                core.profiler.observe_input(wait, h2d, depth, n)
         # The divergence sentinel's event channel: a non-finite step marks
         # this flush's report (train/health.py).
         if float(host.get("all_finite", 1.0)) < 1.0:
@@ -326,11 +379,34 @@ class Trainer:
         # wait for the one before.
         sums: Dict[str, Any] = {}
         count = 0
-        for batch in self.trial.build_validation_data():
-            m = self._eval_step(self.state, _to_device(batch, self.device))
-            for k, v in m.items():
-                sums[k] = sums[k] + v if k in sums else v
-            count += 1
+        pf_cfg = self._pf_cfg or PrefetchConfig.resolve(self.trial,
+                                                        _expconf(core))
+        data: Iterator[Any] = iter(self.trial.build_validation_data())
+        prefetcher: Optional[DevicePrefetcher] = None
+        if pf_cfg.enabled:
+            prefetcher = DevicePrefetcher(data, self.device,
+                                          depth=pf_cfg.depth, name="val")
+            data = prefetcher
+        else:
+            data = (_to_device(b, self.device) for b in data)
+        preempt_period = max(1, self._preempt_period)
+        try:
+            for batch in data:
+                m = self._eval_step(self.state, batch)
+                for k, v in m.items():
+                    sums[k] = sums[k] + v if k in sums else v
+                count += 1
+                # A long pass must not outlive a drain deadline: poll at
+                # the loop's cadence and cut it short (the partial averages
+                # are still reported).
+                if count % preempt_period == 0 and \
+                        core.preempt.should_preempt():
+                    logger.info("preemption during validation after %d "
+                                "batches; cutting the pass short", count)
+                    break
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
         if count == 0:
             return {}
         sums = _to_host(sums)
@@ -344,30 +420,48 @@ class Trainer:
 
     def _preempt_checkpoint(self, core, step: int,
                             last_checkpointed: int) -> None:
-        """Preemption exit path. Unbounded preemption: save (and commit) at
-        the current step. With a termination deadline: save only if the
-        last observed save cost fits the grace left, else leave the
-        previous COMPLETED checkpoint to restore from."""
+        """Preemption exit path. Unbounded preemption: save at the current
+        step (fit's epilogue commits it). With a termination deadline: save
+        and commit inside the window only if the last observed save cost
+        fits the grace left, else commit what is pending and leave the
+        previous COMPLETED checkpoint to restore from. A resize offer takes
+        this path too: the port cannot reshard in process, so the master
+        re-places the trial at its new size from this checkpoint."""
         deadline = core.preempt.preemption_deadline()
+        resize_target = core.preempt.resize_target()
         if deadline is None:
             if last_checkpointed != step:
                 self._checkpoint(core, step)
-            logger.info("preempted at step %d; checkpoint saved", step)
+            logger.info("preempted at step %d (resize target %s); checkpoint "
+                        "saved", step, resize_target)
             return
         cfg = self._preempt_cfg or PreemptionConfig()
         t0 = time.monotonic()
+        estimate_ms = core.checkpoint.last_save_ms
         attempt = last_checkpointed != step and cfg.should_attempt_save(
-            deadline, core.checkpoint.last_save_ms)
+            deadline, estimate_ms)
         with core.tracer.span("harness.checkpoint.emergency",
                               deadline_s=deadline, attempted=attempt,
                               step=step):
             if attempt:
                 self._checkpoint(core, step)
-        core.tracer.flush()
+            elif last_checkpointed != step:
+                logger.warning(
+                    "preemption deadline %.1fs cannot cover a durable save "
+                    "(last save %.0fms x%.1f safety + %.1fs margin); "
+                    "skipping the emergency checkpoint", deadline,
+                    estimate_ms or 0.0, cfg.budget_safety_factor,
+                    cfg.budget_margin_sec)
+            # The COMMIT must land inside the window: the new save, or the
+            # periodic one still pending, which the restart lands on.
+            core.checkpoint.wait()
+        core.tracer.flush()  # the process exits right after
         grace_used_ms = (time.monotonic() - t0) * 1000.0
         logger.info(
-            "deadline preemption at step %d: %s, grace used %.0fms of %.1fs",
-            step, "emergency checkpoint committed" if attempt
+            "%s preemption (%s) at step %d: %s, grace used %.0fms of %.1fs",
+            "resize" if resize_target is not None else "deadline",
+            core.preempt.preemption_reason() or "unknown", step,
+            "emergency checkpoint committed" if attempt
             else "emergency checkpoint skipped", grace_used_ms, deadline)
         core.train.report_training_metrics(step, {
             "preemption_grace_used_ms": grace_used_ms,

@@ -70,6 +70,13 @@ class TorchTrial(abc.ABC):
     # the stateful loss signature (see train.step.make_train_step).
     stateful = False
 
+    # The device prefetcher (determined_tpu_torch.data): None inherits the
+    # experiment config's `prefetch:` block (default: on, depth 2); False
+    # feeds each batch to the step with a copy there; a dict such as
+    # {"depth": 4} tunes it. Loaders yield host batches: the pipeline owns
+    # the copy to the device.
+    prefetch = None
+
     def __init__(self, context: TrialContext):
         self.context = context
 

@@ -17,10 +17,11 @@ On fire it is deliberately LOUD, then fatal:
   2. live device / allocation state is logged (device list, allocated and
      reserved CUDA memory) — distinguishes "device wedged" from "host
      wedged";
-  3. the process exits with :data:`WATCHDOG_EXIT_CODE` (nonzero), for
+  3. in managed mode the exit reason is posted to the master
+     (``POST /api/v1/allocations/{id}/exit_reason``);
+  4. the process exits with :data:`WATCHDOG_EXIT_CODE` (nonzero), for
      whatever restarts it to restart from a checkpoint that integrity
-     verification guarantees is good. (The JAX package also posts the exit
-     reason to the master; the port runs in local mode only.)
+     verification guarantees is good.
 
 Chaos: the ``step.hang`` fault point in the Trainer's hot loop
 (``DET_FAULTS=step.hang:delay-30000``) simulates the wedge deterministically
@@ -42,6 +43,7 @@ logger = logging.getLogger("determined_tpu_torch.train")
 # Distinct from 137 (SIGKILL / chaos crash) and ordinary tracebacks (1):
 # greppable in task logs and agent exit reports.
 WATCHDOG_EXIT_CODE = 87
+EXIT_REASON = "step watchdog: no training progress within timeout"
 
 
 def _dump_device_state(stream) -> None:
@@ -78,10 +80,14 @@ class StepWatchdog:
     def __init__(
         self,
         timeout_sec: float,
+        session=None,
+        allocation_id: Optional[str] = None,
         exit_fn: Callable[[int], None] = os._exit,
         stream=None,
     ):
         self.timeout_sec = float(timeout_sec)
+        self._session = session
+        self._allocation_id = allocation_id
         self._exit_fn = exit_fn
         self._stream = stream if stream is not None else sys.stderr
         self._beat = time.monotonic()
@@ -144,4 +150,17 @@ class StepWatchdog:
             print(f"watchdog: stack dump failed: {e}", file=self._stream,
                   flush=True)
         _dump_device_state(self._stream)
+        self._report_exit_reason()
         self._exit_fn(WATCHDOG_EXIT_CODE)
+
+    def _report_exit_reason(self) -> None:
+        if self._session is None or not self._allocation_id:
+            return
+        try:
+            self._session.post(
+                f"/api/v1/allocations/{self._allocation_id}/exit_reason",
+                body={"reason": EXIT_REASON,
+                      "exit_code": WATCHDOG_EXIT_CODE})
+        except Exception as e:
+            print(f"watchdog: exit-reason report failed: {e}",
+                  file=self._stream, flush=True)

@@ -12,8 +12,10 @@ evaluation. Attention runs through the hand-written CUDA flash kernels
     GPT2_STEPS=200 GPT2_TOKENS=tokens.int32 python examples/gpt2_cuda/model_def.py
 
 trains in local mode on the first CUDA device, as the JAX example's
-`__main__` does; the port has no master to hand out searcher operations,
-so the length (in steps) comes from GPT2_STEPS.
+`__main__` does, for GPT2_STEPS steps. Launched with the `DET_*`
+variables an agent sets (`DET_MASTER`, `DET_TRIAL_ID`, ...), the same
+script is a managed trial: the master's searcher hands out the lengths,
+and the hparams come from `DET_HPARAMS`.
 """
 
 import os

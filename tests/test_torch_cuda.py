@@ -316,3 +316,54 @@ def test_gpt2_grads_through_kernels_match_reference(cuda):
                                atol=1e-5, rtol=1e-5)
     for a, r in zip(grads["auto"][1], grads["reference"][1]):
         torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-4)
+
+
+def test_prefetcher_never_recycles_a_batch_under_a_running_step(cuda):
+    """Each batch is read by a step that is still queued behind a device
+    sleep when the consumer drops it: `record_stream` must keep the
+    allocator from handing its memory to the producer's next copy, and
+    the stream wait must order the copy before the read."""
+    from determined_tpu_torch.data import DevicePrefetcher
+
+    n, numel = 12, 1 << 22
+    host = ({"x": np.full((numel,), i, np.float32)} for i in range(n))
+    sums = torch.zeros(n, device="cuda")
+    with DevicePrefetcher(host, "cuda", depth=2) as pf:
+        for i, batch in enumerate(pf):
+            assert batch["x"].is_cuda
+            torch.cuda._sleep(20_000_000)  # the step is still running...
+            sums[i] = batch["x"].sum()
+            del batch  # ...when its batch is dropped
+        metrics = pf.window_metrics()
+    torch.cuda.synchronize()
+    want = torch.arange(n, device="cuda", dtype=torch.float32) * numel
+    assert torch.equal(sums, want)
+    assert metrics["h2d_ms"] > 0 and len(pf._pinned._bufs) == 1
+
+
+def test_async_snapshot_holds_the_state_of_its_step(cuda, tmp_path):
+    """The snapshot sees what the compute stream wrote before the save
+    (still queued behind a device sleep) and never what it writes after,
+    though the background write runs while those in-place updates do."""
+    from determined_tpu_torch.core._checkpoint import CheckpointContext
+    from determined_tpu_torch.train.state import TrainState
+
+    params = {"w": torch.zeros(1 << 22, device="cuda")}
+    moments = {"mu": [torch.zeros(1 << 22, device="cuda")], "count": 1}
+    state = TrainState(step=1, params=params, opt_state=(None, moments))
+    ctx = CheckpointContext(str(tmp_path), async_save=True)
+    for step, value in ((1, 1.0), (2, 3.0)):
+        torch.cuda._sleep(50_000_000)
+        params["w"].fill_(value)
+        moments["mu"][0].fill_(-value)
+        sid = ctx.save_state(state, step)
+        for _ in range(20):  # the optimizer's in-place updates
+            params["w"].mul_(2.0).add_(1.0)
+            moments["mu"][0].add_(5.0)
+        ctx.wait()
+        got = ctx.restore_state(sid, state)
+        assert torch.equal(got.params["w"],
+                           torch.full_like(params["w"], value))
+        assert torch.equal(got.opt_state[1]["mu"][0],
+                           torch.full_like(params["w"], -value))
+    assert all(b.is_pinned() for b in ctx._snapshot._buffers)

@@ -15,6 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "determined_tpu_torch",
     "determined_tpu_torch._device",
+    "determined_tpu_torch._info",
     "determined_tpu_torch.common.api",
     "determined_tpu_torch.common.faultpoint",
     "determined_tpu_torch.common.trace",
@@ -27,6 +28,11 @@ PORT_MODULES = [
     "determined_tpu_torch.core._profiler",
     "determined_tpu_torch.core._searcher",
     "determined_tpu_torch.core._train",
+    "determined_tpu_torch.data",
+    "determined_tpu_torch.data.prefetch",
+    "determined_tpu_torch.experimental",
+    "determined_tpu_torch.experimental.core_v2",
+    "determined_tpu_torch.experimental.core_v2._core_v2",
     "determined_tpu_torch.models.gpt2",
     "determined_tpu_torch.ops._build",
     "determined_tpu_torch.ops._softmax_common",
@@ -40,6 +46,7 @@ PORT_MODULES = [
     "determined_tpu_torch.serve.scheduler",
     "determined_tpu_torch.serve.task",
     "determined_tpu_torch.serve.tracing",
+    "determined_tpu_torch.tensorboard",
     "determined_tpu_torch.train",
     "determined_tpu_torch.train.health",
     "determined_tpu_torch.train.optim",

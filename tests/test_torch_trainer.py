@@ -1,15 +1,15 @@
 """The port's local-mode Trainer against the JAX package's, on the CPU.
 
 A tiny fp32 GPT-2 trial with numpy-drawn params and fixed numpy batches
-runs through `determined_tpu.train.Trainer` (one CPU device, no
-prefetcher) and through `determined_tpu_torch.train.Trainer`
+runs through `determined_tpu.train.Trainer` (one CPU device, both with
+their device prefetcher) and through `determined_tpu_torch.train.Trainer`
 (`device="cpu"`): the loss reported at every step, the validation loss and
 the metric keys must agree. Then the port alone: a checkpoint restored by
 `resume_from` in a fresh Trainer continues at its step with identical
 params; `health.on_nan: rollback` rewinds to the last COMMITTED
-checkpoint; a faked preemption takes the preemption checkpoint; the
-`step.hang` fault point fires the step watchdog; and `core.init()`
-refuses a cluster environment.
+checkpoint, with the prefetcher off and on; a faked preemption takes the preemption checkpoint; the
+`step.hang` fault point fires the step watchdog; and what `core.init()`
+makes of each cluster variable alone.
 
 Tolerance: losses atol 1e-4 over 4 steps (fp32, the same arithmetic in
 another summation order, through the optimizer's updates).
@@ -57,8 +57,6 @@ def batches(seed, n, b=4, s=17):
 
 
 class JaxGPT2(JaxTrial):
-    prefetch = False
-
     def __init__(self, context, params):
         super().__init__(context)
         self.cfg = jgpt2.Config(**DIMS, dtype=jnp.float32)
@@ -92,12 +90,15 @@ class TorchGPT2(TorchTrial):
         self.params = params
         self.poison_step = poison_step
         self.batches_drawn = 0
+        self.batches_stepped = []  # the draw number of each step's batch
 
     def init_params(self, rng):
         return tgpt2.params_from_numpy(self.params, rng.device)
 
     def loss(self, params, batch, rng):
         loss = tgpt2.loss_fn(params, batch, self.cfg)
+        if "drawn" in batch:
+            self.batches_stepped.append(int(batch["drawn"]))
         if "poison" in batch and bool(batch["poison"]):
             loss = loss * float("nan")
         return loss
@@ -111,7 +112,10 @@ class TorchGPT2(TorchTrial):
         for batch in batches(1, 16):
             self.batches_drawn += 1
             if self.batches_drawn == self.poison_step:
-                batch = dict(batch, poison=np.array(True))
+                batch = dict(batch, poison=np.array(True),
+                             drawn=np.array(self.batches_drawn))
+            elif self.poison_step is not None:
+                batch = dict(batch, drawn=np.array(self.batches_drawn))
             yield batch
 
     def build_validation_data(self):
@@ -197,10 +201,14 @@ def test_missing_resume_checkpoint_walks_the_lineage_back(tmp_path):
                                     "restored": "trial0-step2"}
 
 
-def test_on_nan_rollback_rewinds_to_the_last_committed_checkpoint(tmp_path):
+@pytest.mark.parametrize("prefetch", [False, True],
+                         ids=["prefetch_off", "prefetch_on"])
+def test_on_nan_rollback_rewinds_to_the_last_committed_checkpoint(
+        tmp_path, prefetch):
     ctx = tcore.init(max_length=4, checkpoint_dir=str(tmp_path / "ckpt"))
     trial = TorchGPT2(TTrialContext(core_context=ctx), numpy_params(),
                       poison_step=3)
+    trial.prefetch = prefetch
     trial.health = {"on_nan": "rollback", "rollback_window": 1,
                     "max_rollbacks": 1}
     state = TTrainer(trial, core_context=ctx, device="cpu").fit(
@@ -213,7 +221,10 @@ def test_on_nan_rollback_rewinds_to_the_last_committed_checkpoint(tmp_path):
     assert reports[2]["metrics"]["divergence"] == 1.0
     assert reports[2]["metrics"]["all_finite"] == 0.0
     assert all(r["metrics"]["all_finite"] == 1.0 for r in reports[3:])
-    assert trial.batches_drawn == 6  # 3 + 1 skipped + 2 replayed
+    # Batch 4 skipped, 5 and 6 replayed, through the prefetcher or not.
+    assert trial.batches_stepped == [1, 2, 3, 5, 6]
+    if not prefetch:  # with it on, the producer draws ahead of the loop
+        assert trial.batches_drawn == 6
     assert state.step == 4
     assert all(torch.isfinite(t).all() for t in state.leaves())
     assert ctx.checkpoint.lineage() == ["trial0-step4", "trial0-step2"]
@@ -241,12 +252,79 @@ def test_preemption_takes_the_preemption_checkpoint(tmp_path):
     assert ctx.searcher.completed_metrics == []  # the op did not complete
 
 
+class _RecordingMaster:
+    """A stdlib master that answers every request {} and records it."""
+
+    def __init__(self):
+        import json
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        got = self.requests = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _answer(self):
+                n = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(n) if n else b""
+                got.append((self.command, self.path.split("?")[0],
+                            json.loads(body) if body else None))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            do_GET = do_POST = _answer
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
+        threading.Thread(target=self._server.serve_forever,
+                         daemon=True).start()
+
+    def close(self):
+        self._server.shutdown()
+        self._server.server_close()
+
+
 @pytest.mark.parametrize("var", ["DET_MASTER", "DET_TRIAL_ID",
                                  "DET_ALLOCATION_ID"])
-def test_core_init_refuses_a_cluster_environment(monkeypatch, var):
-    monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.init(max_length=1)
+def test_core_init_in_a_cluster_environment(monkeypatch, tmp_path, var):
+    """What core.init() makes of each variable an agent sets, alone: with
+    DET_MASTER a managed context that reports `run_prepare` to that
+    master; DET_TRIAL_ID or DET_ALLOCATION_ID without a master is local
+    mode, as in the JAX package."""
+    import os
+
+    from determined_tpu import _info as jinfo
+
+    for k in [k for k in os.environ if k.startswith("DET_")]:
+        monkeypatch.delenv(k)
+    master = _RecordingMaster()
+    monkeypatch.setenv(var, master.url if var == "DET_MASTER" else "7")
+    try:
+        ctx = tcore.init(max_length=1, checkpoint_dir=str(tmp_path))
+        jinfo_now = jinfo.get_cluster_info(refresh=True)
+        ctx.close()
+    finally:
+        master.close()
+        # The JAX package caches its ClusterInfo: read it again from the
+        # environment as it will be after this test.
+        for k in [k for k in os.environ if k.startswith("DET_")]:
+            monkeypatch.delenv(k)
+        jinfo.get_cluster_info(refresh=True)
+    managed = var == "DET_MASTER"
+    assert (ctx.info is not None) == managed == (jinfo_now is not None)
+    if managed:
+        assert ctx.info.master_url == jinfo_now.master_url == master.url
+        assert ("POST", "/api/v1/trials/0/run_prepare", {}) in \
+            master.requests
+        assert ctx.checkpoint._session is not None
+    else:
+        assert master.requests == []
+        assert ctx.checkpoint._session is None
+        assert list(ctx.searcher.operations())[0].length == 1
 
 
 def test_trainer_refuses_a_mesh_of_more_than_one_device(tmp_path):
@@ -270,9 +348,9 @@ def test_step_hang_fault_point_fires_the_watchdog(tmp_path, monkeypatch):
     fired = []
 
     class Recording(trainer_mod.StepWatchdog):
-        def __init__(self, timeout_sec):
+        def __init__(self, timeout_sec, **kw):
             super().__init__(timeout_sec, exit_fn=fired.append,
-                             stream=io.StringIO())
+                             stream=io.StringIO(), **kw)
 
     monkeypatch.setattr(trainer_mod, "StepWatchdog", Recording)
     ctx = tcore.init(max_length=2, checkpoint_dir=str(tmp_path / "ckpt"))
