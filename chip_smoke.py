@@ -134,7 +134,41 @@ fails:
      window, and the ms the loop spent on that save (in `save_state`, and
      blocked in the wait that committed it, from its spans), against a
      synchronous save (`async_save` off) of the same state.
-  8. training parity in fp32: the same GPT-2 small-width params (2 layers)
+  8. GPT-2 training across processes and as CUDA-graph replay.
+ 8a. `make_multi_step` (steps_per_call 4) against 4 `make_train_step`
+     calls from the same state and batches: GPT-2 small, B 8, S 1024,
+     bf16, remat "dots", two windows (the first runs step 0 eagerly and
+     captures the step, the second only replays). Window-mean losses,
+     grad norms and all_finite are held to rtol 1e-6 and the params to
+     atol 1e-6 (the replay holds the eager step's kernels, fed the same
+     floats: expected bitwise equal); whether they are bitwise equal is
+     printed. The captured step must hold the flash kernels' launches
+     (24 forward, 12 dQ, 12 dK/dV) and the replays must have launched
+     them 7 times over. Then, information: the step replayed and eager in
+     turns (host clock a window) and torch.profiler's device time a step.
+ 8b. the five remat policies (None, "nothing", "dots", "dots_saveable",
+     "everything") at full width and 2 layers, B 8, S 1024, bf16: loss
+     (rtol 1e-6) and grad norm (rtol 1e-4) held to "dots"'s, the flash
+     forward launched twice a layer (once under "everything"), and the
+     peak memory of each printed.
+ 8c. the example trial launched through `python -m
+     determined_tpu_torch.launch.torch_distributed` with
+     `DET_SLOT_IDS="[0]"` against the fake master of 7c (10 steps at
+     phase 7's hparams): the worker must see `CUDA_VISIBLE_DEVICES=0`,
+     form an NCCL process group of one with its gloo control group
+     (an allgather and a broadcast of bytes over it), a DeviceMesh of the
+     world, launch the flash kernels by phase 7's formula, report through
+     the chief (losses at 5 and 10 held to phase 7's, atol 1e-5, bitwise
+     printed) and commit a checkpoint the master registers; a serve
+     replica restores it, and its logits must equal the restored params'
+     forward (fp32, 1e-3). Two ranks cannot share this one card
+     (`tools/two_ranks_one_card.py`: NCCL refuses a second rank on a
+     device; gloo takes all_reduce, broadcast, all_gather_into_tensor and
+     reduce_scatter_tensor on CUDA tensors, but both ranks die (SIGSEGV)
+     in DTensor's all-gather of a shard, which the fsdp path runs before
+     every block), so the two-rank fsdp run needs a host with two cards
+     and is not part of this script.
+  9. training parity in fp32: the same GPT-2 small-width params (2 layers)
      and batches through the kernels and through the plain attention.
      Every leaf's step-0 gradient must agree to 1e-5 of that leaf's
      largest element. Then 3 optimizer steps (lr 0, then 1e-5): losses
@@ -142,7 +176,7 @@ fails:
      (Adam moves a weight by about lr a step whatever the gradient's
      scale, so the params see a gradient's signs; the gradients and
      grad_norm see its size).
-  9. times on the card (CUDA events, L2 flushed before every launch, the
+  10. times on the card (CUDA events, L2 flushed before every launch, the
      host's launch work hidden behind a device-side wait): each
      kernel, its plain version and one library call (a yardstick the port
      never calls): `scaled_dot_product_attention` over the gathered lane
@@ -1384,10 +1418,13 @@ class FakeMaster:
                 body = json.loads(self.rfile.read(n)) if n else None
                 out = master.answer(self.command, url.path, query, body)
                 data = json.dumps(out).encode()
-                self.send_response(200)
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
+                try:
+                    self.send_response(200)
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                except (BrokenPipeError, ConnectionResetError):
+                    return  # the client left: a process exited mid-poll
                 if out.get("preempt"):
                     master._sent.set()
 
@@ -1853,7 +1890,467 @@ def profile_train_steps(trainer, trial, n_steps=3):
     return out
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------ phase 8a-8c
+
+
+MULTI_STEPS = 4      # steps_per_call of 8a
+MULTI_WINDOWS = 2    # the first captures, the second only replays
+# 8a's limits, eager against replayed steps from the same state: the
+# window-mean loss, grad_norm and all_finite rtol 1e-6, params atol 1e-6.
+# The replay holds the eager step's kernels in the eager step's order,
+# fed the same optimizer floats (as a device tensor both ways), so the
+# two are expected bitwise equal; a calibration run found them so
+# (`make_train_step` and the replays, GPT-2 small bf16 and 2 layers fp32).
+MULTI_RTOL, MULTI_PARAM_ATOL = 1e-6, 1e-6
+
+
+def example_tx():
+    """The example trial's optimizer chain at phase 7's hparams."""
+    from determined_tpu_torch.train import optim
+
+    return optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(
+        optim.warmup_cosine_decay_schedule(0.0, 3e-4, 5, 10000), b2=0.95,
+        weight_decay=0.1))
+
+
+def token_windows(tokens_path, n_windows, steps, b=8, s=1024, seed=SEED + 21):
+    """`n_windows` stacks of `steps` batches [steps, b, s+1] from the token
+    stream, on the card."""
+    import numpy as np
+    import torch
+
+    stream = np.memmap(tokens_path, dtype=np.int32, mode="r")
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_windows):
+        starts = rng.integers(0, len(stream) - s - 1, (steps, b))
+        win = np.stack([[stream[i:i + s + 1] for i in row] for row in starts])
+        out.append(torch.from_numpy(win.astype(np.int32)).cuda())
+    return out
+
+
+def device_ms_per_step(run, n_steps):
+    """Kernel time a step of `run()` (n_steps steps) under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    busy = 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        busy += max(0.0, us) / 1e3
+    return busy / n_steps
+
+
+def step_order_sum(values):
+    """fp32 sum in step order, ((m0 + m1) + m2) + m3, as the replays
+    accumulate their metrics."""
+    total = values[0].float()
+    for v in values[1:]:
+        total = total + v.float()
+    return total
+
+
+def phase_multi_step(hparams, card, depth=12):
+    """8a: `make_multi_step` (steps_per_call 4) against 4 `make_train_step`
+    calls from the same state and batches, GPT-2 small at full width, B 8,
+    S 1024, bf16, remat "dots": the first window runs step 0 eagerly and
+    captures the step, the second only replays. Window-mean losses and
+    grad norms and the params after both windows are held to the eager
+    run's (MULTI_RTOL, MULTI_PARAM_ATOL); whether they are bitwise equal is
+    printed. The flash kernels must have run inside the replays (the
+    launches the captured step holds, times the replays). Then, as
+    information: the step time replayed and eager in turns (replay,
+    eager, eager, replay), host clock over a window, and torch.profiler's
+    device time a step of each."""
+    import dataclasses
+
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.train.state import create_train_state
+    from determined_tpu_torch.train.step import make_multi_step, make_train_step
+
+    cfg = dataclasses.replace(gpt2.Config.small(), n_layer=depth)
+
+    def loss(p, b, r):
+        return gpt2.loss_fn(p, b, cfg)
+
+    def state_of(tx):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        return create_train_state(lambda g: gpt2.init(g, cfg), tx, gen,
+                                  device="cuda")
+
+    windows = token_windows(hparams["tokens_path"], MULTI_WINDOWS,
+                            MULTI_STEPS)
+    tx_r, tx_e = example_tx(), example_tx()
+    multi = make_multi_step(loss, tx_r, steps_per_call=MULTI_STEPS)
+    step = make_train_step(loss, tx_e)
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 22)
+
+    # The main path of 8a runs from here: every count starts at 0.
+    for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+        fn.launches = 0
+    fa.reference_attention.calls = 0
+    replayed = state_of(tx_r)
+    means_r = []
+    for w in windows:
+        replayed, m = multi(replayed, {"tokens": w}, rng)
+        means_r.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    wrapper = {"fwd": fa.flash_fwd_cuda.launches,
+               "dq": fa.flash_dq_cuda.launches,
+               "dkv": fa.flash_dkv_cuda.launches}
+    in_replays = dict(multi.replayed_launches)
+    ref_calls = fa.reference_attention.calls
+    eager = state_of(tx_e)
+    means_e = []
+    for w in windows:
+        ms = []
+        for i in range(MULTI_STEPS):
+            eager, m = step(eager, {"tokens": w[i]}, rng)
+            ms.append(m)
+        means_e.append({k: float(step_order_sum([x[k] for x in ms])
+                                 / MULTI_STEPS) for k in ms[0]})
+    torch.cuda.synchronize()
+    L = cfg.n_layer
+    replays = MULTI_STEPS * MULTI_WINDOWS - 1
+    want_graph = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    say(f"[multi] [{card}] GPT-2 small width, {L} layers, B 8, S 1024, bf16, "
+        f"remat 'dots': make_multi_step(steps_per_call={MULTI_STEPS}) x "
+        f"{MULTI_WINDOWS} windows = 1 eager warm-up step + {replays} "
+        f"replays ({multi.replays}); the captured step holds "
+        f"{multi._graph_launches} flash launches (expected {want_graph}); "
+        f"launched inside the replays {in_replays}; the wrappers' own "
+        f"counts (warm-up + capture) {wrapper}; reference calls "
+        f"{ref_calls}")
+    if multi.replays != replays or multi._graph_launches != want_graph or \
+            in_replays != {k: v * replays for k, v in want_graph.items()} \
+            or ref_calls:
+        fail("the flash kernels did not run inside the multi-step replays")
+    worst_rel = 0.0
+    for mr, me in zip(means_r, means_e):
+        for k in ("loss", "grad_norm", "all_finite"):
+            worst_rel = max(worst_rel, abs(mr[k] - me[k]) / max(abs(me[k]),
+                                                               1e-12))
+    flat_r = gpt2._flatten(replayed.params)
+    flat_e = gpt2._flatten(eager.params)
+    worst_p, worst_name = 0.0, ""
+    for name in flat_e:
+        d = float((flat_r[name] - flat_e[name]).detach().abs().max())
+        if d > worst_p:
+            worst_p, worst_name = d, name
+    bitwise = worst_p == 0.0 and all(
+        mr[k] == me[k] for mr, me in zip(means_r, means_e) for k in mr)
+    say(f"[multi] [{card}] replayed vs eager, {MULTI_STEPS * MULTI_WINDOWS} "
+        f"steps: window-mean losses {[m['loss'] for m in means_r]} vs "
+        f"{[m['loss'] for m in means_e]}, max rel diff of loss / grad_norm / "
+        f"all_finite {worst_rel:.3e} (rtol {MULTI_RTOL}); max |param diff| "
+        f"{worst_p:.3e} ({worst_name or 'none'}; atol {MULTI_PARAM_ATOL}); "
+        f"bitwise equal: {bitwise}")
+    if worst_rel > MULTI_RTOL or worst_p > MULTI_PARAM_ATOL:
+        fail("make_multi_step's replays differ from make_train_step's steps")
+
+    # Information: the step replayed against eager, in turns.
+    w = windows[0]
+
+    def run_replay():
+        multi(replayed, {"tokens": w}, rng)
+
+    def run_eager():
+        for i in range(MULTI_STEPS):
+            step(eager, {"tokens": w[i]}, rng)
+
+    host = {"replay": [], "eager": []}
+    for mode in ("replay", "eager", "eager", "replay"):
+        fn = run_replay if mode == "replay" else run_eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host[mode].append((time.perf_counter() - t0) * 1e3 / MULTI_STEPS)
+    dev = {"replay": device_ms_per_step(run_replay, MULTI_STEPS),
+           "eager": device_ms_per_step(run_eager, MULTI_STEPS)}
+    for mode in ("replay", "eager"):
+        say(f"[multi] [{card}] {mode}: host {host[mode][0]:.2f} / "
+            f"{host[mode][1]:.2f} ms a step (two windows of {MULTI_STEPS}, "
+            f"in turns), device {dev[mode]:.2f} ms a step (torch.profiler), "
+            f"idle share {max(0.0, 1 - dev[mode] / min(host[mode])) * 100:.1f}"
+            f"% of the faster window")
+    del replayed, eager, multi
+    _free_cuda()
+    return {"host": host, "device": dev, "bitwise": bitwise}
+
+
+REMAT_POLICY_NAMES = (None, "nothing", "dots", "dots_saveable", "everything")
+# 8b's limits against "dots": the forward is the same arithmetic under
+# every policy (loss rtol 1e-6); the backward differs only in what it
+# recomputes with the same kernels (grad_norm rtol 1e-4).
+REMAT_LOSS_RTOL, REMAT_NORM_RTOL = 1e-6, 1e-4
+
+
+def phase_remat_policies(card, depth=2):
+    """8b: the five remat policies at full width and 2 layers (B 8, S 1024,
+    bf16): loss and grad norm of one forward and backward, held to
+    "dots"'s, with the peak memory of each and its flash forward launches
+    (two a layer when the recompute runs the kernel again, one under
+    "everything")."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.train import optim
+
+    base = dataclasses.replace(gpt2.Config.small(), n_layer=depth)
+    params = gpt2.init(torch.Generator(device="cuda").manual_seed(SEED + 23),
+                       base)
+    rng = np.random.default_rng(SEED + 24)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, base.vocab_size, (8, 1025)).astype(np.int32)).cuda()}
+    leaves = list(gpt2._flatten(params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    out = {}
+    for policy in REMAT_POLICY_NAMES:
+        cfg = dataclasses.replace(base, remat=True, remat_policy=policy)
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fa.flash_fwd_cuda.launches = 0
+        loss = gpt2.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        norm = float(optim.global_norm(grads))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        out[policy] = (float(loss.detach()), norm, peak,
+                       fa.flash_fwd_cuda.launches)
+        del loss, grads
+    ref_loss, ref_norm = out["dots"][:2]
+    for policy, (loss, norm, peak, fwd) in out.items():
+        want_fwd = depth * (1 if policy == "everything" else 2)
+        say(f"[remat] [{card}] {str(policy):13s} loss {loss:.6f} grad_norm "
+            f"{norm:.6f} (vs dots: loss {loss - ref_loss:+.2e}, grad_norm "
+            f"rel {(norm - ref_norm) / ref_norm:+.2e}); peak memory above "
+            f"the params {peak:.3f} GiB; flash forward launches {fwd} "
+            f"(expected {want_fwd})")
+        if abs(loss - ref_loss) > REMAT_LOSS_RTOL * abs(ref_loss) or \
+                abs(norm - ref_norm) > REMAT_NORM_RTOL * ref_norm or \
+                fwd != want_fwd:
+            fail(f"remat policy {policy!r} differs from 'dots'")
+    del params, leaves
+    _free_cuda()
+    return out
+
+
+LAUNCHED_TRIAL = 3
+LAUNCHED_STEPS = 10
+# One rank of 8c's launched trial: the example's GPT2Trial under
+# core.init() from the launcher's and the agent's environment. Written
+# into build/smoke at run time and started by the port's launcher.
+LAUNCHED_WORKER = r'''
+import json, os, sys
+ROOT = sys.argv[1]
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "examples", "gpt2_cuda"))
+import torch
+import torch.distributed as dist
+from determined_tpu_torch import core
+from determined_tpu_torch.ops import flash_attention as fa
+from determined_tpu_torch.train import Trainer
+from determined_tpu_torch.train.trial import TrialContext
+from model_def import GPT2Trial
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ctx = core.init()
+d = ctx.distributed
+chief = d.is_chief
+out = {"rank": d.rank, "size": d.size, "backend": d.backend,
+       "group_backend": dist.get_backend(),
+       "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+       "device": torch.cuda.get_device_name(torch.cuda.current_device()),
+       "allgather": [b.decode() for b in d.transport.allgather_bytes(
+           f"rank{d.rank}".encode())],
+       "broadcast": d.transport.broadcast_bytes(
+           b"from the chief" if chief else b"", chief).decode()}
+trial = GPT2Trial(TrialContext(hparams=ctx.hparams, core_context=ctx,
+                               n_devices=d.size))
+trainer = Trainer(trial, core_context=ctx)
+for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+    fn.launches = 0
+fa.reference_attention.calls = 0
+state = trainer.fit(report_period=5, preempt_period=5)
+torch.cuda.synchronize()
+out.update(mesh=dict(zip(trainer.mesh.mesh_dim_names,
+                         trainer.mesh.mesh.shape)),
+           step=state.step,
+           launches={"fwd": fa.flash_fwd_cuda.launches,
+                     "dq": fa.flash_dq_cuda.launches,
+                     "dkv": fa.flash_dkv_cuda.launches},
+           reference_calls=fa.reference_attention.calls)
+print("RESULT " + json.dumps(out), flush=True)
+ctx.close()
+'''
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_trial(workdir, hparams, storage, nproc, slots, backend=None,
+                 trial_id=LAUNCHED_TRIAL, timeout=900):
+    """The example trial through `python -m
+    determined_tpu_torch.launch.torch_distributed` against a fresh fake
+    master with one op of LAUNCHED_STEPS: -> (each rank's RESULT, the
+    master, the launcher's exit code, its output)."""
+    script = os.path.join(workdir, "launched_worker.py")
+    with open(script, "w") as f:
+        f.write(LAUNCHED_WORKER)
+    master = FakeMaster(LAUNCHED_STEPS)
+    env = dict(os.environ)
+    env.update({
+        "DET_MASTER": master.url, "DET_TRIAL_ID": str(trial_id),
+        "DET_EXPERIMENT_ID": "1", "DET_ALLOCATION_ID": f"launched-{nproc}",
+        "DET_SESSION_TOKEN": "smoke", "DET_HPARAMS": json.dumps(hparams),
+        "DET_EXPERIMENT_CONFIG": json.dumps({"checkpoint_storage": {
+            "type": "shared_fs", "host_path": storage}}),
+        "DET_TORCH_MASTER_PORT": str(free_port()),
+        "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", "")})
+    for k in ("DET_SLOT_IDS", "DET_TORCH_BACKEND", "CUDA_VISIBLE_DEVICES"):
+        env.pop(k, None)
+    if slots is not None:
+        env["DET_SLOT_IDS"] = slots
+    if backend is not None:
+        env["DET_TORCH_BACKEND"] = backend
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "determined_tpu_torch.launch.torch_distributed",
+             "--nproc-per-node", str(nproc), "--", sys.executable, script,
+             ROOT], env=env, cwd=ROOT, capture_output=True, text=True,
+            timeout=timeout)
+    finally:
+        master.release()
+        master.close()
+    results = {}
+    for line in proc.stdout.splitlines():
+        if "RESULT " in line:
+            r = json.loads(line.split("RESULT ", 1)[1])
+            results[r["rank"]] = r
+    return results, master, proc.returncode, proc.stdout + proc.stderr
+
+
+def phase_launched_trial(workdir, hparams, card, train=None):
+    """8c: the example GPT-2 trial launched by the port's launcher on GPU
+    slot 0 (`DET_SLOT_IDS="[0]"`) against the fake master of 7c, 10 steps
+    at phase 7's hparams: the worker must see its slot, form a real NCCL
+    process group (with the gloo control group beside it) and a
+    DeviceMesh of the world, run the flash kernels, report through the
+    chief and commit a checkpoint the master registers; a serve replica
+    then restores it and its logits must equal the restored params'
+    forward (fp32, 1e-3)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.core._checkpoint import CheckpointContext
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.serve.task import build_replica
+
+    storage = os.path.join(workdir, "launched_checkpoints")
+    shutil.rmtree(storage, ignore_errors=True)
+    t0 = time.monotonic()
+    results, master, rc, log = launch_trial(workdir, hparams, storage, 1,
+                                            "[0]")
+    wall = time.monotonic() - t0
+    with open(os.path.join(workdir, "launched_trial.log"), "w") as f:
+        f.write(log)
+    if rc != 0 or list(results) != [0]:
+        say(log[-3000:])
+        fail(f"the launched trial exited {rc} with results from ranks "
+             f"{list(results)}")
+    r = results[0]
+    sid = f"trial{LAUNCHED_TRIAL}-step{LAUNCHED_STEPS}"
+    losses = [b["metrics"]["loss"] for b in master.posted("/metrics")
+              if b["group"] == "training" and "loss" in b["metrics"]]
+    ops = [q for m, p, q, b in master.requests
+           if p.endswith("/searcher/operation")]
+    L = 12
+    n_val = 4
+    want = {"fwd": (2 * LAUNCHED_STEPS + n_val) * L,
+            "dq": LAUNCHED_STEPS * L, "dkv": LAUNCHED_STEPS * L}
+    say(f"[launch] [{card}] 1 slot: the worker saw CUDA_VISIBLE_DEVICES="
+        f"{r['cuda_visible_devices']} ({r['device']}), rank {r['rank']} of "
+        f"{r['size']}, process group {r['group_backend']}, DeviceMesh "
+        f"{r['mesh']}; gloo control plane: allgather {r['allgather']}, "
+        f"broadcast {r['broadcast']!r}; searcher polls {len(ops)}, losses "
+        f"{[round(x, 4) for x in losses]}, step {r['step']}, registry "
+        f"{master.registry}, flash launches {r['launches']} (expected "
+        f"{want}), reference calls {r['reference_calls']}; {wall:.1f} s")
+    if r["cuda_visible_devices"] != "0" or r["group_backend"] != "nccl" \
+            or r["size"] != 1 or r["mesh"].get("data") != 1 or \
+            r["allgather"] != ["rank0"] or \
+            r["broadcast"] != "from the chief" or r["step"] != \
+            LAUNCHED_STEPS or master.registry != [sid] or \
+            r["launches"] != want or r["reference_calls"] or \
+            len(losses) != LAUNCHED_STEPS // 5 or \
+            not master.posted("/searcher/completed_operation"):
+        fail("the launched trial did not train through its slot's process "
+             "group as expected")
+    if train is not None:
+        diffs = [abs(x - train["losses"][5 * (i + 1)])
+                 for i, x in enumerate(losses)]
+        say(f"[launch] losses at 5 and 10 against phase 7's: max |diff| "
+            f"{max(diffs):.3e} (tolerance 1e-5; bitwise equal: "
+            f"{max(diffs) == 0.0})")
+        if max(diffs) > 1e-5:
+            fail("the launched trial's losses differ from phase 7's")
+
+    params = CheckpointContext(storage, trial_id=LAUNCHED_TRIAL
+                               ).restore_params(sid)
+    engine, _ = build_replica({
+        "serving": {"model_config": {"model_size": "small",
+                                     "dtype": "float32"},
+                    "max_batch_size": 1, "max_seq_len": 256,
+                    "kv_block_size": 16, "seed": SEED,
+                    "checkpoint": sid},
+        "checkpoint_storage": {"type": "shared_fs", "host_path": storage}})
+    prompt = np.random.default_rng(SEED + 25).integers(
+        0, 50257, 40).astype(np.int32)
+    served = engine.prefill_logits(0, prompt).float()
+    cfg = gpt2.Config(dtype=torch.float32)
+    with torch.no_grad():
+        direct = gpt2.apply(gpt2.map_params(lambda t: t.cuda(), params),
+                            torch.from_numpy(prompt[None]).cuda(), cfg)[0, -1]
+    worst = float((served.reshape(-1) - direct.float()).abs().max())
+    say(f"[launch] [{card}] a serve replica restored {sid} from the "
+        f"launched trial's storage: last-position logits against the "
+        f"restored params' forward, max |diff| {worst:.3e} (atol 1e-3)")
+    if worst > 1e-3:
+        fail("the replica's logits differ from the launched trial's params")
+    del engine, params
+    _free_cuda()
+    return {"losses": losses, "wall_s": wall}
+
+
+# ------------------------------------------------------------------ phase 9
 
 
 def phase_train_parity():
@@ -1916,7 +2413,7 @@ def phase_train_parity():
         fail("training through the kernels differs from the plain version")
 
 
-# ------------------------------------------------------------------ phase 9
+# ----------------------------------------------------------------- phase 10
 
 
 # Device cycles of the wait before each timed launch: ~1 ms at the H100's
@@ -2173,6 +2670,9 @@ def main() -> int:
     phase_restored_replica(train["ckpt_dir"], card)
     managed_launches = phase_managed_trial(workdir, hparams, train, card)
     pairs = phase_prefetch_pairs(workdir, hparams, card)
+    multi = phase_multi_step(hparams, card)
+    phase_remat_policies(card)
+    phase_launched_trial(workdir, hparams, card, train)
     phase_train_parity()
     paged = phase_paged_times(card)
     flash = phase_flash_times(card)
@@ -2202,6 +2702,13 @@ def main() -> int:
         f"{train['tokens_per_s']:.0f} tokens/s, MFU "
         f"{train['mfu'] * 100:.2f}% of 989 TFLOP/s, device idle share "
         f"{train['idle_share'] * 100:.1f}%")
+    host = {k: " / ".join(f"{x:.2f}" for x in v)
+            for k, v in multi["host"].items()}
+    say(f"[times] [{card}] GPT-2 small bf16, B 8, S 1024, 4 steps a window "
+        f"(8a, in turns): replayed host {host['replay']} ms a step, device "
+        f"{multi['device']['replay']:.2f}; eager host {host['eager']} ms a "
+        f"step, device {multi['device']['eager']:.2f}; bitwise equal: "
+        f"{multi['bitwise']}")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",

@@ -17,7 +17,13 @@ Slices ported so far:
            and background checkpoint writes.
   core/    the Core API in local and managed mode (`_info.py`: the
            `DET_*` environment; `common/api.py`: the master session;
-           `experimental/core_v2`: unmanaged runs; `tensorboard/`).
+           `experimental/core_v2`: unmanaged runs; `tensorboard/`), in
+           one process or many (`core/_distributed.py`: the process group
+           and the control-plane collectives).
+  parallel/ the DeviceMesh over the run's processes and the logical
+           sharding rules: training over the `data` and `fsdp` axes.
+  launch/, exec/  one worker process per GPU slot (`DET_SLOT_IDS`), and
+           the task entry point that prepares and launches them.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`
 (`_device.resolve_device`).

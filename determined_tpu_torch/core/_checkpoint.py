@@ -26,6 +26,16 @@ managed mode, where `lineage()` is the registry's COMPLETED checkpoints
 of the trial; without a master they are kept in `local_reported`, and the
 lineage is read from them and a scan of the committed `trial{N}-step{M}`
 directories. Serving restores only the params: `restore_params`.
+
+In a run of several processes every rank calls `save_state` with the
+same (full, gathered) state and step, so every rank names the checkpoint
+alike without a broadcast (`trial{N}-step{M}`); the chief alone writes,
+commits and reports it, and `wait()` ends in a barrier, so no rank reads
+the lineage before the COMMIT is on disk. `upload(shard=True)` is the
+file-checkpoint route where each rank contributes its own files: the
+storage id is broadcast from the chief, the gather of each rank's file
+list doubles as the barrier, and the chief writes the manifest and COMMIT
+over every rank's files and reports them merged.
 """
 
 from __future__ import annotations
@@ -34,8 +44,10 @@ import json
 import logging
 import os
 import re
+import shutil
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -57,6 +69,20 @@ def state_id_step(storage_id: str) -> Optional[int]:
     """Step number encoded in a save_state id (None for other ids)."""
     m = _STATE_ID_RE.match(storage_id)
     return int(m.group(2)) if m else None
+
+
+def _upload_files(src: str, names: Optional[List[str]] = None):
+    """Yield (path, relative key) for every file `upload` stores from
+    `src`: the named entries (all, by default), directories walked."""
+    for name in (names if names is not None else os.listdir(src)):
+        full = os.path.join(src, name)
+        if os.path.isdir(full):
+            for root, _, files in os.walk(full):
+                for f in files:
+                    p = os.path.join(root, f)
+                    yield p, os.path.relpath(p, src)
+        else:
+            yield full, name
 
 
 def _map_tensors(tree: Any, fn) -> Any:
@@ -192,8 +218,9 @@ class _Write:
 class CheckpointContext:
     def __init__(self, base_path: str, trial_id: int = 0, session=None,
                  allocation_id: Optional[str] = None,
-                 async_save: bool = False):
+                 async_save: bool = False, distributed=None):
         self.base_path = os.path.abspath(base_path)
+        self._dist = distributed
         self._trial_id = trial_id
         self._session = session
         self._allocation_id = allocation_id
@@ -219,15 +246,28 @@ class CheckpointContext:
     def path_for(self, storage_id: str) -> str:
         return os.path.join(self.base_path, storage_id)
 
+    def _is_chief(self) -> bool:
+        return self._dist is None or self._dist.is_chief
+
+    def _shared(self) -> bool:
+        return self._dist is not None and self._dist.size > 1
+
     def save_state(self, state: Any, steps_completed: int,
                    metadata: Optional[Dict[str, Any]] = None) -> str:
         """Snapshot `state` (tensors anywhere) as checkpoint
         `trial{N}-step{steps_completed}`, reported PARTIAL; it is committed
         and reported COMPLETED at the next `wait()`, `save_state` or
         `close()` (before this returns when `async_save` is off). Returns
-        the storage id."""
+        the storage id. Several processes: every rank calls it with the same
+        full state (a collective); the chief writes."""
         self.wait()  # never two pending: the buffers are reused
+        # Deterministic id so all ranks agree without a broadcast.
         storage_id = f"trial{self._trial_id}-step{steps_completed}"
+        if not self._is_chief():
+            self._pending = (storage_id, None, None)
+            if not self._async:
+                self.wait()
+            return storage_id
         path = self.path_for(storage_id)
         os.makedirs(os.path.join(path, _STATE_SUBDIR), exist_ok=True)
         md = dict(metadata or {})
@@ -255,11 +295,15 @@ class CheckpointContext:
     def wait(self) -> None:
         """Block until the pending save is written and committed (COMMIT
         marker written, COMPLETED reported). Raises the write's error, if
-        it failed; the checkpoint then stays PARTIAL."""
+        it failed; the checkpoint then stays PARTIAL. Several processes:
+        every rank calls it, and it ends in a barrier."""
         if self._pending is None:
             return
         storage_id, md, write = self._pending
         self._pending = None
+        if write is None:  # a rank other than the chief
+            self._dist.barrier("checkpoint.commit")
+            return
         t0 = time.monotonic()
         t0_us = trace_mod.now_us()
         write.join()
@@ -273,6 +317,51 @@ class CheckpointContext:
             (time.monotonic() - t0) * 1000.0
         # Phase 2 on the trace: the wait for the write, COMMIT and report.
         self._span("harness.checkpoint.commit", t0_us, storage_id=storage_id)
+        if self._shared():
+            self._dist.barrier("checkpoint.commit")
+
+    def upload(self, ckpt_dir: str, metadata: Optional[Dict[str, Any]] = None,
+               shard: bool = False, selector=None) -> str:
+        """Store the files of directory `ckpt_dir` as a checkpoint (a
+        fresh uuid) and return its storage id, committed and reported.
+
+        shard=True: every rank copies its own files into the same storage
+        id (rank-unique file names are the caller's contract); the chief
+        draws the id and broadcasts it, each rank's file list is gathered
+        to the chief (the gather is also the barrier after every copy), and
+        the chief writes the manifest and COMMIT over all of them and
+        reports the merged list. Otherwise only the chief copies."""
+        sharded = shard and self._shared()
+        storage_id = str(uuid.uuid4())
+        if sharded:
+            storage_id = self._dist.broadcast(storage_id)
+        names = None
+        if selector is not None:
+            names = [n for n in os.listdir(ckpt_dir) if selector(n)]
+        local_files: Dict[str, int] = {}
+        path = self.path_for(storage_id)
+        if shard or self._is_chief():
+            for src, rel in _upload_files(ckpt_dir, names):
+                dst = os.path.join(path, rel)
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                shutil.copy2(src, dst)
+                local_files[rel] = os.path.getsize(src)
+        resources: Optional[Dict[str, int]] = local_files
+        if sharded:
+            gathered = self._dist.gather(local_files)
+            resources = None
+            if gathered is not None:
+                resources = {}
+                for files in gathered:
+                    resources.update(files)
+        md = dict(metadata or {})
+        md.setdefault("time", time.time())
+        if self._is_chief():
+            os.makedirs(path, exist_ok=True)
+            _integrity.commit(path, storage_id,
+                              _integrity.write_manifest(path))
+            self._report(storage_id, md, resources=resources)
+        return storage_id
 
     def close(self) -> None:
         self.wait()
@@ -354,14 +443,17 @@ class CheckpointContext:
         return out
 
     def _report(self, storage_id: str, metadata: Dict[str, Any],
-                state: str = "COMPLETED") -> None:
+                state: str = "COMPLETED",
+                resources: Optional[Dict[str, int]] = None) -> None:
+        if not self._is_chief():
+            return
         record = {
             "uuid": storage_id,
             "trial_id": self._trial_id,
             "allocation_id": self._allocation_id,
             "metadata": metadata,
             "steps_completed": metadata.get("steps_completed", 0),
-            "resources": {},
+            "resources": resources or {},
             "state": state,
         }
         if self._session is None:
@@ -373,7 +465,8 @@ class CheckpointContext:
                     return
             self.local_reported.append(record)
             return
-        record["resources"] = self._list_files(storage_id)
+        if resources is None:
+            record["resources"] = self._list_files(storage_id)
         # Idempotent: a retried report must not register the checkpoint
         # twice or move the trial's resume pointer again.
         self._session.post("/api/v1/checkpoints", body=record,

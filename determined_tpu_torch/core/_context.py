@@ -11,10 +11,16 @@ Counterpart of determined_tpu/core/_context.py, in its two modes:
   - **local**: no master. Metrics accumulate in memory, the searcher
     yields one op of `max_length`, checkpoints go to a local directory.
 
-The same user code runs in both. What the port cannot do yet it refuses,
-and never runs as local mode in silence instead: a rendezvous of more than
-one host (multi-process training, ROADMAP Queue 1 item 5) and any
-`checkpoint_storage` type but `shared_fs` (item 12) raise.
+The same user code runs in both, in one process or many. The processes
+of a run come from the GPU-slot launcher (`launch/torch_distributed.py`:
+RANK, WORLD_SIZE, MASTER_ADDR, ... one process per device) or from a
+multi-host rendezvous (one process per host): either way `init` forms the
+`torch.distributed` process group (`DistributedContext`) and hands it to
+the sub-contexts, which keep the master's work on the chief and broadcast
+its decisions, as the JAX package's do. What the port cannot do yet it
+refuses, and never runs as local mode in silence instead: any
+`checkpoint_storage` type but `shared_fs` (ROADMAP Queue 1 item 12)
+raises.
 """
 
 from __future__ import annotations
@@ -113,22 +119,37 @@ class Context:
         self.close()
 
 
+def _distributed_context(info: Optional[ClusterInfo]) -> DistributedContext:
+    """The launcher's environment (WORLD_SIZE set), else a rendezvous of
+    more than one host, else one local process."""
+    launched = DistributedContext.from_env()
+    if launched is not None:
+        return launched
+    rdzv = info.rendezvous if info is not None else None
+    if rdzv is not None and rdzv.num_hosts > 1:
+        return DistributedContext.from_allocation(
+            coordinator_addr=rdzv.coordinator_addr
+            or rdzv.container_addrs[0] + ":8476",
+            num_processes=rdzv.num_hosts,
+            process_id=rdzv.container_rank,
+            backend=os.environ.get("DET_TORCH_BACKEND", "nccl"))
+    return DistributedContext.local()
+
+
 def init(*, max_length: Optional[int] = None,
          storage_config: Optional[Dict[str, Any]] = None,
          checkpoint_dir: Optional[str] = None,
+         distributed: Optional[DistributedContext] = None,
          async_checkpointing: bool = True) -> Context:
     """Bring up the Core API: managed mode when the environment names a
     master (`DET_MASTER`), else local mode. Checkpoints go to
     `storage_config`, else the trial config's `checkpoint_storage`, else
-    `checkpoint_dir` (default: under the temporary directory)."""
+    `checkpoint_dir` (default: under the temporary directory). The
+    process topology is `distributed` when given, else built from the
+    launcher's environment or the rendezvous (`_distributed_context`)."""
     info = get_cluster_info()
-    if info is not None and info.rendezvous is not None and \
-            info.rendezvous.num_hosts > 1:
-        raise NotImplementedError(
-            f"core.init(): the allocation spans {info.rendezvous.num_hosts} "
-            "hosts, but the port runs one process; multi-process training "
-            "(DistributedContext.from_allocation) is not ported "
-            "(ROADMAP.md Queue 1 item 5)")
+    if distributed is None:
+        distributed = _distributed_context(info)
     session: Optional[Session] = None
     trial_id, run_id, allocation_id = 0, 0, None
     if info is not None:
@@ -146,24 +167,30 @@ def init(*, max_length: Optional[int] = None,
     base = checkpoint_base(storage_config, default_base=checkpoint_dir)
 
     tb_manager = None
-    if info is not None and info.trial is not None:
+    if info is not None and info.trial is not None and distributed.is_chief:
         from determined_tpu_torch.tensorboard import TensorboardManager
 
         tb_manager = TensorboardManager(base, info.trial.experiment_id,
                                         info.trial.trial_id)
     train = TrainContext(session, trial_id=trial_id, run_id=run_id,
+                         distributed=distributed,
                          tensorboard_manager=tb_manager)
     searcher = SearcherContext(session, trial_id=trial_id,
+                               distributed=distributed,
                                local_max_length=max_length)
     checkpoint = CheckpointContext(
         base, trial_id=trial_id, session=session,
-        allocation_id=allocation_id, async_save=async_checkpointing)
-    preempt = PreemptContext(session, allocation_id=allocation_id)
-    tracer = Tracer(session, trial_id=trial_id)
+        allocation_id=allocation_id, distributed=distributed,
+        async_save=async_checkpointing)
+    preempt = PreemptContext(session, allocation_id=allocation_id,
+                             distributed=distributed)
+    # Spans are the chief's alone: the other ranks would repeat each one.
+    tracer = Tracer(session if distributed.is_chief else None,
+                    trial_id=trial_id,
+                    enabled=None if distributed.is_chief else False)
     checkpoint.tracer = tracer  # phase-1 and phase-2 commit spans
-    ctx = Context(train, searcher, checkpoint, preempt,
-                  DistributedContext.local(), ProfilerContext(train), info,
-                  tracer=tracer)
+    ctx = Context(train, searcher, checkpoint, preempt, distributed,
+                  ProfilerContext(train), info, tracer=tracer)
     if session is not None:
         try:
             session.post(f"/api/v1/trials/{trial_id}/run_prepare", body={})

@@ -15,7 +15,10 @@ Two kinds of preemption ride the same signal:
 
 A signal may also carry an elastic resize offer (`resize`,
 `target_slots`), read by `resize_target()`. Without a master nothing
-signals; `force()` and `force_resize()` act as if the master had.
+signals; `force()` and `force_resize()` act as if the master had. In a
+run of several processes only the chief watches and acknowledges; the
+flag, the deadline and the resize target are broadcast from it, so every
+rank takes the same decision (a checkpoint is a collective).
 """
 
 from __future__ import annotations
@@ -128,9 +131,11 @@ class _PreemptionWatcher(threading.Thread):
 
 
 class PreemptContext:
-    def __init__(self, session=None, allocation_id: Optional[str] = None):
+    def __init__(self, session=None, allocation_id: Optional[str] = None,
+                 distributed=None):
         self._session = session
         self._allocation_id = allocation_id
+        self._dist = distributed
         self._watcher: Optional[_PreemptionWatcher] = None
         self._forced = False
         self._forced_deadline: Optional[float] = None  # monotonic absolute
@@ -138,7 +143,11 @@ class PreemptContext:
         self._start_watcher()
 
     def _watches(self) -> bool:
-        return self._session is not None and bool(self._allocation_id)
+        return self._session is not None and bool(self._allocation_id) \
+            and (self._dist is None or self._dist.is_chief)
+
+    def _shared(self) -> bool:
+        return self._dist is not None and self._dist.size > 1
 
     def _start_watcher(self) -> None:
         if self._watches():
@@ -149,27 +158,40 @@ class PreemptContext:
     def should_preempt(self, auto_ack: bool = True) -> bool:
         flag = self._forced or (self._watcher is not None
                                 and self._watcher.preempted)
+        if self._shared():
+            flag = bool(self._dist.broadcast(int(flag)))
         if flag and auto_ack:
             self.acknowledge_preemption_signal()
         return flag
 
     def preemption_deadline(self) -> Optional[float]:
         """Seconds left in the termination grace window; None for an
-        unbounded preemption or none at all. Counts down between calls."""
+        unbounded preemption or none at all. Counts down between calls.
+        Broadcast from the chief."""
+        remaining: Optional[float] = None
         if self._forced_deadline is not None:
-            return max(0.0, self._forced_deadline - time.monotonic())
-        if self._watcher is not None and self._watcher.deadline is not None:
-            return max(0.0, self._watcher.deadline - time.monotonic())
-        return None
+            remaining = max(0.0, self._forced_deadline - time.monotonic())
+        elif self._watcher is not None and self._watcher.deadline is not None:
+            remaining = max(0.0, self._watcher.deadline - time.monotonic())
+        if self._shared():
+            value = float(self._dist.broadcast(
+                -1.0 if remaining is None else float(remaining)))
+            remaining = None if value < 0 else value
+        return remaining
 
     def resize_target(self) -> Optional[int]:
         """The slot count of an elastic resize offer, or None when the
-        preemption (if any) is an ordinary one."""
+        preemption (if any) is an ordinary one. Broadcast from the chief."""
+        target: Optional[int] = None
         if self._forced_resize is not None:
-            return self._forced_resize
-        if self._watcher is not None:
-            return self._watcher.resize_target
-        return None
+            target = self._forced_resize
+        elif self._watcher is not None:
+            target = self._watcher.resize_target
+        if self._shared():
+            value = int(self._dist.broadcast(-1 if target is None
+                                             else int(target)))
+            target = None if value <= 0 else value
+        return target
 
     def preemption_reason(self) -> Optional[str]:
         """Why ("spot_preemption", "host_maintenance", ...); None when

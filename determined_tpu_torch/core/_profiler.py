@@ -7,14 +7,19 @@ CUDA device's allocated memory, and reports them with the window's
 steps per second over the card's peak) as the "profiling" metric group.
 The peak comes from `PEAK_BF16_FLOPS` by `torch.cuda.get_device_name`:
 an H100's dense bf16 tensor rate, 989 TFLOP/s (NVIDIA's data sheet, SXM
-part, at the full 700 W power limit). The JAX package's `trace()`
-(jax.profiler) is not ported.
+part, at the full 700 W power limit). `trace()` records a region with
+`torch.profiler` (host and, on CUDA, device activity) into a Chrome trace
+under `tensorboard_dir`, where the JAX package's records jax.profiler's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
+import tempfile
 import threading
+import time
 from typing import Any, Dict, Optional
 
 logger = logging.getLogger("determined_tpu_torch.core")
@@ -104,8 +109,12 @@ class _Collector(threading.Thread):
 
 
 class ProfilerContext:
-    def __init__(self, train_context):
+    def __init__(self, train_context, tensorboard_dir: Optional[str] = None):
         self._train = train_context
+        self.tensorboard_dir = tensorboard_dir or os.environ.get(
+            "DET_TENSORBOARD_PATH",
+            os.path.join(tempfile.gettempdir(), "determined_tpu_torch", "tb"))
+        self._trace_active = False
         self._collector: Optional[_Collector] = None
         self._step = 0
         self._lock = threading.Lock()
@@ -182,6 +191,54 @@ class ProfilerContext:
             collector.join(timeout=self._collector_interval + 2.0)
             if collector.is_alive():
                 logger.warning("profiler collector did not stop in time")
+
+    @contextlib.contextmanager
+    def trace(self, name: str = "train_step"):
+        """torch.profiler trace of a region -> a Chrome trace file
+        (`<tensorboard_dir>/<name>-<pid>-<ms>.pt.trace.json`).
+
+        Hardened as the JAX package's: re-entry is refused without
+        touching the profiler (a second profiler on the same process would
+        break the first), a failed start logs and runs the body untraced,
+        and stop is always attempted so a failure mid-body cannot leave
+        the profiler running for every later trace()."""
+        if self._trace_active:
+            logger.warning(
+                "profiler.trace(%s): a trace is already active; running "
+                "untraced (torch.profiler does not nest)", name)
+            yield
+            return
+        import torch
+
+        prof = None
+        try:
+            os.makedirs(self.tensorboard_dir, exist_ok=True)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+        except Exception:
+            # Profiler unavailability must not fail training: log, run
+            # the body untraced.
+            logger.warning("profiler.trace(%s): start failed; running "
+                           "untraced", name, exc_info=True)
+            prof = None
+        self._trace_active = prof is not None
+        try:
+            yield
+        finally:
+            self._trace_active = False
+            if prof is not None:
+                try:
+                    prof.stop()
+                    prof.export_chrome_trace(os.path.join(
+                        self.tensorboard_dir,
+                        f"{name}-{os.getpid()}-{int(time.time() * 1000)}"
+                        ".pt.trace.json"))
+                except Exception:
+                    logger.warning("profiler.trace(%s): stop failed", name,
+                                   exc_info=True)
 
     def close(self) -> None:
         self.off()

@@ -9,7 +9,10 @@ next op and completes each with an idempotent
 for it within the idle grace (an ASHA trial paused in its rung) stops
 cleanly and frees its device; the master reschedules it if a promotion
 comes. Without a master, one op of `local_max_length` is yielded and a
-completed op's metric is kept in `completed_metrics`.
+completed op's metric is kept in `completed_metrics`. In a run of several
+processes only the chief talks to the master; the op lengths are
+broadcast, so every rank trains the same steps (a rank that ran ahead
+would hang the collectives).
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ class SearcherOperation:
 class SearcherContext:
     def __init__(self, session=None, trial_id: int = 0,
                  local_max_length: Optional[int] = None,
-                 poll_interval: float = 2.0):
+                 poll_interval: float = 2.0, distributed=None):
         self._session = session
         self._trial_id = trial_id
+        self._dist = distributed
         self._local_max_length = local_max_length
         self._poll_interval = poll_interval
         self._idle_grace = 15.0  # seconds to wait for an op before exiting
@@ -68,6 +72,8 @@ class SearcherContext:
         if self._session is None:
             self.completed_metrics.append((op.length, float(metric)))
             return
+        if self._dist is not None and not self._dist.is_chief:
+            return
         # Idempotent: a replayed report would pop the next op and advance
         # the searcher twice.
         self._session.post(
@@ -78,8 +84,8 @@ class SearcherContext:
     def operations(self, auto_ack: bool = True
                    ) -> Iterator[SearcherOperation]:
         """Yield ops until the searcher closes the trial (`done`) or has
-        none for it (`idle`). The port runs one process: it asks the master
-        itself, with nothing to broadcast to other ranks."""
+        none for it (`idle`). Several processes: the chief asks the master
+        and broadcasts each length (-1: stop) to the others."""
         if self._session is None:
             length = self._local_max_length
             if length is None:
@@ -90,9 +96,14 @@ class SearcherContext:
             return
         last_length = 0
         while True:
-            resp = self._get_next_op(last_length)
-            if resp.get("done") or resp.get("idle"):
+            length = -1
+            if self._dist is None or self._dist.is_chief:
+                resp = self._get_next_op(last_length)
+                if not (resp.get("done") or resp.get("idle")):
+                    length = int(resp["op"]["length"])
+            if self._dist is not None and self._dist.size > 1:
+                length = int(self._dist.broadcast(length))
+            if length < 0:
                 return
-            length = int(resp["op"]["length"])
             yield SearcherOperation(self, length)
             last_length = length

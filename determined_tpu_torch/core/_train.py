@@ -6,8 +6,9 @@ to the master: `POST /api/v1/trials/{id}/metrics` (idempotency-keyed),
 they are kept in memory (`local_training_metrics`,
 `local_validation_metrics`, and `local_other_metrics` for other groups
 such as the profiler's) and logged. The per-trial tensorboard manager,
-where core.init built one, sees every report. The port runs one process,
-so it always reports (the JAX package's non-chief ranks do not).
+where core.init built one, sees every report. In a run of several
+processes only the chief reports; the Trainer's metrics are already the
+means over every rank.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ def _clean_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
 
 class TrainContext:
     def __init__(self, session=None, trial_id: int = 0, run_id: int = 0,
-                 tensorboard_manager=None):
+                 tensorboard_manager=None, distributed=None):
         self._session = session
+        self._dist = distributed
         self._trial_id = trial_id
         self._run_id = run_id
         self._tb = tensorboard_manager
@@ -46,8 +48,13 @@ class TrainContext:
         self.local_validation_metrics: List[Dict[str, Any]] = []
         self.local_other_metrics: List[Dict[str, Any]] = []
 
+    def _is_chief(self) -> bool:
+        return self._dist is None or self._dist.is_chief
+
     def _report(self, group: str, steps_completed: int,
                 metrics: Dict[str, Any]) -> None:
+        if not self._is_chief():
+            return
         metrics = _clean_metrics(metrics)
         if self._tb is not None:
             self._tb.on_metrics(group, steps_completed, metrics)
@@ -85,13 +92,13 @@ class TrainContext:
         self._report(group, steps_completed, metrics)
 
     def report_progress(self, progress: float) -> None:
-        if self._session is None:
+        if self._session is None or not self._is_chief():
             return
         self._session.post(f"/api/v1/trials/{self._trial_id}/progress",
                            body={"progress": float(progress)})
 
     def set_status(self, status: str) -> None:
-        if self._session is None:
+        if self._session is None or not self._is_chief():
             return
         try:
             self._session.post(

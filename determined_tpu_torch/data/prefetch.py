@@ -22,6 +22,9 @@ a producer thread that runs ahead by a bounded queue (`depth`, default 2):
     consumer's time blocked on the queue;
   - on the CPU (`device="cpu"`) there is no copy and no stream: each leaf
     becomes a tensor and is queued;
+  - in a run of several processes each rank's loader yields its own rows
+    of the global batch, so a rank stages only those (the counterpart of
+    the JAX producer's `make_array_from_process_local_data`);
   - producer exceptions re-raise in the consumer after the batches queued
     before them; `close()` is bounded and idempotent, and `detach()`
     hands back the staged batches and the underlying iterator in order.

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from determined_tpu_torch.ops.flash_attention import flash_attention
+from determined_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -162,6 +163,31 @@ def init(generator: torch.Generator, cfg: Config,
     }
 
 
+def param_logical_axes(cfg: Config) -> Dict[str, Any]:
+    """Logical axis names per param dim (the JAX package's); the leading
+    "layers" dim of the stacked blocks maps to the `pipeline` mesh axis
+    (replicated when pipeline=1)."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError(
+            "MoE GPT-2 is not ported yet (ROADMAP.md: MoE decode)")
+    L = "layers"
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": {
+            "ln1": {"scale": (L, "embed"), "bias": (L, "embed")},
+            "qkv": {"kernel": (L, "embed", "heads"), "bias": (L, "heads")},
+            "attn_out": {"kernel": (L, "heads", "embed"),
+                         "bias": (L, "embed")},
+            "ln2": {"scale": (L, "embed"), "bias": (L, "embed")},
+            "mlp_up": {"kernel": (L, "embed", "mlp"), "bias": (L, "mlp")},
+            "mlp_down": {"kernel": (L, "mlp", "embed"),
+                         "bias": (L, "embed")},
+        },
+        "ln_f": {"scale": ("embed",), "bias": ("embed",)},
+    }
+
+
 # ----------------------------------------------------- param trees <-> files
 
 
@@ -262,33 +288,62 @@ def _block(x: torch.Tensor, lp: Params, cfg: Config) -> torch.Tensor:
     return x + down
 
 
-# Ops whose outputs the "dots" policy saves: the products without batch
-# dims (`jax.checkpoint_policies.dots_with_no_batch_dims_saveable`). The
-# projections reach autograd as 2-D mm/addmm; attention's batched products
-# (bmm) and the flash kernels are recomputed.
+# What each remat policy saves, as aten ops reach the selective checkpoint
+# (the JAX package's `jax.checkpoint_policies` of the same names):
+#
+#   None, "nothing"  nothing: the whole block runs again in the backward
+#                    (`nothing_saveable`; JAX's bare `jax.checkpoint`).
+#   "dots"           the products without batch dims: the projections
+#                    reach autograd as 2-D `mm`/`addmm` (`x @ W` folds
+#                    [B, S] into rows), and their outputs are kept
+#                    (`dots_with_no_batch_dims_saveable`).
+#   "dots_saveable"  every product: also `bmm`/`baddbmm`, the batched
+#                    products (the reference attention's QK^T and PV)
+#                    (`dots_saveable`).
+#   "everything"     everything: the block is not checkpointed at all
+#                    (`everything_saveable`), so nothing runs again.
+#
+# The flash kernels' `autograd.Function` is not a product in either
+# package (a `pallas_call` there, ctypes launches here): under every
+# policy but "everything" its forward runs again in the recompute, so a
+# step launches the forward kernel twice a layer. The RNG state is not
+# stashed for the recompute (`preserve_rng_state=False`): the block draws
+# nothing, and stashing reads the CUDA generator, which a step captured as
+# a CUDA graph (train/step.make_multi_step) must not do.
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_SAVED_BATCHED_DOTS = _SAVED_DOTS + (torch.ops.aten.bmm.default,
+                                     torch.ops.aten.baddbmm.default)
+REMAT_POLICIES = (None, "nothing", "dots", "dots_saveable", "everything")
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    if op in _SAVED_DOTS:
-        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
-    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+def _saving(ops):
+    def policy(ctx, op, *args, **kwargs):
+        if op in ops:
+            return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+        return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+_dots_policy = _saving(_SAVED_DOTS)
+_dots_saveable_policy = _saving(_SAVED_BATCHED_DOTS)
 
 
 def _remat(block, cfg: Config):
-    """Wrap a block fn in activation checkpointing per cfg.remat_policy:
-    None recomputes the whole block in the backward; "dots" saves the
-    outputs of its dense products and recomputes the rest, the flash
-    forward kernel included."""
-    if cfg.remat_policy not in (None, "dots"):
+    """Wrap a block fn in activation checkpointing per cfg.remat_policy
+    (REMAT_POLICIES; what each saves is listed above)."""
+    if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(
-            f"remat_policy {cfg.remat_policy!r} is not ported; use None or "
-            "'dots'")
-    kwargs: Dict[str, Any] = {"use_reentrant": False}
-    if cfg.remat_policy == "dots":
+            f"remat_policy {cfg.remat_policy!r} not in {REMAT_POLICIES}")
+    if cfg.remat_policy == "everything":
+        return block
+    kwargs: Dict[str, Any] = {"use_reentrant": False,
+                              "preserve_rng_state": False}
+    policy = {"dots": _dots_policy,
+              "dots_saveable": _dots_saveable_policy}.get(cfg.remat_policy)
+    if policy is not None:
         kwargs["context_fn"] = functools.partial(
-            torch_checkpoint.create_selective_checkpoint_contexts,
-            _dots_policy)
+            torch_checkpoint.create_selective_checkpoint_contexts, policy)
 
     def wrapped(x, lp):
         return torch_checkpoint.checkpoint(block, x, lp, **kwargs)
@@ -299,7 +354,10 @@ def _remat(block, cfg: Config):
 def _unstack_layers(blocks: Params, n_layer: int):
     """The stacked `[L, ...]` block params as L per-layer dicts of views.
     One unbind per leaf, so each leaf's backward stacks its L gradients
-    once instead of adding L full-size zero-padded slices."""
+    once instead of adding L full-size zero-padded slices. A sharded leaf
+    (a DTensor split along dim 1, the "embed" dim under fsdp) unbinds
+    into per-layer DTensors split along their dim 0, each gathered just
+    before its block runs (`apply`)."""
     parts = {k: v.unbind(0) for k, v in _flatten(blocks).items()}
     return [_unflatten({k: p[i] for k, p in parts.items()})
             for i in range(n_layer)]
@@ -312,16 +370,21 @@ def apply(params: Params, tokens: torch.Tensor, cfg: Config) -> torch.Tensor:
             "MoE GPT-2 is not ported yet (ROADMAP.md: MoE decode)")
     s = tokens.shape[1]
     dt = cfg.dtype
-    x = _embed_tokens(params, tokens, cfg, dt)
-    x = x + params["wpe"].to(dt)[:s][None]
+    # Sharded params (DTensors, train/state.py) are gathered just before
+    # use; plain tensors pass through. The tied `wte` is gathered once, so
+    # its two uses' gradients sum before the one reduce-scatter.
+    gather = sharding.gather_for_use
+    wte = gather(params["wte"])
+    x = _embed_tokens({"wte": wte}, tokens, cfg, dt)
+    x = x + gather(params["wpe"]).to(dt)[:s][None]
     block = functools.partial(_block, cfg=cfg)
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block, cfg)
     for lp in _unstack_layers(params["blocks"], cfg.n_layer):
-        x = block(x, lp)
-    x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"],
-                    cfg.layer_norm_eps)
-    return x @ params["wte"].to(dt).t()
+        x = block(x, map_params(gather, lp))
+    ln_f = map_params(gather, params["ln_f"])
+    x = _layer_norm(x, ln_f["scale"], ln_f["bias"], cfg.layer_norm_eps)
+    return x @ wte.to(dt).t()
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

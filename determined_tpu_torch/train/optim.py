@@ -23,12 +23,27 @@ are pure; these update `grads` and the moment buffers in place, as JAX's
 buffer donation lets XLA do, and `apply_updates` adds into the params in
 place. Counts are host integers, so no step reads a value back from the
 device.
+
+A step captured as a CUDA graph (`train/step.make_multi_step`) cannot
+take the host floats an update computes from its count (the learning rate
+of a schedule, Adam's bias corrections): the graph would replay the
+capture's values. So each transformation also has `hyper(state) ->
+(floats, next_state)`, the host floats its next update reads and the
+state after that update's host bookkeeping, and its `update` takes them
+as a device tensor (`hyper=`) instead of computing them: the caller fills
+the tensor before each replay and advances the host state with
+`next_state`. A transformation whose `hyper` is None cannot be replayed.
+
+Sharded leaves (DTensor params, `parallel/sharding.py`) reach the
+transformations as their local tensors in a `LocalShards` list, which
+carries the reduction of the global norm: each shard counted once, each
+replica once.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple, Sequence, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,6 +54,18 @@ ScalarOrSchedule = Union[float, Schedule]
 class GradientTransformation(NamedTuple):
     init: Callable[[List[torch.Tensor]], Any]
     update: Callable[..., Tuple[List[torch.Tensor], Any]]
+    hyper: Optional[Callable[[Any], Tuple[List[float], Any]]] = None
+
+
+class LocalShards(list):
+    """The local tensors of a list of leaves, some of them shards of
+    sharded leaves, with `sq_sum(tensors) -> 0-d tensor`: the global sum of
+    squares of the leaves they are pieces of (a collective)."""
+
+    def __init__(self, tensors, sq_sum: Callable[[Sequence[torch.Tensor]],
+                                                 torch.Tensor]):
+        super().__init__(tensors)
+        self.sq_sum = sq_sum
 
 
 # ---------------------------------------------------------------- schedules
@@ -95,16 +122,24 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 # ------------------------------------------------------------ transforms
 
 
+def sq_sum(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of squares over every tensor, fp32, on their device."""
+    return sum(torch.sum(t.float() * t.float()) for t in tensors)
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares over every leaf), fp32, on the leaves' device."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    """sqrt(sum of squares over every leaf), fp32, on the leaves' device;
+    for `LocalShards`, over the full leaves they are pieces of."""
+    if isinstance(tensors, LocalShards):
+        return torch.sqrt(tensors.sq_sum(tensors))
+    return torch.sqrt(sq_sum(tensors))
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     def init(params):
         return ()
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, hyper=None):
         g_norm = global_norm(grads)
         trigger = g_norm < max_norm
         for g in grads:
@@ -112,7 +147,7 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
                                 * max_norm))
         return grads, state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, lambda state: ([], state))
 
 
 def _as_schedule(lr: ScalarOrSchedule) -> Schedule:
@@ -130,41 +165,70 @@ def adamw(learning_rate: ScalarOrSchedule, b1: float = 0.9,
                 "mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
 
-    def update(grads, state, params):
-        mu, nu = state["mu"], state["nu"]
-        lr = schedule(state["count"])  # the count before the increment
+    def next_floats(state):
+        """(-lr, 1 - b1^t, 1 - b2^t) of the next update (t = count + 1;
+        the schedule reads the count before the increment)."""
         count = state["count"] + 1
+        return ([-schedule(state["count"]), 1 - b1 ** count, 1 - b2 ** count],
+                {"count": count, "mu": state["mu"], "nu": state["nu"]})
+
+    def update(grads, state, params, hyper=None):
+        mu, nu = state["mu"], state["nu"]
+        floats, new_state = next_floats(state)
+        if hyper is None:
+            # The floats as a device tensor here too, so an eager update
+            # does the arithmetic of a replayed one (a foreach op by a
+            # tensor scalar rounds otherwise than by a Python float).
+            hyper = torch.tensor(floats, dtype=torch.float32)
+            if mu and mu[0].is_cuda:
+                hyper = hyper.to(mu[0].device, non_blocking=True)
+        neg_lr, bc1, bc2 = hyper.unbind(0)
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-        mu_hat = torch._foreach_div(mu, 1 - b1 ** count)
-        denom = torch._foreach_div(nu, 1 - b2 ** count)
+        mu_hat = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
         torch._foreach_div_(mu_hat, denom)
         if weight_decay:
             torch._foreach_add_(mu_hat, params, alpha=weight_decay)
-        torch._foreach_mul_(mu_hat, -lr)
+        torch._foreach_mul_(mu_hat, neg_lr)
         for g, u in zip(grads, mu_hat):
             g.copy_(u)
-        return grads, {"count": count, "mu": mu, "nu": nu}
+        return grads, new_state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, next_floats)
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(grads, state, params=None):
-        new_state = []
+    def next_floats(state):
+        floats, states = [], []
         for t, s in zip(transforms, state):
-            grads, s = t.update(grads, s, params)
+            f, s = t.hyper(s)
+            floats += f
+            states.append(s)
+        return floats, tuple(states)
+
+    def update(grads, state, params=None, hyper=None):
+        new_state = []
+        off = 0
+        for t, s in zip(transforms, state):
+            part = None
+            if hyper is not None:
+                n = len(t.hyper(s)[0])
+                part, off = hyper[off:off + n], off + n
+            grads, s = t.update(grads, s, params, hyper=part)
             new_state.append(s)
         return grads, tuple(new_state)
 
-    return GradientTransformation(init, update)
+    capturable = all(t.hyper is not None for t in transforms)
+    return GradientTransformation(init, update,
+                                  next_floats if capturable else None)
 
 
 def apply_updates(params: Sequence[torch.Tensor],

@@ -1,4 +1,4 @@
-"""Trainer — owns the loop, on one CUDA device.
+"""Trainer — owns the loop, on one CUDA device or one per process.
 
 Counterpart of determined_tpu/train/trainer.py. `fit()` runs the searcher
 operations: train to each op's length, flush metrics every `report_period`
@@ -17,17 +17,30 @@ deadline. Checkpoints are written in the background and committed at the
 next `core.checkpoint.wait()`: before a rollback reads the lineage, at a
 preemption and at the end of `fit`.
 
+Mesh bring-up: the trial's `mesh_config()` resolves over the world size
+(one process per device, `core.init()` forms the process group), and a
+run with a process group trains over a `DeviceMesh` of the world
+(parallel/mesh.py). The `data` and `fsdp` axes may be above 1: each
+rank's loader yields its own rows of the global batch (rank r holds the
+r-th block of `global_batch_size / world` rows, in the order of the batch
+rule's axes, `("data", "fsdp")`), the params are sharded by their logical
+axes (train/state.py), the step's metrics are the global means, and a
+checkpoint holds the full state (the chief gathers it) in the one-process
+format, so a run of any width restores it. `tensor`, `context`,
+`pipeline` and `expert` above 1 raise, and so does a world of more than
+one process without a process group: it never trains alone in silence.
+
 Not ported (ROADMAP.md): the compile farm and batch-size bucketing
 (`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
-nothing here), `make_multi_step`, meshes (data, fsdp, tensor, pipeline and
-expert axes) and elastic resize in process: a resize signal takes the
-preemption checkpoint path, as the JAX Trainer does in cluster mode. A
-trial whose `mesh_config()` asks for more than one device raises.
+nothing here), the tensor, context, pipeline and expert axes (item 7) and
+elastic resize in process (item 8): a resize signal takes the preemption
+checkpoint path, as the JAX Trainer does in cluster mode.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Dict, Iterator, Optional, Union
 
@@ -38,17 +51,27 @@ from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.common import faultpoint
 from determined_tpu_torch.data.prefetch import DevicePrefetcher, PrefetchConfig
+from determined_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+from determined_tpu_torch.train import state as state_mod
 from determined_tpu_torch.train.health import (
     DivergenceError,
     HealthConfig,
     PreemptionConfig,
 )
 from determined_tpu_torch.train.state import TrainState, create_train_state
-from determined_tpu_torch.train.step import make_eval_step, make_train_step
+from determined_tpu_torch.train.step import (
+    global_mean,
+    make_eval_step,
+    make_train_step,
+)
 from determined_tpu_torch.train.trial import TorchTrial
 from determined_tpu_torch.train.watchdog import StepWatchdog
 
 logger = logging.getLogger("determined_tpu_torch.train")
+
+# Mesh axes the port trains over; the others raise (ROADMAP.md Queue 1
+# item 7).
+PORTED_AXES = ("data", "fsdp")
 
 
 def _repeat(iterable_factory) -> Iterator[Any]:
@@ -100,7 +123,8 @@ class Trainer:
         self.trial = trial
         self.core = core_context
         self.device = resolve_device(device)
-        self._check_mesh_support()
+        self.mesh_config = self._check_mesh_support()
+        self.mesh = None  # the DeviceMesh, built with the state (_build)
         self.state: Optional[TrainState] = None
         self._tx = None
         self._train_step = None
@@ -114,16 +138,52 @@ class Trainer:
 
     # -- setup ---------------------------------------------------------
 
-    def _check_mesh_support(self) -> None:
-        """Config checks before any state exists: the port trains on one
-        device, so any mesh axis above 1 is refused, not run replicated."""
-        wide = {k: v for k, v in self.trial.mesh_config().items()
-                if isinstance(v, int) and v > 1}
+    def _world_size(self) -> int:
+        """The processes of the run: the process group's size, which must
+        be there when the core context counts more than one. Before a core
+        context exists (`fit` makes one), the launcher's WORLD_SIZE: the
+        group `core.init()` will form."""
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            return dist.get_world_size()
+        if self.core is None:
+            return int(os.environ.get("WORLD_SIZE", "1"))
+        size = self.core.distributed.size
+        if size > 1:
+            raise RuntimeError(
+                f"the core context counts {size} processes but no "
+                "torch.distributed process group exists: each would train "
+                "alone (core.init() forms the group from the launcher's "
+                "environment; DistributedContext.for_test has none)")
+        return 1
+
+    def _check_mesh_support(self) -> MeshConfig:
+        """Config checks before any state exists: the mesh must resolve
+        over the world size, and only the `data` and `fsdp` axes may be
+        above 1 (the others are refused, not run replicated)."""
+        cfg = self.trial.mesh_config()
+        world = self._world_size()
+        try:
+            cfg = cfg.resolve(world)
+        except ValueError as e:
+            where = "one device (one process)" if world == 1 else \
+                f"{world} processes, one device each"
+            raise ValueError(
+                f"{type(self.trial).__name__}: {e}; this run has {where}; "
+                "the launcher starts one process per device "
+                "(python -m determined_tpu_torch.launch.torch_distributed)"
+            ) from None
+        wide = {a: getattr(cfg, a) for a in ("tensor", "context",
+                                              "pipeline", "expert")
+                if getattr(cfg, a) > 1}
         if wide:
             raise ValueError(
-                f"{type(self.trial).__name__} asks for the mesh {wide}; the "
-                "PyTorch port trains on one device (data, fsdp, tensor, "
-                "pipeline and expert axes are not ported yet: ROADMAP.md)")
+                f"{type(self.trial).__name__} asks for the mesh axes {wide}; "
+                f"the PyTorch port trains over {PORTED_AXES} only (tensor, "
+                "context, pipeline and expert parallelism: ROADMAP.md Queue "
+                "1 item 7)")
+        return cfg
 
     def _ensure_core(self, max_length: Optional[int]) -> core_mod.Context:
         if self.core is None:
@@ -134,14 +194,24 @@ class Trainer:
         return self.core
 
     def _build(self, seed: int) -> None:
+        import torch.distributed as dist
+
         trial = self.trial
+        # Again: `fit`'s core.init() may have formed the process group
+        # since __init__ checked.
+        self.mesh_config = self._check_mesh_support()
+        if dist.is_initialized() and self.mesh is None:
+            self.mesh = create_mesh(self.mesh_config, self.device.type)
         tx = self._tx = trial.optimizer()
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = create_train_state(trial.init_params, tx, gen,
-                                        device=self.device,
-                                        extra=trial.init_extra())
+        self.state = create_train_state(
+            trial.init_params, tx, gen, device=self.device,
+            extra=trial.init_extra(), mesh=self.mesh,
+            param_logical_axes=trial.param_logical_axes(),
+            rules=trial.sharding_rules())
         self._train_step = make_train_step(trial.loss, tx,
-                                           stateful=trial.stateful)
+                                           stateful=trial.stateful,
+                                           mesh=self.mesh)
         has_eval = type(trial).evaluate is not TorchTrial.evaluate
         self._eval_step = (make_eval_step(trial.evaluate,
                                           stateful=trial.stateful)
@@ -177,8 +247,9 @@ class Trainer:
         if resume_from:
             self._restore(resume_from)
         if profile:
-            core.profiler.set_flops_per_step(self.trial.flops_per_step(),
-                                             n_devices=1)
+            core.profiler.set_flops_per_step(
+                self.trial.flops_per_step(),
+                n_devices=self.mesh.size() if self.mesh is not None else 1)
             core.profiler.on()
 
         expconf = _expconf(core)
@@ -409,14 +480,27 @@ class Trainer:
                 prefetcher.close()
         if count == 0:
             return {}
+        if self._multi_process():
+            # Each rank summed the metrics of its own rows: the global
+            # mean of those sums (every rank ran `count` batches).
+            keys = [k for k, v in sums.items() if isinstance(v, torch.Tensor)]
+            sums.update(zip(keys, global_mean([sums[k] for k in keys])))
         sums = _to_host(sums)
         avg = {k if k.startswith("validation_") else f"validation_{k}":
                float(v) / count for k, v in sums.items()}
         core.train.report_validation_metrics(step, avg)
         return avg
 
+    def _multi_process(self) -> bool:
+        return self.mesh is not None and self.mesh.size() > 1
+
     def _checkpoint(self, core, step: int) -> None:
-        core.checkpoint.save_state(self.state, step)
+        state = self.state
+        if state_mod.is_sharded(state):
+            # The full state, gathered on every rank (a collective), in the
+            # one-process format; the chief writes it.
+            state = state_mod.unshard_state(state)
+        core.checkpoint.save_state(state, step)
 
     def _preempt_checkpoint(self, core, step: int,
                             last_checkpointed: int) -> None:
@@ -440,6 +524,9 @@ class Trainer:
         estimate_ms = core.checkpoint.last_save_ms
         attempt = last_checkpointed != step and cfg.should_attempt_save(
             deadline, estimate_ms)
+        # The save is a collective, and only the chief timed the last one:
+        # its decision is every rank's.
+        attempt = bool(core.distributed.broadcast(attempt))
         with core.tracer.span("harness.checkpoint.emergency",
                               deadline_s=deadline, attempted=attempt,
                               step=step):
@@ -493,6 +580,15 @@ class Trainer:
                 sp.attrs["restored"] = restored or ""
             return restored
 
+    def _read_checkpoint(self, storage_id: str) -> TrainState:
+        """Checkpoint `storage_id` as the current state's layout: a sharded
+        state reads the full state and keeps its shards (no collective)."""
+        if not state_mod.is_sharded(self.state):
+            return self.core.checkpoint.restore_state(storage_id, self.state)
+        full = self.core.checkpoint.restore_state(
+            storage_id, state_mod.full_template(self.state))
+        return state_mod.reshard_state(full, self.state)
+
     def _restore_chain_inner(self, candidates) -> Optional[str]:
         queue = list(candidates)
         tried = set()
@@ -503,8 +599,7 @@ class Trainer:
                 continue
             tried.add(sid)
             try:
-                self.state = self.core.checkpoint.restore_state(
-                    sid, self.state)
+                self.state = self._read_checkpoint(sid)
                 logger.info("restored from checkpoint %s at step %d", sid,
                             self.state.step)
                 return sid

@@ -7,10 +7,11 @@ the loop. Hyperparameters arrive via `self.context.hparams`.
 
 What differs from the JAX package: `init_params` receives a
 `torch.Generator` on the trainer's device instead of a `jax.random` key;
-`optimizer()` returns a transformation of `train/optim.py`; and the trial
-runs on one device, so `mesh_config()` may name one device only (a
-pipeline or expert axis, or more than one device, makes the Trainer
-raise).
+`optimizer()` returns a transformation of `train/optim.py`; and a run
+has one process per device, so a loader yields this rank's rows of the
+global batch (`TrialContext.distributed` says which), where a JAX process
+yields its host's. `mesh_config()` may set `data` and `fsdp` above 1;
+the other axes make the Trainer raise (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import abc
 from typing import Any, Dict, Iterable, Optional
 
+from determined_tpu_torch.parallel.mesh import MeshConfig
+from determined_tpu_torch.parallel.sharding import LogicalRules
 from determined_tpu_torch.train import optim
 
 
@@ -62,6 +65,15 @@ class TrialContext:
     def per_device_batch_size(self) -> int:
         return max(1, self.global_batch_size // max(1, self.n_devices))
 
+    @property
+    def distributed(self):
+        """The run's process topology (rank, size): the core context's,
+        or one local process without one."""
+        from determined_tpu_torch.core._distributed import DistributedContext
+
+        dist = getattr(self.core, "distributed", None)
+        return dist if dist is not None else DistributedContext.local()
+
 
 class TorchTrial(abc.ABC):
     """Subclass and implement the pieces; Trainer does the rest."""
@@ -100,16 +112,26 @@ class TorchTrial(abc.ABC):
         lr = self.context.hparams.get("learning_rate", 1e-3)
         return optim.adamw(lr)
 
-    def mesh_config(self) -> Dict[str, int]:
-        """The `mesh` hparam block ({} = the one device). The port trains
-        on one device: any axis above 1 makes the Trainer raise."""
-        return dict(self.context.hparams.get("mesh") or {})
+    def param_logical_axes(self) -> Optional[Any]:
+        """Tree of logical-axis tuples for the param layout; None ->
+        replicate every leaf."""
+        return None
+
+    def sharding_rules(self) -> LogicalRules:
+        return LogicalRules()
+
+    def mesh_config(self) -> MeshConfig:
+        """Default: pure data parallel over the run's devices (the `mesh`
+        hparam block when set)."""
+        mc = self.context.hparams.get("mesh")
+        return MeshConfig.from_dict(mc) if mc else MeshConfig()
 
     # -- data ----------------------------------------------------------
 
     @abc.abstractmethod
     def build_training_data(self) -> Iterable[Any]:
-        """Iterable of global batches (dicts of numpy arrays or tensors).
+        """Iterable of batches (dicts of numpy arrays or tensors): in a run
+        of several processes, this rank's rows of each global batch.
         Restarts when exhausted; infinite iterators are idiomatic."""
 
     def build_validation_data(self) -> Iterable[Any]:

@@ -1,4 +1,4 @@
-"""GPT-2 pretraining trial on one CUDA device — the PyTorch port's
+"""GPT-2 pretraining trial on CUDA devices — the PyTorch port's
 counterpart of examples/gpt2/model_def.py.
 
 The same hparams (`model_size`, `seq_len`, `global_batch_size`,
@@ -15,7 +15,14 @@ trains in local mode on the first CUDA device, as the JAX example's
 `__main__` does, for GPT2_STEPS steps. Launched with the `DET_*`
 variables an agent sets (`DET_MASTER`, `DET_TRIAL_ID`, ...), the same
 script is a managed trial: the master's searcher hands out the lengths,
-and the hparams come from `DET_HPARAMS`.
+and the hparams come from `DET_HPARAMS`. Through the launcher, one process
+per GPU slot,
+
+    DET_SLOT_IDS="[0,1]" python -m determined_tpu_torch.launch.torch_distributed -- python examples/gpt2_cuda/model_def.py
+
+each rank draws the same global batches and keeps its own rows of them,
+with the `mesh` hparam (`{"fsdp": 2}`) sharding the params by their
+logical axes.
 """
 
 import os
@@ -71,6 +78,15 @@ class GPT2Trial(TorchTrial):
     def loss(self, params, batch, rng):
         return gpt2.loss_fn(params, batch, self.cfg)
 
+    def param_logical_axes(self):
+        return gpt2.param_logical_axes(self.cfg)
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (rank r: the r-th block)."""
+        d = self.context.distributed
+        n = len(batch["tokens"]) // d.size
+        return {k: v[d.rank * n:(d.rank + 1) * n] for k, v in batch.items()}
+
     def optimizer(self):
         lr = float(self.context.get_hparam("learning_rate", 3e-4))
         warmup = int(self.context.hparams.get("warmup_steps", 100))
@@ -91,19 +107,19 @@ class GPT2Trial(TorchTrial):
             n = len(self.tokens) - (s + 1)
             while True:
                 starts = rng.integers(0, n, b)
-                yield {"tokens": np.stack(
-                    [self.tokens[i : i + s + 1] for i in starts])}
+                yield self._rows({"tokens": np.stack(
+                    [self.tokens[i : i + s + 1] for i in starts])})
         else:
             while True:
-                yield {"tokens": rng.integers(
-                    0, self.cfg.vocab_size, size=(b, s + 1)).astype(np.int32)}
+                yield self._rows({"tokens": rng.integers(
+                    0, self.cfg.vocab_size, size=(b, s + 1)).astype(np.int32)})
 
     def build_validation_data(self):
         b, s = self.context.global_batch_size, self.seq_len
         rng = np.random.default_rng(7)
         for _ in range(4):
-            yield {"tokens": rng.integers(
-                0, self.cfg.vocab_size, size=(b, s + 1)).astype(np.int32)}
+            yield self._rows({"tokens": rng.integers(
+                0, self.cfg.vocab_size, size=(b, s + 1)).astype(np.int32)})
 
     def evaluate(self, params, batch):
         return {"validation_loss": gpt2.loss_fn(params, batch, self.cfg)}

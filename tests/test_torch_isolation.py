@@ -32,12 +32,20 @@ PORT_MODULES = [
     "determined_tpu_torch.data.prefetch",
     "determined_tpu_torch.experimental",
     "determined_tpu_torch.experimental.core_v2",
+    "determined_tpu_torch.exec",
+    "determined_tpu_torch.exec.launch",
+    "determined_tpu_torch.exec.prep",
     "determined_tpu_torch.experimental.core_v2._core_v2",
+    "determined_tpu_torch.launch",
+    "determined_tpu_torch.launch.torch_distributed",
     "determined_tpu_torch.models.gpt2",
     "determined_tpu_torch.ops._build",
     "determined_tpu_torch.ops._softmax_common",
     "determined_tpu_torch.ops.flash_attention",
     "determined_tpu_torch.ops.paged_attention",
+    "determined_tpu_torch.parallel",
+    "determined_tpu_torch.parallel.mesh",
+    "determined_tpu_torch.parallel.sharding",
     "determined_tpu_torch.serve",
     "determined_tpu_torch.serve.engine",
     "determined_tpu_torch.serve.http",

@@ -377,10 +377,14 @@ def test_cluster_info_reads_the_environment_as_jax_does(
 
 
 def test_a_multi_host_rendezvous_is_refused(cluster_env):
+    # A rendezvous of two hosts forms a process group (DistributedContext.
+    # from_allocation); its data plane is NCCL unless DET_TORCH_BACKEND
+    # names gloo, so on a host without CUDA it is refused, never run as
+    # one local process.
     master = FakeMaster()
     cluster_env(master, DET_CONTAINER_ADDRS="10.0.0.1,10.0.0.2")
     try:
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(RuntimeError, match="nccl backend needs a CUDA"):
             tcore.init()
     finally:
         master.close()

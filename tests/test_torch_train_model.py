@@ -134,7 +134,9 @@ def test_flops_per_token_and_param_count_match_jax():
 
 
 def test_moe_and_unported_remat_policies_raise():
-    _, tcfg = _configs(remat=True, policy="everything")
+    # Every policy name of the JAX package is ported; a name neither
+    # package defines still raises.
+    _, tcfg = _configs(remat=True, policy="offload")
     tparams = tgpt2.params_from_numpy(numpy_params())
     with pytest.raises(ValueError, match="remat_policy"):
         tgpt2.apply(tparams, torch.from_numpy(_tokens()), tcfg)
