@@ -197,15 +197,48 @@ fails:
      of that step from the device time of 3 more steps under
      torch.profiler. Also the first graph burst's tokens/s against the
      second's, and the managed trial's checkpoint costs.
+  11. Mixture-of-Experts GPT-2 at GPT-2 small's width with the model of
+     examples/gpt2/moe.yaml: 8 experts, top-2, capacity factor 1.25, aux
+     coefficient 0.01 (ops/moe.py; ~521M params, the FFN of every block
+     routed).
+ 11a. the example trial with `num_experts` 8 and `moe_top_k` 2 through
+     `Trainer.fit`, 20 steps at phase 7's hparams on its token stream:
+     losses finite and falling, the flash kernels launched by phase 7's
+     formula and the plain attention never run, one COMMITTED checkpoint.
+     Prints fit's step time and tokens/s, the device idle share (3 more
+     steps under torch.profiler), the peak memory, each layer's dropped
+     share of the top-2 assignments on a training batch, and MFU from the
+     FLOPs a token actually runs (6 x (trunk + router + 2 experts' FFN)
+     + the attention term; `flops_per_token` counts a dense FFN).
+ 11b. `make_multi_step` (steps_per_call 4, 2 windows) against 8
+     `make_train_step` calls from the same state, MoE GPT-2 small, bf16:
+     losses, grad norms and params bitwise equal (the routing replays).
+ 11c. 11a's checkpoint served: a bf16 replica through `build_replica` and
+     `ServingServer` (8 slots, max_seq_len 1024, prefix cache on), phase
+     5's burst; decode step p50, tokens/s, TTFT, a replayed step's device
+     ms and kernels; graph against eager logits bitwise equal. In fp32 a
+     restored replica against a dense-layout engine over its params, all
+     8 slots busy with 64-token prompts (an idle slot or a padded row
+     routes too and attends to other things in the two layouts), 16
+     decode steps: greedy tokens equal, logits within 1e-3; and a
+     64-token prompt's logits against the params' training forward
+     (1e-3; bucket 64, so no padded row competes for capacity).
+ 11d. fp32 parity on the MoE model at full width and 2 layers, B 2, S
+     1024, kernels against the plain attention: every route's chosen
+     experts and kept assignments identical, then each leaf's gradient
+     within 1e-5 of its largest element.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
-or "ffma" CUDA cores); the last line is `{"ok": true, "device": {...}}`.
+or "ffma" CUDA cores; `launches` counts phase 7's path, phase 5's for the
+paged kernel, and `launches_moe` phase 11a's, 11c's for the paged
+kernel); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -1959,6 +1992,66 @@ def step_order_sum(values):
     return total
 
 
+def replay_against_eager(cfg, hparams, seed):
+    """`make_multi_step` (steps_per_call MULTI_STEPS) over MULTI_WINDOWS
+    windows of the token stream, and as many `make_train_step` calls, each
+    from a state initialised from `seed` (windows from seed + 1, the rng
+    seed + 2). Every count starts at 0 before the replayed run. Returns
+    the multi step, the train step, both states, their window-mean
+    metrics (the eager ones summed in the replays' order), the flash
+    wrappers' counts over the replayed run, the plain attention's calls,
+    the windows and the rng."""
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.train.state import create_train_state
+    from determined_tpu_torch.train.step import make_multi_step, make_train_step
+
+    def loss(p, b, r):
+        return gpt2.loss_fn(p, b, cfg)
+
+    def state_of(tx):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return create_train_state(lambda g: gpt2.init(g, cfg), tx, gen,
+                                  device="cuda")
+
+    windows = token_windows(hparams["tokens_path"], MULTI_WINDOWS,
+                            MULTI_STEPS, seed=seed + 1)
+    tx_r, tx_e = example_tx(), example_tx()
+    multi = make_multi_step(loss, tx_r, steps_per_call=MULTI_STEPS)
+    step = make_train_step(loss, tx_e)
+    rng = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+        fn.launches = 0
+    fa.reference_attention.calls = 0
+    replayed = state_of(tx_r)
+    means_r = []
+    for w in windows:
+        replayed, m = multi(replayed, {"tokens": w}, rng)
+        means_r.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    wrapper = {"fwd": fa.flash_fwd_cuda.launches,
+               "dq": fa.flash_dq_cuda.launches,
+               "dkv": fa.flash_dkv_cuda.launches}
+    ref_calls = fa.reference_attention.calls
+    eager = state_of(tx_e)
+    means_e = []
+    for w in windows:
+        ms = []
+        for i in range(MULTI_STEPS):
+            eager, m = step(eager, {"tokens": w[i]}, rng)
+            ms.append(m)
+        means_e.append({k: float(step_order_sum([x[k] for x in ms])
+                                 / MULTI_STEPS) for k in ms[0]})
+    torch.cuda.synchronize()
+    return {"multi": multi, "step": step, "replayed": replayed,
+            "eager": eager, "means_r": means_r, "means_e": means_e,
+            "wrapper": wrapper, "ref_calls": ref_calls, "windows": windows,
+            "rng": rng}
+
+
 def phase_multi_step(hparams, card, depth=12):
     """8a: `make_multi_step` (steps_per_call 4) against 4 `make_train_step`
     calls from the same state and batches, GPT-2 small at full width, B 8,
@@ -1976,52 +2069,16 @@ def phase_multi_step(hparams, card, depth=12):
     import torch
 
     from determined_tpu_torch.models import gpt2
-    from determined_tpu_torch.ops import flash_attention as fa
-    from determined_tpu_torch.train.state import create_train_state
-    from determined_tpu_torch.train.step import make_multi_step, make_train_step
 
     cfg = dataclasses.replace(gpt2.Config.small(), n_layer=depth)
-
-    def loss(p, b, r):
-        return gpt2.loss_fn(p, b, cfg)
-
-    def state_of(tx):
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
-        return create_train_state(lambda g: gpt2.init(g, cfg), tx, gen,
-                                  device="cuda")
-
-    windows = token_windows(hparams["tokens_path"], MULTI_WINDOWS,
-                            MULTI_STEPS)
-    tx_r, tx_e = example_tx(), example_tx()
-    multi = make_multi_step(loss, tx_r, steps_per_call=MULTI_STEPS)
-    step = make_train_step(loss, tx_e)
-    rng = torch.Generator(device="cuda").manual_seed(SEED + 22)
-
-    # The main path of 8a runs from here: every count starts at 0.
-    for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
-        fn.launches = 0
-    fa.reference_attention.calls = 0
-    replayed = state_of(tx_r)
-    means_r = []
-    for w in windows:
-        replayed, m = multi(replayed, {"tokens": w}, rng)
-        means_r.append({k: float(v) for k, v in m.items()})
-    torch.cuda.synchronize()
-    wrapper = {"fwd": fa.flash_fwd_cuda.launches,
-               "dq": fa.flash_dq_cuda.launches,
-               "dkv": fa.flash_dkv_cuda.launches}
+    # The main path of 8a: every count starts at 0 in the helper.
+    run = replay_against_eager(cfg, hparams, SEED + 20)
+    multi, step, rng = run["multi"], run["step"], run["rng"]
+    replayed, eager = run["replayed"], run["eager"]
+    means_r, means_e = run["means_r"], run["means_e"]
+    wrapper, ref_calls, windows = run["wrapper"], run["ref_calls"], \
+        run["windows"]
     in_replays = dict(multi.replayed_launches)
-    ref_calls = fa.reference_attention.calls
-    eager = state_of(tx_e)
-    means_e = []
-    for w in windows:
-        ms = []
-        for i in range(MULTI_STEPS):
-            eager, m = step(eager, {"tokens": w[i]}, rng)
-            ms.append(m)
-        means_e.append({k: float(step_order_sum([x[k] for x in ms])
-                                 / MULTI_STEPS) for k in ms[0]})
-    torch.cuda.synchronize()
     L = cfg.n_layer
     replays = MULTI_STEPS * MULTI_WINDOWS - 1
     want_graph = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
@@ -2086,7 +2143,7 @@ def phase_multi_step(hparams, card, depth=12):
             f"in turns), device {dev[mode]:.2f} ms a step (torch.profiler), "
             f"idle share {max(0.0, 1 - dev[mode] / min(host[mode])) * 100:.1f}"
             f"% of the faster window")
-    del replayed, eager, multi
+    del replayed, eager, multi, run
     _free_cuda()
     return {"host": host, "device": dev, "bitwise": bitwise}
 
@@ -2640,6 +2697,394 @@ def phase_flash_times(card):
             for name in ("fwd", "dq", "dkv")}
 
 
+# ----------------------------------------------------------------- phase 11
+
+
+MOE_HPARAMS = {"num_experts": 8, "moe_top_k": 2}  # examples/gpt2/moe.yaml's
+MOE_STEPS = 20
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every `ops.moe.route` made inside the block (its Routing: probs,
+    gate_idx, gate_vals, pos, kept, capacity), in call order."""
+    from determined_tpu_torch.ops import moe
+
+    seen, route = [], moe.route
+
+    def recording(*args, **kwargs):
+        r = route(*args, **kwargs)
+        seen.append(r)
+        return r
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def moe_active_flops_per_token(cfg, seq_len):
+    """fwd+bwd FLOPs of what one token of an MoE GPT-2 runs: 6 x (the
+    trunk's params + the router + top_k experts' FFN) + the attention
+    term. `gpt2.flops_per_token` counts a dense FFN (the JAX package's
+    formula). The experts compute E x C = 1.25 x T slots (capacity counts
+    tokens, not assignments), so of the top-2 assignments at most 62.5 %
+    are run; this counts all of them, as the standard active count does."""
+    from determined_tpu_torch.models import gpt2
+
+    d, f, L = cfg.d_model, cfg.ff_dim, cfg.n_layer
+    ffn = d * f + f + f * d + d
+    trunk = gpt2.param_count(cfg) - L * ffn
+    router = L * d * cfg.num_experts
+    experts = L * min(cfg.moe_top_k, cfg.num_experts) * ffn
+    return 6.0 * (trunk + router + experts) + 12 * L * d * seq_len
+
+
+def phase_moe_train(workdir, hparams, card):
+    """11a: the example trial as Mixture-of-Experts GPT-2 small (8 experts,
+    top-2, capacity factor 1.25, aux coefficient 0.01: examples/gpt2/
+    moe.yaml's model) through `Trainer.fit`, 20 steps at phase 7's
+    hparams on its token stream. Losses finite and falling; the flash
+    kernels launched by phase 7's formula and the plain attention never
+    run; one COMMITTED checkpoint (11c serves it). Prints the step time,
+    tokens/s, the device's idle share (torch.profiler over 3 more steps),
+    the peak memory, each layer's share of dropped routing assignments on
+    a training batch, and MFU from the active FLOPs a token."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trainer import _to_device
+    from determined_tpu_torch.train.trial import TrialContext
+
+    GPT2Trial = gpt2_trial_class()
+    ckpt_dir = os.path.join(workdir, "moe_checkpoints")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ctx = core.init(max_length=MOE_STEPS, checkpoint_dir=ckpt_dir)
+    trial = GPT2Trial(TrialContext(hparams={**hparams, **MOE_HPARAMS},
+                                   core_context=ctx))
+    cfg = trial.cfg
+    trainer = Trainer(trial, core_context=ctx)
+
+    # The main path of 11a runs from here: every count starts at 0.
+    for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+        fn.launches = 0
+    fa.reference_attention.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = trainer.fit(report_period=TRAIN_REPORT_PERIOD)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"fwd": fa.flash_fwd_cuda.launches,
+                "dq": fa.flash_dq_cuda.launches,
+                "dkv": fa.flash_dkv_cuda.launches}
+    ref_calls = fa.reference_attention.calls
+
+    n_params = sum(p.numel() for p in state.leaves())
+    reports = ctx.train.local_training_metrics
+    losses = [r["metrics"]["loss"] for r in reports]
+    val = ctx.train.local_validation_metrics
+    say(f"[moe] [{card}] MoE GPT-2 small: {n_params:,} params ({cfg.n_layer} "
+        f"layers x {cfg.num_experts} experts, top-{cfg.moe_top_k}, capacity "
+        f"factor {cfg.moe_capacity_factor}, aux coefficient "
+        f"{cfg.moe_aux_coef}), seq_len 1024, batch 8, {str(cfg.dtype)[6:]}, "
+        f"remat {cfg.remat_policy!r}: fit {state.step} steps in {wall:.1f} "
+        f"s; loss every {TRAIN_REPORT_PERIOD} steps "
+        f"{[round(x, 4) for x in losses]}; validation "
+        f"{val[-1]['metrics'] if val else None}; peak memory {peak_gib:.2f} "
+        "GiB")
+    if state.step != MOE_STEPS or \
+            len(losses) != MOE_STEPS // TRAIN_REPORT_PERIOD:
+        fail(f"fit ran {state.step} steps with {len(losses)} reports")
+    if not all(x == x and abs(x) != float("inf") for x in losses) or \
+            not losses[-1] < losses[0] - 0.25:
+        fail(f"the MoE losses are not finite and falling: {losses}")
+    n_val = sum(1 for _ in trial.build_validation_data())
+    want = {"fwd": (2 * MOE_STEPS + n_val) * cfg.n_layer,
+            "dq": MOE_STEPS * cfg.n_layer, "dkv": MOE_STEPS * cfg.n_layer}
+    say(f"[moe] flash launches {launches} (expected {want}, phase 7's "
+        f"formula); reference_attention calls {ref_calls}")
+    if launches != want or ref_calls != 0:
+        fail(f"MoE training launched {launches} flash kernels (want {want}) "
+             f"and the plain attention {ref_calls} times")
+    sid = f"trial0-step{MOE_STEPS}"
+    if ctx.checkpoint.lineage() != [sid] or not os.path.exists(
+            os.path.join(ckpt_dir, sid, "COMMIT")):
+        fail(f"MoE checkpoints: lineage {ctx.checkpoint.lineage()}")
+    ctx.close()
+
+    window_s = [TRAIN_REPORT_PERIOD / r["metrics"]["steps_per_second"]
+                for r in reports[1:]]
+    step_ms = sum(window_s) / (TRAIN_REPORT_PERIOD * len(window_s)) * 1e3
+    breakdown = profile_train_steps(trainer, trial)
+    idle = max(0.0, 1.0 - breakdown["busy_ms"] / step_ms)
+    tokens_per_s = 8 * 1024 / (step_ms / 1e3)
+    active = moe_active_flops_per_token(cfg, 1024)
+    mfu = active * tokens_per_s / PEAK_FLOPS["torch.bfloat16"]
+    # Each layer's dropped share of the top-k assignments, on one
+    # training batch through the trained params (no grad: no recompute).
+    batch = _to_device(next(iter(trial.build_training_data())),
+                       trainer.device)
+    with torch.no_grad(), recorded_routes() as routes:
+        gpt2.apply(trainer.state.params, batch["tokens"][:, :-1], cfg)
+    dropped = [float(1 - r.kept.float().mean()) for r in routes]
+    if len(dropped) != cfg.n_layer:
+        fail(f"{len(routes)} routes for {cfg.n_layer} layers")
+    say(f"[moe] [{card}] fit's step over steps {TRAIN_REPORT_PERIOD + 1}-"
+        f"{MOE_STEPS}: {step_ms:.2f} ms (windows "
+        f"{[round(w * 1e3 / TRAIN_REPORT_PERIOD, 2) for w in window_s]} ms a "
+        f"step), {tokens_per_s:.0f} tokens/s; device busy "
+        f"{breakdown['busy_ms']:.2f} ms a step, idle share {idle * 100:.1f}%;"
+        f" active FLOPs a token {active:.4e} (dense formula "
+        f"{gpt2.flops_per_token(cfg, 1024):.4e}), MFU {mfu * 100:.2f}% of "
+        f"989 TFLOP/s; dropped share of the top-2 assignments by layer "
+        f"{[round(x, 4) for x in dropped]} (capacity {routes[0].capacity} "
+        f"slots an expert)")
+    del trainer, state, batch
+    _free_cuda()
+    return {"launches": launches, "step_ms": step_ms,
+            "tokens_per_s": tokens_per_s, "mfu": mfu, "idle_share": idle,
+            "peak_gib": peak_gib, "dropped": dropped, "n_params": n_params,
+            "ckpt_dir": ckpt_dir, "sid": sid, "losses": losses}
+
+
+def phase_moe_multi_step(hparams, card, depth=12):
+    """11b: `make_multi_step` (steps_per_call 4) over 2 windows against 8
+    `make_train_step` calls from the same state and batches, MoE GPT-2
+    small at full width: window-mean losses, grad norms and all_finite and
+    every param must be bitwise equal (the routing is captured with the
+    step: nothing in it reads the device on the host), and the replays
+    must have launched the flash kernels."""
+    import dataclasses
+
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+
+    cfg = dataclasses.replace(gpt2.Config.small(), n_layer=depth,
+                              **MOE_HPARAMS)
+    run = replay_against_eager(cfg, hparams, SEED + 30)
+    multi, means_r, means_e = run["multi"], run["means_r"], run["means_e"]
+    L = cfg.n_layer
+    replays = MULTI_STEPS * MULTI_WINDOWS - 1
+    want_graph = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    in_replays = dict(multi.replayed_launches)
+    flat_r = gpt2._flatten(run["replayed"].params)
+    flat_e = gpt2._flatten(run["eager"].params)
+    differ = [n for n in flat_e if not torch.equal(flat_r[n], flat_e[n])]
+    bitwise = not differ and means_r == means_e
+    say(f"[moe] [{card}] make_multi_step(steps_per_call={MULTI_STEPS}) x "
+        f"{MULTI_WINDOWS} windows of MoE GPT-2 small ({L} layers) against "
+        f"{MULTI_STEPS * MULTI_WINDOWS} make_train_step calls: window-mean "
+        f"losses {[m['loss'] for m in means_r]} vs "
+        f"{[m['loss'] for m in means_e]}, grad norms "
+        f"{[m['grad_norm'] for m in means_r]} vs "
+        f"{[m['grad_norm'] for m in means_e]}; params that differ "
+        f"{differ[:4]} ({len(differ)} of {len(flat_e)}); bitwise equal "
+        f"{bitwise}; the captured step holds {multi._graph_launches} flash "
+        f"launches, the replays launched {in_replays}; reference calls "
+        f"{run['ref_calls']}")
+    if not bitwise:
+        fail("the replayed MoE steps differ from make_train_step's")
+    if multi.replays != replays or multi._graph_launches != want_graph or \
+            in_replays != {k: v * replays for k, v in want_graph.items()} \
+            or run["ref_calls"]:
+        fail("the flash kernels did not run inside the MoE replays")
+    del multi, run, flat_r, flat_e
+    _free_cuda()
+    return {"bitwise": bitwise, "replayed_launches": in_replays}
+
+
+def phase_moe_serve(workdir, train, card):
+    """11c: serve 11a's checkpoint. A bf16 replica through `build_replica`
+    (8 slots, max_seq_len 1024, KV block 16, prefix cache on) behind
+    `ServingServer`: phase 5's burst answered 200, the decode graph
+    holding 12 paged launches and replayed for every decode step, the
+    plain version never run; decode step p50, tokens/s, TTFT, and one
+    replayed step's device ms and kernels. Then graph against eager
+    logits (two prompts, 16 decode steps) must be bitwise equal. In fp32:
+    a replica restored from the checkpoint and a dense-layout engine over
+    its params must give the same greedy tokens with logits within 1e-3
+    (all 8 slots busy with 64-token prompts: no idle slot or padded row
+    routes), and the replica's logits of a 64-token prompt (bucket 64)
+    must match the params' own training forward within 1e-3."""
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.ops.paged_attention import (
+        paged_attention_cuda, paged_attention_reference)
+    from determined_tpu_torch.serve.engine import ServingEngine
+    from determined_tpu_torch.serve.http import ServingServer
+    from determined_tpu_torch.serve.task import build_replica
+
+    def config(dtype, **serving):
+        return {"serving": {
+            "model_config": {"model_size": "small", "dtype": dtype,
+                             **MOE_HPARAMS},
+            "checkpoint": "latest", "max_batch_size": 8,
+            "max_seq_len": 1024, "kv_block_size": 16, "prefix_cache": True,
+            "seed": SEED, **serving},
+            "checkpoint_storage": {"type": "shared_fs",
+                                   "host_path": train["ckpt_dir"]}}
+
+    # The main path of 11c runs from here: every count starts at 0.
+    paged_attention_cuda.launches = 0
+    paged_attention_reference.calls = 0
+    t0 = time.monotonic()
+    engine, batcher = build_replica(config("bfloat16"))
+    decode_s = []
+    decode = engine.decode
+
+    def timed_decode(*args):
+        t = time.perf_counter()
+        out = decode(*args)
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    engine.decode = timed_decode
+    batcher.start()
+    graphs = engine.stats()["cuda_graphs"]
+    say(f"[moe-serve] bf16 replica of {train['sid']} restored and captured "
+        f"in {time.monotonic() - t0:.1f} s; graphs (paged launches each "
+        f"holds) {graphs}")
+    want = {"decode", "copy_block"} | {
+        f"prefill_{b}" for b in engine.prefill_buckets}
+    if set(graphs) != want or graphs["decode"] != engine.cfg.n_layer:
+        fail(f"MoE replica captured {graphs}")
+    server = ServingServer(batcher, host="127.0.0.1", port=0).start()
+    try:
+        bodies, wall = serve_burst(f"http://127.0.0.1:{server.port}",
+                                   np.random.default_rng(SEED + 40),
+                                   engine.cfg.vocab_size)
+    finally:
+        server.stop()
+        batcher.stop()
+    est = engine.stats()
+    replayed = est["attention_launches"]
+    launches = paged_attention_cuda.launches + replayed + graphs["decode"]
+    ref_calls = paged_attention_reference.calls
+    run = burst_summary(bodies, wall, decode_s)
+    say(f"[moe-serve] [{card}] {len(bodies)} requests answered 200 with 64 "
+        f"tokens each: decode step p50 {run['decode_step_ms']:.3f} ms over "
+        f"{run['decode_steps']} steps, {run['tokens_per_s']:.1f} tokens/s, "
+        f"TTFT p50 {run['ttft_p50_ms']:.1f} ms; paged launches on the path "
+        f"{launches} ({replayed} replayed for {est['decode_steps']} decode "
+        f"steps), reference calls {ref_calls}")
+    if est["decode_steps"] <= 0 or \
+            replayed != engine.cfg.n_layer * est["decode_steps"] or ref_calls:
+        fail("the MoE replica's decode did not replay the paged kernel")
+    engine.decode = decode
+    steps = decode_step_times(engine, card)
+    for s in range(engine.slots):
+        engine.release_slot(s)
+    prompts = two_prompts(engine, np.random.default_rng(SEED + 41))
+    _, got, want_l, same = generate_logits(engine, prompts, 16,
+                                           twin=EagerTwin(engine))
+    bitwise = all(torch.equal(x, y) for x, y in zip(got, want_l))
+    say(f"[moe-serve] [{card}] bf16 graph vs eager, two prefills (buckets "
+        f"512, 64 after a 256-token prefix hit) + 16 decode steps: greedy "
+        f"equal {same}, max |logit diff| {max_diff(got, want_l):.3e}, "
+        f"bitwise equal {bitwise}")
+    if not bitwise:
+        fail("the MoE replica's graphs differ from its eager calls")
+    del engine, batcher
+    _free_cuda()
+
+    fp32, _ = build_replica(config("float32"))
+    dense = ServingEngine(fp32.params, fp32.cfg, slots=8, max_seq_len=1024,
+                          attention_impl="dense", seed=SEED, device="cuda")
+    # Every slot busy and every prompt filling its bucket: an idle slot or
+    # a padded row is routed too (ROADMAP Queue 3), and what it attends to
+    # differs between the layouts (the trash block, or its own lane).
+    mb = fp32.max_blocks_per_seq
+    rng = np.random.default_rng(SEED + 42)
+    full = [(s, rng.integers(0, fp32.cfg.vocab_size, 64).astype(np.int32),
+             np.arange(s * mb, (s + 1) * mb, dtype=np.int32), 0)
+            for s in range(fp32.slots)]
+    toks_p, got_p, _, _ = generate_logits(fp32, full, 16)
+    toks_d, got_d, _, _ = generate_logits(dense, full, 16)
+    worst_pd = max_diff(got_p, got_d)
+    prompt = np.random.default_rng(SEED + 43).integers(
+        0, fp32.cfg.vocab_size, 64).astype(np.int32)
+    served = fp32.prefill_logits(0, prompt).float()
+    with torch.no_grad():
+        direct = gpt2.apply(fp32.params, torch.from_numpy(prompt[None]).cuda(),
+                            fp32.cfg)[0, -1]
+    worst_fw = float((served - direct.float()).abs().max())
+    say(f"[moe-serve] [{card}] fp32 replica of {train['sid']}: paged vs "
+        f"dense, 8 slots of 64-token prompts + 16 decode steps, greedy equal "
+        f"{toks_p == toks_d}, max |logit diff| {worst_pd:.3e} (atol 1e-3); "
+        f"a 64-token prompt's logits against the params' training forward "
+        f"max |diff| {worst_fw:.3e} (atol 1e-3)")
+    if toks_p != toks_d or worst_pd > 1e-3 or worst_fw > 1e-3:
+        fail("the MoE replica's paged, dense and training logits disagree")
+    del fp32, dense
+    _free_cuda()
+    return {"launches": launches, "run": run, "steps": steps,
+            "bitwise": bitwise}
+
+
+def phase_moe_parity():
+    """11d: fp32, MoE GPT-2 small width, 2 layers, B 2, S 1024: the flash
+    kernels against the plain attention. The routing first: every route
+    (forward and remat recompute) must choose the same experts and keep
+    the same assignments; then each leaf's step-0 gradient within 1e-5
+    of that leaf's largest element (phase 9's bound)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+
+    cfg = dataclasses.replace(gpt2.Config.small(), n_layer=2,
+                              dtype=torch.float32, **MOE_HPARAMS)
+    params0 = gpt2.init(torch.Generator(device="cuda").manual_seed(SEED + 50),
+                        cfg)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        SEED + 51).integers(0, cfg.vocab_size, (2, 1025)).astype(
+            np.int32)).cuda()}
+    grads, routes, losses = {}, {}, {}
+    for impl in ("kernel", "reference"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        flat = gpt2._flatten(params0)
+        leaves = [t.detach().clone().requires_grad_() for t in flat.values()]
+        with recorded_routes() as seen:
+            loss = gpt2.loss_fn(gpt2._unflatten(dict(zip(flat, leaves))),
+                                batch, c)
+            grads[impl] = dict(zip(flat, torch.autograd.grad(loss, leaves)))
+        routes[impl], losses[impl] = seen, float(loss)
+    rk, rr = routes["kernel"], routes["reference"]
+    same_idx = len(rk) == len(rr) and all(
+        torch.equal(a.gate_idx, b.gate_idx) for a, b in zip(rk, rr))
+    same_kept = len(rk) == len(rr) and all(
+        torch.equal(a.kept, b.kept) for a, b in zip(rk, rr))
+    dropped = [round(float(1 - r.kept.float().mean()), 4) for r in rk]
+    grad_name, grad_rel = max(
+        ((name, float((g - grads["reference"][name]).abs().max()
+                      / grads["reference"][name].abs().max()))
+         for name, g in grads["kernel"].items()), key=lambda kv: kv[1])
+    say(f"[moe-parity] fp32 MoE GPT-2 small width, 2 layers, B 2, S 1024, "
+        f"kernel vs plain attention: {len(rk)} routes (forward + remat "
+        f"recompute), gate_idx identical {same_idx}, kept identical "
+        f"{same_kept}, dropped shares {dropped}; losses "
+        f"{losses['kernel']:.6f} / {losses['reference']:.6f}; step-0 "
+        f"gradients, max |diff| / max |grad| of a leaf {grad_rel:.3e} "
+        f"({grad_name}; limit 1e-5)")
+    if not (same_idx and same_kept):
+        fail("the kernels' MoE routing differs from the plain attention's")
+    if grad_rel > 1e-5:
+        fail("MoE training through the kernels differs from the plain "
+             "version")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2676,6 +3121,10 @@ def main() -> int:
     phase_train_parity()
     paged = phase_paged_times(card)
     flash = phase_flash_times(card)
+    moe = phase_moe_train(workdir, hparams, card)
+    moe_multi = phase_moe_multi_step(hparams, card)
+    moe_serve = phase_moe_serve(workdir, moe, card)
+    phase_moe_parity()
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -2709,6 +3158,17 @@ def main() -> int:
         f"{multi['device']['replay']:.2f}; eager host {host['eager']} ms a "
         f"step, device {multi['device']['eager']:.2f}; bitwise equal: "
         f"{multi['bitwise']}")
+    r, st = moe_serve["run"], moe_serve["steps"]["graph"]
+    say(f"[times] [{card}] MoE GPT-2 small bf16 (8 experts, top-2), B 8, S "
+        f"1024, through Trainer.fit: step {moe['step_ms']:.2f} ms, "
+        f"{moe['tokens_per_s']:.0f} tokens/s, MFU {moe['mfu'] * 100:.2f}% "
+        f"(active FLOPs), idle share {moe['idle_share'] * 100:.1f}%, peak "
+        f"memory {moe['peak_gib']:.2f} GiB; make_multi_step bitwise "
+        f"{moe_multi['bitwise']}; serving bf16, 8 slots: decode step p50 "
+        f"{r['decode_step_ms']:.3f} ms, {r['tokens_per_s']:.1f} tokens/s, "
+        f"TTFT p50 {r['ttft_p50_ms']:.1f} ms, a replayed step "
+        f"{st['device_ms']:.3f} ms of device time in {st['kernels']:.0f} "
+        f"kernels")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",
@@ -2717,6 +3177,7 @@ def main() -> int:
         "source": "determined_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "determined_tpu/ops/paged_attention.py:99",
         "launches": serve["launches"],
+        "launches_moe": moe_serve["launches"],
         "max_abs_err": paged_err,
         **paged,
     }]
@@ -2728,6 +3189,7 @@ def main() -> int:
             "source": "determined_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": train["launches"][key],
+            "launches_moe": moe["launches"][key],
             "max_abs_err": flash_err[key],
             **flash[key],
         })

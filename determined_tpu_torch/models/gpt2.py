@@ -17,8 +17,10 @@ Mixed precision as in the JAX package: fp32 parameters, each weight cast
 to `cfg.dtype` right before its product (so the fp32 parameters get fp32
 gradients), activations in `cfg.dtype`, the layer norms and the loss's
 logsumexp in fp32. Attention goes through ops/flash_attention.py by
-`cfg.attention_impl`. MoE blocks and the pipelined forward
-(`apply_pipelined`) are not ported yet (ROADMAP.md).
+`cfg.attention_impl`. With `num_experts > 1` every block's FFN is the
+routed MoE FFN of ops/moe.py (its params under `blocks/moe`), and the
+loss adds `moe_aux_coef` times the layers' mean load-balance loss. The
+pipelined forward (`apply_pipelined`) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
+from determined_tpu_torch.ops import moe
 from determined_tpu_torch.ops.flash_attention import flash_attention
 from determined_tpu_torch.parallel import sharding
 
@@ -57,9 +60,8 @@ class Config:
     overlap_allgather: bool = False
     layer_norm_eps: float = 1e-5
     scan_unroll: int = 1
-    # Mixture-of-Experts: >1 replaces every block's MLP with a routed FFN.
-    # The port does not serve MoE yet (ROADMAP.md); the fields keep the
-    # config interchangeable with the JAX package's.
+    # Mixture-of-Experts: >1 replaces every block's MLP with a top-k routed
+    # MoE FFN whose experts shard over the mesh `expert` axis (ops/moe.py).
     num_experts: int = 1
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -125,10 +127,9 @@ def init(generator: torch.Generator, cfg: Config,
     projections scaled by 1/sqrt(2L), biases 0 and LayerNorm scales 1 —
     the shapes and deviations of the JAX `init`. The draws differ from
     `jax.random`'s; the tests carry JAX params over with
-    `params_from_numpy` instead."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError(
-            "MoE GPT-2 is not ported yet (ROADMAP.md: MoE decode)")
+    `params_from_numpy` instead. With `num_experts > 1` the blocks hold
+    `moe` (`ops/moe.init_moe`, stacked over the layers) in place of
+    `mlp_up` and `mlp_down`."""
     d, f, v, p, L = cfg.d_model, cfg.ff_dim, cfg.vocab_size, cfg.n_positions, cfg.n_layer
     pd = cfg.param_dtype
     device = device if device is not None else generator.device
@@ -144,21 +145,28 @@ def init(generator: torch.Generator, cfg: Config,
     def zeros(shape):
         return torch.zeros(shape, dtype=pd, device=device)
 
+    wte, wpe = normal((v, d), std), normal((p, d), std)
+    blocks = {
+        "ln1": {"scale": ones((L, d)), "bias": zeros((L, d))},
+        "qkv": {"kernel": normal((L, d, 3 * d), std),
+                "bias": zeros((L, 3 * d))},
+        "attn_out": {"kernel": normal((L, d, d), res_std),
+                     "bias": zeros((L, d))},
+        "ln2": {"scale": ones((L, d)), "bias": zeros((L, d))},
+    }
+    if cfg.num_experts > 1:
+        blocks["moe"] = moe.init_moe(generator, d, f, cfg.num_experts,
+                                     param_dtype=pd, std=std, layers=L,
+                                     device=device)
+    else:
+        blocks["mlp_up"] = {"kernel": normal((L, d, f), std),
+                            "bias": zeros((L, f))}
+        blocks["mlp_down"] = {"kernel": normal((L, f, d), res_std),
+                              "bias": zeros((L, d))}
     return {
-        "wte": normal((v, d), std),
-        "wpe": normal((p, d), std),
-        "blocks": {
-            "ln1": {"scale": ones((L, d)), "bias": zeros((L, d))},
-            "qkv": {"kernel": normal((L, d, 3 * d), std),
-                    "bias": zeros((L, 3 * d))},
-            "attn_out": {"kernel": normal((L, d, d), res_std),
-                         "bias": zeros((L, d))},
-            "ln2": {"scale": ones((L, d)), "bias": zeros((L, d))},
-            "mlp_up": {"kernel": normal((L, d, f), std),
-                       "bias": zeros((L, f))},
-            "mlp_down": {"kernel": normal((L, f, d), res_std),
-                         "bias": zeros((L, d))},
-        },
+        "wte": wte,
+        "wpe": wpe,
+        "blocks": blocks,
         "ln_f": {"scale": ones((d,)), "bias": zeros((d,))},
     }
 
@@ -166,24 +174,25 @@ def init(generator: torch.Generator, cfg: Config,
 def param_logical_axes(cfg: Config) -> Dict[str, Any]:
     """Logical axis names per param dim (the JAX package's); the leading
     "layers" dim of the stacked blocks maps to the `pipeline` mesh axis
-    (replicated when pipeline=1)."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError(
-            "MoE GPT-2 is not ported yet (ROADMAP.md: MoE decode)")
+    (replicated when pipeline=1); an MoE block's expert dim maps to the
+    `expert` axis."""
     L = "layers"
+    blocks: Dict[str, Any] = {
+        "ln1": {"scale": (L, "embed"), "bias": (L, "embed")},
+        "qkv": {"kernel": (L, "embed", "heads"), "bias": (L, "heads")},
+        "attn_out": {"kernel": (L, "heads", "embed"), "bias": (L, "embed")},
+        "ln2": {"scale": (L, "embed"), "bias": (L, "embed")},
+    }
+    if cfg.num_experts > 1:
+        blocks["moe"] = moe.moe_logical_axes(layers=True)
+    else:
+        blocks["mlp_up"] = {"kernel": (L, "embed", "mlp"), "bias": (L, "mlp")}
+        blocks["mlp_down"] = {"kernel": (L, "mlp", "embed"),
+                              "bias": (L, "embed")}
     return {
         "wte": ("vocab", "embed"),
         "wpe": (None, "embed"),
-        "blocks": {
-            "ln1": {"scale": (L, "embed"), "bias": (L, "embed")},
-            "qkv": {"kernel": (L, "embed", "heads"), "bias": (L, "heads")},
-            "attn_out": {"kernel": (L, "heads", "embed"),
-                         "bias": (L, "embed")},
-            "ln2": {"scale": (L, "embed"), "bias": (L, "embed")},
-            "mlp_up": {"kernel": (L, "embed", "mlp"), "bias": (L, "mlp")},
-            "mlp_down": {"kernel": (L, "mlp", "embed"),
-                         "bias": (L, "embed")},
-        },
+        "blocks": blocks,
         "ln_f": {"scale": ("embed",), "bias": ("embed",)},
     }
 
@@ -262,8 +271,10 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: Config,
     return params["wte"].to(dtype)[tokens.long()]
 
 
-def _block(x: torch.Tensor, lp: Params, cfg: Config) -> torch.Tensor:
-    """One transformer block. x: [B, S, D]; lp: this layer's param slice."""
+def _block(x: torch.Tensor, lp: Params, cfg: Config, mesh=None):
+    """One transformer block -> (x, the MoE load-balance loss, or None for
+    a dense FFN). x: [B, S, D]; lp: this layer's param slice; `mesh`: the
+    DeviceMesh of sharded params (ops/moe.py routes over it)."""
     b, s, d = x.shape
     h, dh = cfg.n_head, cfg.head_dim
     dt = cfg.dtype
@@ -281,11 +292,16 @@ def _block(x: torch.Tensor, lp: Params, cfg: Config) -> torch.Tensor:
 
     y = _layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
                     cfg.layer_norm_eps)
+    if cfg.num_experts > 1:
+        down, aux = moe.moe_block(
+            y, lp["moe"], cfg.num_experts, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, mesh=mesh)
+        return x + down, aux
     up = y @ lp["mlp_up"]["kernel"].to(dt) + lp["mlp_up"]["bias"].to(dt)
     up = F.gelu(up, approximate="tanh")
     down = up @ lp["mlp_down"]["kernel"].to(dt) + \
         lp["mlp_down"]["bias"].to(dt)
-    return x + down
+    return x + down, None
 
 
 # What each remat policy saves, as aten ops reach the selective checkpoint
@@ -363,11 +379,21 @@ def _unstack_layers(blocks: Params, n_layer: int):
             for i in range(n_layer)]
 
 
-def apply(params: Params, tokens: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """Forward pass: tokens [B, S] -> logits [B, S, vocab] in cfg.dtype."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError(
-            "MoE GPT-2 is not ported yet (ROADMAP.md: MoE decode)")
+def _gather_layer(lp: Params) -> Params:
+    """One layer's params for use (`sharding.gather_for_use`); an MoE
+    layer's experts stay split over the `expert` axis."""
+    out = {k: map_params(sharding.gather_for_use, v)
+           for k, v in lp.items() if k != "moe"}
+    if "moe" in lp:
+        out["moe"] = moe.gather_params(lp["moe"])
+    return out
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: Config,
+          return_aux: bool = False):
+    """Forward pass: tokens [B, S] -> logits [B, S, vocab] in cfg.dtype;
+    with `return_aux` also the mean MoE load-balance loss over the layers
+    (fp32; 0 for a dense config)."""
     s = tokens.shape[1]
     dt = cfg.dtype
     # Sharded params (DTensors, train/state.py) are gathered just before
@@ -377,14 +403,22 @@ def apply(params: Params, tokens: torch.Tensor, cfg: Config) -> torch.Tensor:
     wte = gather(params["wte"])
     x = _embed_tokens({"wte": wte}, tokens, cfg, dt)
     x = x + gather(params["wpe"]).to(dt)[:s][None]
-    block = functools.partial(_block, cfg=cfg)
+    block = functools.partial(_block, cfg=cfg,
+                              mesh=sharding.mesh_of(params["wte"]))
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block, cfg)
+    auxs = []
     for lp in _unstack_layers(params["blocks"], cfg.n_layer):
-        x = block(x, map_params(gather, lp))
+        x, aux = block(x, _gather_layer(lp))
+        auxs.append(aux)
     ln_f = map_params(gather, params["ln_f"])
     x = _layer_norm(x, ln_f["scale"], ln_f["bias"], cfg.layer_norm_eps)
-    return x @ wte.to(dt).t()
+    logits = x @ wte.to(dt).t()
+    if not return_aux:
+        return logits
+    if cfg.num_experts > 1:
+        return logits, torch.stack(auxs).mean()
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -396,10 +430,14 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: Config) -> torch.Tensor:
-    """{"tokens": [B, S+1]} (or {"tokens", "targets"}) -> mean NLL (fp32)."""
+    """{"tokens": [B, S+1]} (or {"tokens", "targets"}) -> mean NLL (fp32),
+    plus `moe_aux_coef` times the load-balance loss for an MoE config."""
     tokens = batch["tokens"]
     if "targets" in batch:
         inputs, targets = tokens, batch["targets"]
     else:
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if cfg.num_experts > 1:
+        logits, aux = apply(params, inputs, cfg, return_aux=True)
+        return _nll(logits, targets) + cfg.moe_aux_coef * aux
     return _nll(apply(params, inputs, cfg), targets)

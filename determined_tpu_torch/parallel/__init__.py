@@ -4,6 +4,7 @@ logical sharding rules (counterpart of determined_tpu/parallel/)."""
 from determined_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
     MeshConfig,
+    batch_shard,
     create_mesh,
     mesh_shape_for_devices,
     single_device_mesh,

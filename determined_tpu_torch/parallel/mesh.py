@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 AXIS_ORDER = ("data", "pipeline", "fsdp", "expert", "context", "tensor")
 
@@ -88,6 +88,25 @@ class MeshConfig:
 def mesh_shape_for_devices(n_devices: int, config: Optional[MeshConfig] = None) -> tuple:
     cfg = (config or MeshConfig()).resolve(n_devices)
     return cfg.sizes()
+
+
+def batch_shard(config: MeshConfig, rank: int, world: int
+                ) -> Tuple[int, int]:
+    """(index, count): the block of the global batch that `rank` holds
+    when the batch dim is split over the default rules' batch axes, data
+    then fsdp, of the mesh `config` resolves to over `world` ranks. Ranks
+    that differ only along other axes (an expert group) hold the same
+    block."""
+    sizes = dict(zip(AXIS_ORDER, config.resolve(world).sizes()))
+    coords, rest = {}, rank
+    for a in reversed(AXIS_ORDER):
+        coords[a] = rest % sizes[a]
+        rest //= sizes[a]
+    index, count = 0, 1
+    for a in ("data", "fsdp"):
+        index = index * sizes[a] + coords[a]
+        count *= sizes[a]
+    return index, count
 
 
 def create_mesh(config: Optional[MeshConfig] = None,

@@ -168,24 +168,38 @@ def distribute_full(full, mesh, placements):
                               stride=full.contiguous().stride())
 
 
-def gather_for_use(p):
-    """A leaf as a plain full tensor for the model to use: a DTensor is
+def gather_for_use(p, keep: Sequence[str] = ()):
+    """A leaf as a plain tensor for the model to use: a DTensor is
     all-gathered (`redistribute` to `Replicate`) and unwrapped, so the
     kernels' `autograd.Function`s see plain tensors; other tensors pass
     through. In the backward the gradient of the unwrapped tensor counts
     as a mean over every mesh axis above 1 (each rank's loss is the mean
     over its own rows, the global loss the mean of those), so it comes
     back reduce-scattered over the axes the leaf is sharded on and
-    all-reduced over the rest."""
+    all-reduced over the rest.
+
+    The mesh axes named in `keep` stay as they are: the rank's tensor is
+    its piece along them (an MoE rank's own experts, ops/moe.py), and its
+    gradient is that piece's."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not isinstance(p, DTensor):
         return p
     mesh = p.device_mesh
-    full = p.redistribute(mesh, [Replicate()] * mesh.ndim)
-    grads = [Partial("avg") if mesh.size(i) > 1 else Replicate()
-             for i in range(mesh.ndim)]
+    names = mesh.mesh_dim_names
+    target = [pl if names[i] in keep else Replicate()
+              for i, pl in enumerate(p.placements)]
+    full = p.redistribute(mesh, target)
+    grads = [target[i] if names[i] in keep or mesh.size(i) == 1
+             else Partial("avg") for i in range(mesh.ndim)]
     return full.to_local(grad_placements=grads)
+
+
+def mesh_of(p):
+    """The DeviceMesh a DTensor leaf lies on; None for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    return p.device_mesh if isinstance(p, DTensor) else None
 
 
 def full_value(p):

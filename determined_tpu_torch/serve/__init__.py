@@ -1,7 +1,7 @@
 """GPT-2 serving on PyTorch and CUDA: paged KV, continuous batching, HTTP.
 
-Counterpart of determined_tpu/serve/ (warm AOT and MoE decode are not
-ported yet; ROADMAP.md).
+Counterpart of determined_tpu/serve/, MoE models included (warm AOT is
+not ported yet; ROADMAP.md).
 
 Layout:
   model.py      prefill / decode steps over the paged KV block pool or the

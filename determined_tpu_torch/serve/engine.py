@@ -144,10 +144,12 @@ def _as_tensor(a: Any) -> torch.Tensor:
 
 def _cast_params(params: Dict[str, Any], cfg: Config,
                  device: torch.device) -> Dict[str, Any]:
-    """Move to `device`; cast everything but LayerNorm params to cfg.dtype."""
+    """Move to `device`; cast everything but the LayerNorm params and the
+    MoE router (used in fp32, ops/moe.py) to cfg.dtype."""
     def cast(tree, keep_dtype):
         if isinstance(tree, dict):
-            return {k: cast(v, keep_dtype or k.startswith("ln"))
+            return {k: cast(v, keep_dtype or k.startswith("ln")
+                            or k == "router")
                     for k, v in tree.items()}
         t = _as_tensor(tree).to(device)
         return t if keep_dtype else t.to(cfg.dtype)
@@ -221,9 +223,6 @@ class ServingEngine:
     ):
         if slots <= 0:
             raise ValueError("slots must be positive")
-        if cfg.num_experts > 1:
-            raise NotImplementedError(
-                "MoE serving is not ported yet (ROADMAP.md: MoE decode)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = slots

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from determined_tpu_torch.models.gpt2 import Config, _embed_tokens, _layer_norm
+from determined_tpu_torch.ops.moe import moe_block
 from determined_tpu_torch.ops.paged_attention import paged_decode_attention
 
 Cache = Dict[str, torch.Tensor]
@@ -86,10 +87,13 @@ def _qkv(x: torch.Tensor, lp, cfg: Config):
 
 
 def _mlp(y: torch.Tensor, lp, cfg: Config) -> torch.Tensor:
-    """The block's dense FFN with the tanh-form GELU."""
+    """The block's FFN: dense with the tanh-form GELU, or the routed MoE
+    FFN (ops/moe.py) as in training. Every row of `y` is routed: in
+    decode each slot's token, active or idle, and in prefill every padded
+    position, competing for the experts' capacity as in the JAX package."""
     if cfg.num_experts > 1:
-        raise NotImplementedError(
-            "MoE serving is not ported yet (ROADMAP.md: MoE decode)")
+        return moe_block(y, lp["moe"], cfg.num_experts, top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.moe_capacity_factor)[0]
     dt = cfg.dtype
     up = y @ lp["mlp_up"]["kernel"].to(dt) + lp["mlp_up"]["bias"].to(dt)
     up = F.gelu(up, approximate="tanh")
@@ -172,6 +176,31 @@ def _attend(q: torch.Tensor, k_lane: torch.Tensor, v_lane: torch.Tensor,
                          torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum(out_eq, probs, v_lane)
+
+
+def _last_writer(cfg: Config, blk: torch.Tensor, off: torch.Tensor,
+                 block_size: int) -> Optional[torch.Tensor]:
+    """For an MoE config, the row whose K/V each pool write stores: the
+    last of the rows that write the same (block, offset), as a sequential
+    scatter (the CPU's, XLA's) leaves it. Padded prefill rows and idle
+    decode slots all write the trash block, and a parallel scatter lets
+    any of them land; an MoE row's value reaches the others through the
+    experts' capacity, so the pool must not depend on which did. None for
+    a dense config: no other row reads those rows' values."""
+    if cfg.num_experts <= 1:
+        return None
+    dest = blk * block_size + off
+    rows = torch.arange(dest.shape[0], device=dest.device)
+    same = dest[:, None] == dest[None, :]
+    return torch.where(same, rows[None, :], -1).amax(dim=1)
+
+
+def _write(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
+           rows: torch.Tensor, writer: Optional[torch.Tensor]) -> None:
+    """pool[blk[i], off[i]] = rows[writer[i]] (rows[i] without `writer`)."""
+    if writer is not None:
+        rows = rows.index_select(0, writer)
+    pool[blk, off] = rows.to(pool.dtype)
 
 
 def _last_row(x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
@@ -345,6 +374,7 @@ def paged_prefill(
                            table[torch.clamp(pos_ids // bs, max=mb - 1)],
                            torch.full_like(pos_ids, trash))
     dest_off = pos_ids % bs
+    writer = _last_writer(cfg, dest_blk, dest_off, bs)
     mask = (torch.arange(mb * bs, device=dev)[None, :]
             <= (prefix_len + ar)[:, None])  # [S, mb*bs]
 
@@ -354,8 +384,8 @@ def paged_prefill(
         y = _layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
                         cfg.layer_norm_eps)
         q, k, v = _qkv(y, lp, cfg)  # [1, S, H, Dh]
-        k_pool[dest_blk, dest_off] = k[0].to(k_pool.dtype)
-        v_pool[dest_blk, dest_off] = v[0].to(v_pool.dtype)
+        _write(k_pool, dest_blk, dest_off, k[0], writer)
+        _write(v_pool, dest_blk, dest_off, v[0], writer)
         k_lane = k_pool[table].reshape(mb * bs, cfg.n_head, cfg.head_dim)
         v_lane = v_pool[table].reshape(mb * bs, cfg.n_head, cfg.head_dim)
         attn = _attend(q, k_lane, v_lane, mask[None, None],
@@ -382,8 +412,10 @@ def paged_decode_step(
     Each slot writes this step's K/V at `table[min(pos // bs, mb - 1)]`,
     offset `pos % bs`, BEFORE attention reads the pool; the pool tensors
     are updated in place. Inactive slots (all-trash table, position 0)
-    all write trash offset 0 — duplicate scatter indices there are
-    harmless, since nothing reads the trash block's content."""
+    all write trash offset 0. Only they read it back, and for a dense
+    config their outputs are discarded; an MoE config's idle slots compete
+    for the experts' capacity, so there the last slot's value is written
+    (`_last_writer`)."""
     slots = tokens.shape[0]
     bs = cache["k"].shape[2]
     mb = block_tables.shape[1]
@@ -393,6 +425,7 @@ def paged_decode_step(
     wblk = block_tables.long().gather(
         1, torch.clamp(pos // bs, max=mb - 1)[:, None])[:, 0]  # [slots]
     woff = pos % bs
+    writer = _last_writer(cfg, wblk, woff, bs)
 
     for i in range(cfg.n_layer):
         lp = _layer(params["blocks"], i)
@@ -400,8 +433,8 @@ def paged_decode_step(
         y = _layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
                         cfg.layer_norm_eps)
         q, k, v = _qkv(y, lp, cfg)  # [slots, 1, H, Dh]
-        k_pool[wblk, woff] = k[:, 0].to(k_pool.dtype)
-        v_pool[wblk, woff] = v[:, 0].to(v_pool.dtype)
+        _write(k_pool, wblk, woff, k[:, 0], writer)
+        _write(v_pool, wblk, woff, v[:, 0], writer)
         attn = paged_decode_attention(
             q[:, 0].contiguous(), k_pool, v_pool, block_tables, positions,
             impl=attention_impl)  # [slots, H, Dh]

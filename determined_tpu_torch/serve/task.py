@@ -24,8 +24,8 @@ on the command line. Lifecycle:
      one), and exit 0.
 
 The config is JSON, or YAML when the file ends in .yaml/.yml (PyYAML is
-imported only then). Not ported yet (ROADMAP.md): compile-farm warm AOT,
-MoE decode and the cloud storage backends.
+imported only then). Not ported yet (ROADMAP.md): compile-farm warm AOT
+and the cloud storage backends.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ Sharded (a mesh with axes above 1): each param leaf is a DTensor laid out
 by the spec its logical axes resolve to (`param_specs`, the JAX
 package's, over `parallel/sharding.py`'s rules), and each rank holds its
 shard: for GPT-2 under the default rules, `Shard` along the "embed" dim
-on the fsdp axis and replicated over data. The optimizer works on the
+on the fsdp axis and replicated over data (and over expert, but for an
+MoE model's expert leaves, `Shard` along their expert dim there). The optimizer works on the
 local tensors (`LocalShards`), so its moments are local shards that
 mirror their leaves (`_mirrors` says which leaf each mirrors).
 Checkpoints hold the full state (`unshard_state`, a collective): a run

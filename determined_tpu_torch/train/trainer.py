@@ -20,19 +20,23 @@ preemption and at the end of `fit`.
 Mesh bring-up: the trial's `mesh_config()` resolves over the world size
 (one process per device, `core.init()` forms the process group), and a
 run with a process group trains over a `DeviceMesh` of the world
-(parallel/mesh.py). The `data` and `fsdp` axes may be above 1: each
-rank's loader yields its own rows of the global batch (rank r holds the
-r-th block of `global_batch_size / world` rows, in the order of the batch
-rule's axes, `("data", "fsdp")`), the params are sharded by their logical
-axes (train/state.py), the step's metrics are the global means, and a
-checkpoint holds the full state (the chief gathers it) in the one-process
-format, so a run of any width restores it. `tensor`, `context`,
-`pipeline` and `expert` above 1 raise, and so does a world of more than
-one process without a process group: it never trains alone in silence.
+(parallel/mesh.py). The `data`, `fsdp` and `expert` axes may be above 1:
+each rank's loader yields its own block of the global batch
+(`parallel.mesh.batch_shard`: the batch is split over the batch rule's
+axes, `("data", "fsdp")`, so the ranks of an expert group hold the same
+rows), the params are sharded by their logical axes (train/state.py; an
+MoE model's experts over `expert`, ops/moe.py), the step's metrics are
+the global means, and a checkpoint holds the full state (the chief
+gathers it) in the one-process format, so a run of any width restores
+it. `expert` above 1 is refused for a trial that does not declare
+`supports_expert_parallel()` (it would replicate the FFN's work across
+the group); `tensor`, `context` and `pipeline` above 1 raise, and so does
+a world of more than one process without a process group: it never
+trains alone in silence.
 
 Not ported (ROADMAP.md): the compile farm and batch-size bucketing
 (`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
-nothing here), the tensor, context, pipeline and expert axes (item 7) and
+nothing here), the tensor, context and pipeline axes (item 7) and
 elastic resize in process (item 8): a resize signal takes the preemption
 checkpoint path, as the JAX Trainer does in cluster mode.
 """
@@ -70,8 +74,8 @@ from determined_tpu_torch.train.watchdog import StepWatchdog
 logger = logging.getLogger("determined_tpu_torch.train")
 
 # Mesh axes the port trains over; the others raise (ROADMAP.md Queue 1
-# item 7).
-PORTED_AXES = ("data", "fsdp")
+# item 7). `expert` only for a trial that supports it.
+PORTED_AXES = ("data", "fsdp", "expert")
 
 
 def _repeat(iterable_factory) -> Iterator[Any]:
@@ -160,8 +164,9 @@ class Trainer:
 
     def _check_mesh_support(self) -> MeshConfig:
         """Config checks before any state exists: the mesh must resolve
-        over the world size, and only the `data` and `fsdp` axes may be
-        above 1 (the others are refused, not run replicated)."""
+        over the world size, only the `data`, `fsdp` and `expert` axes may
+        be above 1, and `expert` only for a trial whose model routes over
+        it (the others are refused, not run replicated)."""
         cfg = self.trial.mesh_config()
         world = self._world_size()
         try:
@@ -175,14 +180,23 @@ class Trainer:
                 "(python -m determined_tpu_torch.launch.torch_distributed)"
             ) from None
         wide = {a: getattr(cfg, a) for a in ("tensor", "context",
-                                              "pipeline", "expert")
+                                              "pipeline")
                 if getattr(cfg, a) > 1}
         if wide:
             raise ValueError(
                 f"{type(self.trial).__name__} asks for the mesh axes {wide}; "
                 f"the PyTorch port trains over {PORTED_AXES} only (tensor, "
-                "context, pipeline and expert parallelism: ROADMAP.md Queue "
-                "1 item 7)")
+                "context and pipeline parallelism: ROADMAP.md Queue 1 item "
+                "7)")
+        if cfg.expert > 1 and not self.trial.supports_expert_parallel():
+            # An expert axis the model does not route over would replicate
+            # the FFN's work across the group (the JAX Trainer's guard).
+            raise ValueError(
+                f"mesh requests expert={cfg.expert} but "
+                f"{type(self.trial).__name__} does not declare "
+                "expert-parallel support; use a MoE model (ops/moe.py, "
+                "gpt2.Config(num_experts=...)) and override "
+                "supports_expert_parallel(), or drop the expert axis")
         return cfg
 
     def _ensure_core(self, max_length: Optional[int]) -> core_mod.Context:

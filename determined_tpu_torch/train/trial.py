@@ -10,8 +10,10 @@ What differs from the JAX package: `init_params` receives a
 `optimizer()` returns a transformation of `train/optim.py`; and a run
 has one process per device, so a loader yields this rank's rows of the
 global batch (`TrialContext.distributed` says which), where a JAX process
-yields its host's. `mesh_config()` may set `data` and `fsdp` above 1;
-the other axes make the Trainer raise (ROADMAP.md Queue 1 item 7).
+yields its host's (`parallel.mesh.batch_shard` says which block).
+`mesh_config()` may set `data` and `fsdp` above 1, and `expert` for a
+trial that declares `supports_expert_parallel()`; the other axes make the
+Trainer raise (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -125,6 +127,13 @@ class TorchTrial(abc.ABC):
         hparam block when set)."""
         mc = self.context.hparams.get("mesh")
         return MeshConfig.from_dict(mc) if mc else MeshConfig()
+
+    def supports_expert_parallel(self) -> bool:
+        """Trials whose model routes tokens over the mesh `expert` axis (an
+        MoE block, ops/moe.py) override this to return True. A mesh asking
+        for `expert > 1` is refused for the others: a decoy expert axis
+        would replicate the work across those devices."""
+        return False
 
     # -- data ----------------------------------------------------------
 

@@ -3,7 +3,8 @@ counterpart of examples/gpt2/model_def.py.
 
 The same hparams (`model_size`, `seq_len`, `global_batch_size`,
 `learning_rate`, `warmup_steps`, `decay_steps`, `weight_decay`, `remat`,
-`attention_impl`, `tokens_path`), the same data (a memory-mapped int32
+`attention_impl`, `tokens_path`, and `num_experts` and `moe_top_k` for
+the Mixture-of-Experts model), the same data (a memory-mapped int32
 token file when `tokens_path` or GPT2_TOKENS names one, else uniform
 random tokens from a seed), the same optimizer chain and the same
 evaluation. Attention runs through the hand-written CUDA flash kernels
@@ -22,7 +23,10 @@ per GPU slot,
 
 each rank draws the same global batches and keeps its own rows of them,
 with the `mesh` hparam (`{"fsdp": 2}`) sharding the params by their
-logical axes.
+logical axes. With `num_experts` above 1 every block's FFN is a top-k
+routed MoE FFN, and the mesh may add an `expert` axis (moe.yaml: 8
+experts, `{"data": -1, "expert": 4}` over 8 GPU slots): each rank of an
+expert group holds E / expert of the experts and the same rows.
 """
 
 import os
@@ -31,6 +35,7 @@ import numpy as np
 
 from determined_tpu_torch import core
 from determined_tpu_torch.models import gpt2
+from determined_tpu_torch.parallel.mesh import batch_shard
 from determined_tpu_torch.train import TorchTrial, Trainer
 from determined_tpu_torch.train import optim
 from determined_tpu_torch.train.trial import TrialContext
@@ -59,6 +64,7 @@ class GPT2Trial(TorchTrial):
                 context.hparams.get("attention_impl", "flash")),
             attention_bf16=bool(opt.get("attention_bf16", False)),
             num_experts=int(context.hparams.get("num_experts", 1)),
+            moe_top_k=int(context.hparams.get("moe_top_k", 2)),
         )
         self.seq_len = seq_len
         path = context.hparams.get("tokens_path") or os.environ.get(
@@ -78,14 +84,20 @@ class GPT2Trial(TorchTrial):
     def loss(self, params, batch, rng):
         return gpt2.loss_fn(params, batch, self.cfg)
 
+    def supports_expert_parallel(self):
+        # Only an MoE config routes tokens over the expert axis.
+        return self.cfg.num_experts > 1
+
     def param_logical_axes(self):
         return gpt2.param_logical_axes(self.cfg)
 
     def _rows(self, batch):
-        """This rank's rows of a global batch (rank r: the r-th block)."""
+        """This rank's rows of a global batch: its block of the batch
+        split over the mesh's data and fsdp axes."""
         d = self.context.distributed
-        n = len(batch["tokens"]) // d.size
-        return {k: v[d.rank * n:(d.rank + 1) * n] for k, v in batch.items()}
+        i, count = batch_shard(self.mesh_config(), d.rank, d.size)
+        n = len(batch["tokens"]) // count
+        return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
 
     def optimizer(self):
         lr = float(self.context.get_hparam("learning_rate", 3e-4))

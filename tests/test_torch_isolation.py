@@ -42,6 +42,7 @@ PORT_MODULES = [
     "determined_tpu_torch.ops._build",
     "determined_tpu_torch.ops._softmax_common",
     "determined_tpu_torch.ops.flash_attention",
+    "determined_tpu_torch.ops.moe",
     "determined_tpu_torch.ops.paged_attention",
     "determined_tpu_torch.parallel",
     "determined_tpu_torch.parallel.mesh",

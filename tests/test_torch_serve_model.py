@@ -228,6 +228,19 @@ def test_sample_temperature_draws_from_the_softmax():
 
 
 def test_moe_config_is_refused():
+    # MoE is no longer refused: `init` gives the JAX init's tree, shapes
+    # and dtypes (the `moe` subtree in place of the dense FFN), and
+    # `param_logical_axes` the JAX axes, leaf for leaf.
     cfg = dataclasses.replace(TCFG, num_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt2.init(torch.Generator().manual_seed(0), cfg)
+    jcfg = dataclasses.replace(JCFG, num_experts=4)
+    tree = tgpt2.init(torch.Generator().manual_seed(0), cfg)
+    want = jax.eval_shape(lambda: jgpt2.init(jax.random.PRNGKey(0), jcfg))
+    flat = {jax.tree_util.keystr(p): (tuple(sd.shape), np.dtype(sd.dtype))
+            for p, sd in jax.tree_util.tree_flatten_with_path(want)[0]}
+    got = {jax.tree_util.keystr(p): (tuple(t.shape),
+                                     np.dtype(str(t.dtype)[6:]))
+           for p, t in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert got == flat
+    assert "['blocks']['moe']['up']['kernel']" in got
+    assert not any("mlp_up" in k for k in got)
+    assert tgpt2.param_logical_axes(cfg) == jgpt2.param_logical_axes(jcfg)

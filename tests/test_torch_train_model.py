@@ -135,14 +135,25 @@ def test_flops_per_token_and_param_count_match_jax():
 
 def test_moe_and_unported_remat_policies_raise():
     # Every policy name of the JAX package is ported; a name neither
-    # package defines still raises.
+    # package defines still raises, for a dense and an MoE config. MoE is
+    # ported (tests/test_torch_moe.py holds it to JAX): its params carry
+    # `moe` in place of the dense FFN, and a dense param tree does not
+    # serve an MoE config.
     _, tcfg = _configs(remat=True, policy="offload")
     tparams = tgpt2.params_from_numpy(numpy_params())
+    tokens = torch.from_numpy(_tokens())
     with pytest.raises(ValueError, match="remat_policy"):
-        tgpt2.apply(tparams, torch.from_numpy(_tokens()), tcfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgpt2.apply(tparams, torch.from_numpy(_tokens()),
-                    dataclasses.replace(tcfg, num_experts=4))
+        tgpt2.apply(tparams, tokens, tcfg)
+    mcfg = dataclasses.replace(tcfg, num_experts=4)
+    mparams = tgpt2.init(torch.Generator().manual_seed(0), mcfg)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tgpt2.apply(mparams, tokens, mcfg)
+    with pytest.raises(KeyError, match="moe"):
+        tgpt2.apply(tparams, tokens, dataclasses.replace(mcfg, remat=False))
+    logits = tgpt2.apply(mparams, tokens, dataclasses.replace(
+        mcfg, remat_policy="dots"))
+    assert logits.shape == (*tokens.shape, DIMS["vocab_size"])
+    assert torch.isfinite(logits).all()
 
 
 # ------------------------------------------------------------- optimizer
