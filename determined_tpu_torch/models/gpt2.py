@@ -17,10 +17,40 @@ Mixed precision as in the JAX package: fp32 parameters, each weight cast
 to `cfg.dtype` right before its product (so the fp32 parameters get fp32
 gradients), activations in `cfg.dtype`, the layer norms and the loss's
 logsumexp in fp32. Attention goes through ops/flash_attention.py by
-`cfg.attention_impl`. With `num_experts > 1` every block's FFN is the
-routed MoE FFN of ops/moe.py (its params under `blocks/moe`), and the
-loss adds `moe_aux_coef` times the layers' mean load-balance loss. The
-pipelined forward (`apply_pipelined`) is not ported yet (ROADMAP.md).
+`cfg.attention_impl`, or, for "ring" and "ulysses", through
+ops/ring_attention.py and ops/ulysses.py. With `num_experts > 1` every
+block's FFN is the routed MoE FFN of ops/moe.py (its params under
+`blocks/moe`), and the loss adds `moe_aux_coef` times the layers' mean
+load-balance loss. The pipelined forward (`apply_pipelined`) is not
+ported yet (ROADMAP.md).
+
+Over a mesh (the params DTensors, train/state.py) two axes split the
+work of one row as the JAX package's GSPMD layout does:
+
+  - `tensor`, Megatron's layout. The qkv and `mlp_up` products are split
+    by columns (each rank its heads, kept head-aligned by the state's
+    tensor layout of the fused qkv dim, `sharding.Fused`, and its slice of
+    the FFN), `attn_out` and `mlp_down` by rows; the f/g pair
+    (`parallel/collectives`) stands at each split's start and end, and a
+    row-split product's bias is added once, after the all-reduce. The
+    tied table is split by vocab rows (50,257 rows split unevenly): the
+    embedding is a lookup of the rank's rows, masked, summed over the
+    group (the value of JAX's one-hot product), and the LM head gives
+    each rank its vocab slice of the logits, whose loss takes the global
+    max and sum of exponentials and the target's logit from the rank
+    that holds it.
+  - `context`: `loss_fn` shifts the tokens first, as JAX's `_shift`, and
+    each rank keeps its contiguous chunk of inputs and targets
+    (`parallel/mesh.seq_shard`), its positions' rows of `wpe`; attention
+    runs over the ring or Ulysses, and the loss is the mean over the
+    group's chunks (`collectives.sum_over`, so each rank's gradient is its
+    own chunk's, which `sharding.gather_for_use` averages over the axis as
+    over data). `apply` takes the whole sequence and gives the whole
+    logits.
+
+An MoE model over either axis is refused (ROADMAP.md item 7): its
+routing's slot order is the global token order, which a context split
+spreads over ranks.
 """
 
 from __future__ import annotations
@@ -28,7 +58,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,7 +67,10 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from determined_tpu_torch.ops import moe
 from determined_tpu_torch.ops.flash_attention import flash_attention
-from determined_tpu_torch.parallel import sharding
+from determined_tpu_torch.ops.ring_attention import ring_attention
+from determined_tpu_torch.ops.ulysses import ulysses_attention
+from determined_tpu_torch.parallel import collectives, sharding
+from determined_tpu_torch.parallel.mesh import AxisGroup, axis_group, chunk
 
 Params = Dict[str, Any]
 
@@ -175,11 +208,14 @@ def param_logical_axes(cfg: Config) -> Dict[str, Any]:
     """Logical axis names per param dim (the JAX package's); the leading
     "layers" dim of the stacked blocks maps to the `pipeline` mesh axis
     (replicated when pipeline=1); an MoE block's expert dim maps to the
-    `expert` axis."""
+    `expert` axis. The qkv leaves' "heads" dim is `Fused` (q, k and v side
+    by side): the same name, and the state keeps it head-aligned when the
+    axis splits it (parallel/sharding.py)."""
     L = "layers"
+    heads = sharding.Fused("heads", 3)
     blocks: Dict[str, Any] = {
         "ln1": {"scale": (L, "embed"), "bias": (L, "embed")},
-        "qkv": {"kernel": (L, "embed", "heads"), "bias": (L, "heads")},
+        "qkv": {"kernel": (L, "embed", heads), "bias": (L, heads)},
         "attn_out": {"kernel": (L, "heads", "embed"), "bias": (L, "embed")},
         "ln2": {"scale": (L, "embed"), "bias": (L, "embed")},
     }
@@ -265,28 +301,99 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
+def _vocab_start(cfg: Config, tensor: AxisGroup) -> int:
+    """The first vocab row of this tensor rank's slice of `wte` (DTensor
+    splits a dim as `torch.chunk`: ceil(V / tp) rows a rank, fewer on the
+    last)."""
+    return min(tensor.index * -(-cfg.vocab_size // tensor.size),
+               cfg.vocab_size)
+
+
 def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: Config,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """Token embedding: the gather `wte[tokens]` in `dtype`."""
-    return params["wte"].to(dtype)[tokens.long()]
+                  dtype: torch.dtype,
+                  tensor: Optional[AxisGroup] = None) -> torch.Tensor:
+    """Token embedding: the gather `wte[tokens]` in `dtype`. Over a
+    `tensor` axis, `params["wte"]` is this rank's vocab rows: each rank
+    looks up the tokens it holds, zeros for the others, and the sum over
+    the group is the embedding (JAX's one-hot product's value)."""
+    wte = params["wte"].to(dtype)
+    if tensor is None:
+        return wte[tokens.long()]
+    n = wte.shape[0]
+    local = tokens.long() - _vocab_start(cfg, tensor)
+    mine = (local >= 0) & (local < n)
+    x = wte[torch.where(mine, local, 0)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype,
+                                                     device=x.device))
+    return collectives.reduce_from(x, tensor.group)
 
 
-def _block(x: torch.Tensor, lp: Params, cfg: Config, mesh=None):
+class _Axes(NamedTuple):
+    """The mesh axes above 1 that split a row's work (None: not split)."""
+    mesh: Any
+    tensor: Optional[AxisGroup]
+    context: Optional[AxisGroup]
+
+
+def _axes(params: Params, cfg: Config) -> _Axes:
+    mesh = sharding.mesh_of(params["wte"])
+    axes = _Axes(mesh, axis_group(mesh, "tensor"),
+                 axis_group(mesh, "context"))
+    if cfg.num_experts > 1 and (axes.tensor or axes.context):
+        raise ValueError(
+            "an MoE model over the tensor or context mesh axis is not "
+            "ported (ROADMAP.md Queue 1 item 7): its routing's slot order "
+            "is the global token order")
+    return axes
+
+
+def _attention(q, k, v, cfg: Config, axes: Optional[_Axes]
+               ) -> torch.Tensor:
+    """q, k, v: [B, S, H, Dh], this rank's chunk and heads. Causal
+    self-attention by `cfg.attention_impl`."""
+    mesh = axes.mesh if axes is not None else None
+    if cfg.attention_impl == "ring":
+        return ring_attention(q, k, v, mesh=mesh)
+    if cfg.attention_impl == "ulysses":
+        return ulysses_attention(q, k, v, causal=True, mesh=mesh,
+                                 n_head=cfg.n_head)
+    if axes is not None and axes.context is not None:
+        raise ValueError(
+            f"attention_impl {cfg.attention_impl!r} over a context axis "
+            "above 1: a rank holds one chunk of the sequence; use "
+            "attention_impl ring or ulysses")
+    return flash_attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                           bf16=cfg.attention_bf16)
+
+
+def _block(x: torch.Tensor, lp: Params, cfg: Config,
+           axes: Optional[_Axes] = None):
     """One transformer block -> (x, the MoE load-balance loss, or None for
-    a dense FFN). x: [B, S, D]; lp: this layer's param slice; `mesh`: the
-    DeviceMesh of sharded params (ops/moe.py routes over it)."""
+    a dense FFN). x: [B, S, D]; lp: this layer's param slice (over a
+    `tensor` axis the rank's heads and FFN slice); `axes`: the mesh of
+    sharded params and its splitting axes (ops/moe.py routes over the
+    mesh)."""
     b, s, d = x.shape
-    h, dh = cfg.n_head, cfg.head_dim
+    dh = cfg.head_dim
     dt = cfg.dtype
+    mesh = axes.mesh if axes is not None else None
+    tensor = axes.tensor if axes is not None else None
 
-    y = _layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
-                    cfg.layer_norm_eps)
+    def split_in(t):  # Megatron's f before a column-split product
+        return t if tensor is None else collectives.copy_to(t, tensor.group)
+
+    def split_out(t):  # its g after a row-split one
+        return t if tensor is None else \
+            collectives.reduce_from(t, tensor.group)
+
+    y = split_in(_layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
+                             cfg.layer_norm_eps))
     qkv = y @ lp["qkv"]["kernel"].to(dt) + lp["qkv"]["bias"].to(dt)
     # Per-head views of the fused product: the kernels read them in place.
-    q, k, v = (t.view(b, s, h, dh) for t in qkv.split(d, dim=-1))
-    attn = flash_attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                           bf16=cfg.attention_bf16).reshape(b, s, d)
-    attn = attn @ lp["attn_out"]["kernel"].to(dt) + \
+    h = qkv.shape[-1] // (3 * dh)  # the heads this rank holds
+    q, k, v = (t.view(b, s, h, dh) for t in qkv.split(h * dh, dim=-1))
+    attn = _attention(q, k, v, cfg, axes).reshape(b, s, h * dh)
+    attn = split_out(attn @ lp["attn_out"]["kernel"].to(dt)) + \
         lp["attn_out"]["bias"].to(dt)
     x = x + attn
 
@@ -297,9 +404,10 @@ def _block(x: torch.Tensor, lp: Params, cfg: Config, mesh=None):
             y, lp["moe"], cfg.num_experts, top_k=cfg.moe_top_k,
             capacity_factor=cfg.moe_capacity_factor, mesh=mesh)
         return x + down, aux
-    up = y @ lp["mlp_up"]["kernel"].to(dt) + lp["mlp_up"]["bias"].to(dt)
+    up = split_in(y) @ lp["mlp_up"]["kernel"].to(dt) + \
+        lp["mlp_up"]["bias"].to(dt)
     up = F.gelu(up, approximate="tanh")
-    down = up @ lp["mlp_down"]["kernel"].to(dt) + \
+    down = split_out(up @ lp["mlp_down"]["kernel"].to(dt)) + \
         lp["mlp_down"]["bias"].to(dt)
     return x + down, None
 
@@ -380,45 +488,102 @@ def _unstack_layers(blocks: Params, n_layer: int):
 
 
 def _gather_layer(lp: Params) -> Params:
-    """One layer's params for use (`sharding.gather_for_use`); an MoE
-    layer's experts stay split over the `expert` axis."""
-    out = {k: map_params(sharding.gather_for_use, v)
-           for k, v in lp.items() if k != "moe"}
+    """One layer's params for use (`sharding.gather_for_use`): a leaf split
+    over the `tensor` axis keeps its split; an MoE layer's experts stay
+    split over the `expert` axis."""
+    out = {k: map_params(_gather, v) for k, v in lp.items() if k != "moe"}
     if "moe" in lp:
         out["moe"] = moe.gather_params(lp["moe"])
     return out
 
 
-def apply(params: Params, tokens: torch.Tensor, cfg: Config,
-          return_aux: bool = False):
-    """Forward pass: tokens [B, S] -> logits [B, S, vocab] in cfg.dtype;
-    with `return_aux` also the mean MoE load-balance loss over the layers
-    (fp32; 0 for a dense config)."""
+def _gather(p):
+    return sharding.gather_for_use(p, keep=("tensor",))
+
+
+def _trunk(params: Params, tokens: torch.Tensor, cfg: Config,
+           axes: _Axes, start: int = 0):
+    """tokens [B, s] at positions start.. -> (the final layer norm's
+    output [B, s, D] in cfg.dtype, the tied table as this rank holds it,
+    the layers' MoE losses)."""
     s = tokens.shape[1]
     dt = cfg.dtype
     # Sharded params (DTensors, train/state.py) are gathered just before
     # use; plain tensors pass through. The tied `wte` is gathered once, so
     # its two uses' gradients sum before the one reduce-scatter.
-    gather = sharding.gather_for_use
-    wte = gather(params["wte"])
-    x = _embed_tokens({"wte": wte}, tokens, cfg, dt)
-    x = x + gather(params["wpe"]).to(dt)[:s][None]
-    block = functools.partial(_block, cfg=cfg,
-                              mesh=sharding.mesh_of(params["wte"]))
+    wte = _gather(params["wte"])
+    x = _embed_tokens({"wte": wte}, tokens, cfg, dt, axes.tensor)
+    x = x + _gather(params["wpe"]).to(dt)[start:start + s][None]
+    block = functools.partial(_block, cfg=cfg, axes=axes)
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block, cfg)
     auxs = []
     for lp in _unstack_layers(params["blocks"], cfg.n_layer):
         x, aux = block(x, _gather_layer(lp))
         auxs.append(aux)
-    ln_f = map_params(gather, params["ln_f"])
+    ln_f = map_params(_gather, params["ln_f"])
     x = _layer_norm(x, ln_f["scale"], ln_f["bias"], cfg.layer_norm_eps)
-    logits = x @ wte.to(dt).t()
+    return x, wte, auxs
+
+
+def _head(x: torch.Tensor, wte: torch.Tensor, cfg: Config,
+          tensor: Optional[AxisGroup]) -> torch.Tensor:
+    """The tied LM head: logits [B, s, V] (over a `tensor` axis this
+    rank's vocab slice) in cfg.dtype."""
+    if tensor is not None:
+        x = collectives.copy_to(x, tensor.group)
+    return x @ wte.to(cfg.dtype).t()
+
+
+def _all_gather(t: torch.Tensor, axis: AxisGroup, dim: int,
+                size: Optional[int] = None) -> torch.Tensor:
+    """Every rank's `t` of the group concatenated along `dim`, in rank
+    order, differentiable; pieces shorter than the first (an uneven
+    split) padded for the exchange and trimmed to `size`."""
+    from torch.distributed import _functional_collectives as fc
+
+    n = -(-size // axis.size) if size is not None else t.shape[dim]
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, n - t.shape[dim]]
+    # Renamed after torch 2.11 (the older name warns from 2.13).
+    gather = getattr(fc, "all_gather_single_autograd", None) or \
+        fc.all_gather_tensor_autograd
+    out = fc.wait_tensor(gather(F.pad(t, pad).contiguous(), dim,
+                                axis.group))
+    return out if size is None else out.narrow(dim, 0, size)
+
+
+def _chunk_logits(params: Params, inputs: torch.Tensor, cfg: Config):
+    """inputs [B, S] -> (the axes, this rank's (start, stop) of the
+    sequence, its logits [B, stop - start, V] in cfg.dtype (over a
+    `tensor` axis its vocab slice), the layers' MoE losses). Over a
+    context axis the rank runs its chunk of the positions."""
+    axes = _axes(params, cfg)
+    start, stop = 0, inputs.shape[1]
+    if axes.context is not None:
+        start, stop = chunk(inputs.shape[1], axes.context.index,
+                            axes.context.size)
+    x, wte, auxs = _trunk(params, inputs[:, start:stop], cfg, axes, start)
+    return axes, (start, stop), _head(x, wte, cfg, axes.tensor), auxs
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: Config,
+          return_aux: bool = False):
+    """Forward pass: tokens [B, S] -> logits [B, S, vocab] in cfg.dtype;
+    with `return_aux` also the mean MoE load-balance loss over the layers
+    (fp32; 0 for a dense config). Over a mesh, every rank of a context
+    and tensor group passes the same tokens and gets the same logits:
+    each computes its chunk and vocab slice, and the pieces are
+    gathered."""
+    axes, _, logits, auxs = _chunk_logits(params, tokens, cfg)
+    if axes.tensor is not None:
+        logits = _all_gather(logits, axes.tensor, 2, cfg.vocab_size)
+    if axes.context is not None:
+        logits = _all_gather(logits, axes.context, 1)
     if not return_aux:
         return logits
     if cfg.num_experts > 1:
         return logits, torch.stack(auxs).mean()
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -428,16 +593,47 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - tgt.float())
 
 
+def _nll_vocab_split(logits: torch.Tensor, targets: torch.Tensor,
+                     cfg: Config, tensor: AxisGroup) -> torch.Tensor:
+    """`_nll` from this rank's vocab slice of the logits: the global max
+    (no gradient: the logsumexp does not depend on it), the sum of
+    exponentials and the target's logit from the rank that holds it, each
+    summed over the group with Megatron's g, so every rank's slice gets
+    its own gradient."""
+    lf = logits.float()
+    m = collectives.max_over(lf.amax(dim=-1), tensor.group)
+    sumexp = collectives.reduce_from(
+        torch.exp(lf - m[..., None]).sum(dim=-1), tensor.group)
+    lse = m + torch.log(sumexp)
+    n = logits.shape[-1]
+    local = targets.long() - _vocab_start(cfg, tensor)
+    mine = (local >= 0) & (local < n)
+    tgt = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    tgt = torch.where(mine, tgt[..., 0].float(), 0.0)
+    return torch.mean(lse - collectives.reduce_from(tgt, tensor.group))
+
+
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: Config) -> torch.Tensor:
     """{"tokens": [B, S+1]} (or {"tokens", "targets"}) -> mean NLL (fp32),
-    plus `moe_aux_coef` times the load-balance loss for an MoE config."""
+    plus `moe_aux_coef` times the load-balance loss for an MoE config.
+    Over a context axis every rank passes the whole rows and keeps its
+    chunk of the shifted sequence; the result is the mean over the
+    group."""
     tokens = batch["tokens"]
     if "targets" in batch:
         inputs, targets = tokens, batch["targets"]
     else:
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    axes, (start, stop), logits, auxs = _chunk_logits(params, inputs, cfg)
+    targets = targets[:, start:stop]
+    if axes.tensor is not None:
+        nll = _nll_vocab_split(logits, targets, cfg, axes.tensor)
+    else:
+        nll = _nll(logits, targets)
+    if axes.context is not None:
+        nll = collectives.sum_over(nll, axes.context.group) / \
+            axes.context.size
     if cfg.num_experts > 1:
-        logits, aux = apply(params, inputs, cfg, return_aux=True)
-        return _nll(logits, targets) + cfg.moe_aux_coef * aux
-    return _nll(apply(params, inputs, cfg), targets)
+        return nll + cfg.moe_aux_coef * torch.stack(auxs).mean()
+    return nll

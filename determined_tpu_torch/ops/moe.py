@@ -54,7 +54,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from determined_tpu_torch.parallel import sharding
+from determined_tpu_torch.parallel import collectives, sharding
 from determined_tpu_torch.parallel.sharding import LogicalRules
 
 Params = Dict[str, Any]
@@ -155,54 +155,6 @@ def _groups(mesh, rules: Optional[LogicalRules]) -> Optional[_Groups]:
     return _Groups(tuple(batch), index, count, None, 1, 0)
 
 
-def _all_reduce(t: torch.Tensor, groups: Sequence[Any]) -> torch.Tensor:
-    import torch.distributed as dist
-
-    t = t.clone()
-    for g in groups:
-        dist.all_reduce(t, group=g)
-    return t
-
-
-class _SumOverBatch(torch.autograd.Function):
-    """A sum over the batch group, forward and backward: every rank's loss
-    holds the global sum, and the Trainer averages the ranks' gradients."""
-
-    @staticmethod
-    def forward(ctx, t, groups):
-        ctx.groups = groups
-        return _all_reduce(t, groups)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _all_reduce(grad, ctx.groups), None
-
-
-class _CopyToExperts(torch.autograd.Function):
-    """Megatron's f: identity forward, all-reduce backward."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _all_reduce(grad, (ctx.group,)), None
-
-
-class _ReduceFromExperts(torch.autograd.Function):
-    """Megatron's g: all-reduce forward, identity backward."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        return _all_reduce(t, (group,))
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def _gather_batch(t: torch.Tensor, groups: Sequence[Tuple[Any, int]]
                   ) -> torch.Tensor:
     """Every batch block's `t`, stacked in block order: [count, *t.shape]."""
@@ -271,7 +223,7 @@ def _aux_loss(r: Routing, num_experts: int, groups: Optional[_Groups]
     sums = torch.stack([first.sum(0), r.probs.sum(0)])  # [2, E]
     t = r.probs.shape[0]
     if groups is not None and groups.batch:
-        sums = _SumOverBatch.apply(sums, tuple(g for g, _ in groups.batch))
+        sums = collectives.sum_over(sums, [g for g, _ in groups.batch])
         t *= groups.batch_count
     f, p = sums / t
     return num_experts * torch.sum(f * p)
@@ -308,8 +260,8 @@ def moe_block(x: torch.Tensor, params: Params, num_experts: int, *,
     first = (groups.expert_rank if groups is not None else 0) * local
     gate = r.gate_vals
     if ep > 1:
-        xt = _CopyToExperts.apply(xt, groups.expert)
-        gate = _CopyToExperts.apply(gate, groups.expert)
+        xt = collectives.copy_to(xt, groups.expert)
+        gate = collectives.copy_to(gate, groups.expert)
 
     # Slot of each (token, choice) among this rank's experts; a dropped or
     # another rank's one goes to the spare row local * cap, which is 0 in
@@ -334,5 +286,5 @@ def moe_block(x: torch.Tensor, params: Params, num_experts: int, *,
             ye.index_select(0, slot[:, c]).float()
         y = term if y is None else y + term
     if ep > 1:
-        y = _ReduceFromExperts.apply(y, groups.expert)
+        y = collectives.reduce_from(y, groups.expert)
     return y.to(dt).reshape(b, s, d), _aux_loss(r, e, groups)

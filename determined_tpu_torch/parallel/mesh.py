@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Any, Mapping, NamedTuple, Optional, Tuple
 
 AXIS_ORDER = ("data", "pipeline", "fsdp", "expert", "context", "tensor")
 
@@ -95,18 +95,67 @@ def batch_shard(config: MeshConfig, rank: int, world: int
     """(index, count): the block of the global batch that `rank` holds
     when the batch dim is split over the default rules' batch axes, data
     then fsdp, of the mesh `config` resolves to over `world` ranks. Ranks
-    that differ only along other axes (an expert group) hold the same
-    block."""
-    sizes = dict(zip(AXIS_ORDER, config.resolve(world).sizes()))
-    coords, rest = {}, rank
-    for a in reversed(AXIS_ORDER):
-        coords[a] = rest % sizes[a]
-        rest //= sizes[a]
+    that differ only along other axes (an expert, context or tensor group)
+    hold the same block."""
+    sizes, coords = _coords(config, rank, world)
     index, count = 0, 1
     for a in ("data", "fsdp"):
         index = index * sizes[a] + coords[a]
         count *= sizes[a]
     return index, count
+
+
+def _coords(config: MeshConfig, rank: int, world: int
+            ) -> Tuple[dict, dict]:
+    """({axis: size}, {axis: coordinate of `rank`}) on the mesh `config`
+    resolves to over `world` ranks (rank-major in AXIS_ORDER)."""
+    sizes = dict(zip(AXIS_ORDER, config.resolve(world).sizes()))
+    coords, rest = {}, rank
+    for a in reversed(AXIS_ORDER):
+        coords[a] = rest % sizes[a]
+        rest //= sizes[a]
+    return sizes, coords
+
+
+def seq_shard(config: MeshConfig, rank: int, world: int, length: int
+              ) -> Tuple[int, int]:
+    """(start, stop): the contiguous chunk of a sequence of `length` that
+    `rank` holds when the sequence is split over the `context` axis of the
+    mesh `config` resolves to over `world` ranks. Chunk i belongs to
+    context rank i, the order `jax.lax.axis_index` gives the JAX package's
+    ring; no zigzag balancing. The length must divide evenly."""
+    sizes, coords = _coords(config, rank, world)
+    return chunk(length, coords["context"], sizes["context"])
+
+
+def chunk(length: int, index: int, count: int) -> Tuple[int, int]:
+    """(start, stop) of the index-th of `count` equal contiguous chunks."""
+    if length % count:
+        raise ValueError(
+            f"a sequence of {length} does not split into {count} equal "
+            "chunks over the context axis")
+    n = length // count
+    return index * n, (index + 1) * n
+
+
+class AxisGroup(NamedTuple):
+    """A mesh axis as this rank sees it: the process group of the ranks
+    that differ from it only along the axis, their count and this rank's
+    coordinate."""
+    group: Any
+    size: int
+    index: int
+
+
+def axis_group(mesh, axis: str) -> Optional[AxisGroup]:
+    """`axis` of the DeviceMesh `mesh` when it is above 1, else None (no
+    mesh, or an axis of one rank: nothing to communicate)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return None
+    i = mesh.mesh_dim_names.index(axis)
+    if mesh.size(i) == 1:
+        return None
+    return AxisGroup(mesh.get_group(i), mesh.size(i), mesh.get_local_rank(i))
 
 
 def create_mesh(config: Optional[MeshConfig] = None,

@@ -17,10 +17,25 @@ checkpoint read), `gather_for_use` is the all-gather before a leaf is used
 (its backward is the gradient's reduce-scatter over the sharded axes and
 its mean over the replicated ones), and `full_value` gathers a leaf for a
 checkpoint.
+
+A fused dim holds several tensors side by side: GPT-2's qkv kernel is
+`[D, 3D]`, q's columns, then k's, then v's. The JAX package shards it on
+that dim as it is and lets GSPMD reshard where the product is split into
+q, k and v; a contiguous split of `[q|k|v]` over the `tensor` axis would
+give a rank q's heads and none of k's. The model names such a dim with
+`Fused(name, pieces)` in its logical axes, a `str` that is the logical
+name everywhere else (so the specs are the JAX package's). Where the mesh
+splits that dim, `distribute_full` keeps the leaf in the tensor layout
+(`to_split_layout`): the pieces interleaved by split, so that each rank's
+contiguous slice holds the q, k and v columns of its own heads. The leaf
+records its layout (`fused_layout`, `layout_of`), and `full_value` gives
+it back in the one-process layout (`from_split_layout`), which
+checkpoints hold.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 from determined_tpu_torch.parallel.mesh import AXIS_ORDER
@@ -42,6 +57,71 @@ DEFAULT_RULES: Tuple[Tuple[str, MeshAxes], ...] = (
     ("expert", "expert"),
     ("unmodeled", None),
 )
+
+
+class Fused(str):
+    """A logical axis name for a dim of `pieces` equal tensors laid side
+    by side (the module docstring); equal to the plain name."""
+
+    def __new__(cls, name: str, pieces: int) -> "Fused":
+        out = super().__new__(cls, name)
+        out.pieces = pieces
+        return out
+
+    def __repr__(self) -> str:
+        return f"Fused({str.__repr__(self)}, {self.pieces})"
+
+
+def fused_dims(logical_axes: Sequence[Optional[str]]) -> dict:
+    """{dim: pieces} of the `Fused` names among a leaf's logical axes."""
+    return {d: a.pieces for d, a in enumerate(logical_axes or ())
+            if isinstance(a, Fused)}
+
+
+def _regroup(t, dim: int, outer: int, inner: int):
+    """View `dim` of `t` as [outer, inner, rest] and swap outer and
+    inner."""
+    shape = t.shape
+    n = shape[dim]
+    if n % (outer * inner):
+        raise ValueError(
+            f"dim {dim} of {tuple(shape)} does not split into {outer} x "
+            f"{inner} equal parts")
+    x = t.reshape(*shape[:dim], outer, inner, n // (outer * inner),
+                  *shape[dim + 1:])
+    return x.transpose(dim, dim + 1).reshape(shape)
+
+
+def fused_layout(logical_axes, placements, mesh
+                 ) -> Tuple[Tuple[int, int, int], ...]:
+    """The (dim, pieces, parts) of a leaf's `Fused` dims that the mesh
+    splits: `parts` the product of the sizes of the mesh dims that shard
+    it. () when there are none."""
+    out = []
+    for dim, pieces in fused_dims(logical_axes).items():
+        parts = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                          if p.is_shard() and p.dim == dim)
+        if parts > 1:
+            out.append((dim, pieces, parts))
+    return tuple(out)
+
+
+def layout_of(p) -> Tuple[Tuple[int, int, int], ...]:
+    """The fused layout a leaf was distributed with (`distribute_full`);
+    () for a plain tensor or a leaf without one."""
+    return getattr(p, "fused_layout", ())
+
+
+def to_split_layout(t, dim: int, pieces: int, parts: int):
+    """A fused dim in the tensor layout: [pieces, parts, n] ->
+    [parts, pieces, n], so the p-th of `parts` contiguous slices holds the
+    p-th slice of every piece."""
+    return _regroup(t, dim, pieces, parts)
+
+
+def from_split_layout(t, dim: int, pieces: int, parts: int):
+    """The inverse of `to_split_layout`: the one-process layout."""
+    return _regroup(t, dim, parts, pieces)
 
 
 class PartitionSpec(tuple):
@@ -152,20 +232,26 @@ def mesh_placements(spec: Sequence[MeshAxes], mesh) -> list:
             for i, p in enumerate(placements)]
 
 
-def distribute_full(full, mesh, placements):
+def distribute_full(full, mesh, placements, layout=()):
     """A DTensor whose local tensor is this rank's piece of `full` (the
-    same on every rank), cut as DTensor cuts it (`torch.chunk` per sharded
-    mesh dim, in mesh-dim order): no collective."""
+    same on every rank, in the one-process layout), cut as DTensor cuts it
+    (`torch.chunk` per sharded mesh dim, in mesh-dim order): no
+    collective. `layout` (`fused_layout`) puts the fused dims in the
+    tensor layout first; the DTensor records it."""
     from torch.distributed.tensor import DTensor
 
+    for dim, pieces, parts in layout:
+        full = to_split_layout(full, dim, pieces, parts)
     local = full
     coord = mesh.get_coordinate()
     for i, p in enumerate(placements):
         if p.is_shard():
             local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
-    return DTensor.from_local(local.contiguous(), mesh, placements,
-                              run_check=False, shape=full.shape,
-                              stride=full.contiguous().stride())
+    out = DTensor.from_local(local.contiguous(), mesh, placements,
+                             run_check=False, shape=full.shape,
+                             stride=full.contiguous().stride())
+    out.fused_layout = tuple(layout)
+    return out
 
 
 def gather_for_use(p, keep: Sequence[str] = ()):
@@ -178,9 +264,11 @@ def gather_for_use(p, keep: Sequence[str] = ()):
     back reduce-scattered over the axes the leaf is sharded on and
     all-reduced over the rest.
 
-    The mesh axes named in `keep` stay as they are: the rank's tensor is
-    its piece along them (an MoE rank's own experts, ops/moe.py), and its
-    gradient is that piece's."""
+    The mesh axes named in `keep` on which the leaf is split stay split:
+    the rank's tensor is its piece along them (an MoE rank's own experts,
+    ops/moe.py; a tensor-parallel rank's heads, columns or rows,
+    models/gpt2.py), and its gradient is that piece's. A leaf replicated
+    on a kept axis has its gradient averaged there as on the others."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not isinstance(p, DTensor):
@@ -190,7 +278,7 @@ def gather_for_use(p, keep: Sequence[str] = ()):
     target = [pl if names[i] in keep else Replicate()
               for i, pl in enumerate(p.placements)]
     full = p.redistribute(mesh, target)
-    grads = [target[i] if names[i] in keep or mesh.size(i) == 1
+    grads = [target[i] if target[i].is_shard() or mesh.size(i) == 1
              else Partial("avg") for i in range(mesh.ndim)]
     return full.to_local(grad_placements=grads)
 
@@ -202,14 +290,20 @@ def mesh_of(p):
     return p.device_mesh if isinstance(p, DTensor) else None
 
 
-def full_value(p):
+def full_value(p, layout=None):
     """The full value of a leaf on every rank (a collective for a sharded
-    DTensor), detached."""
+    DTensor), detached, in the one-process layout: `layout` is the fused
+    layout its value is in, by default the one it records (a gradient or
+    a moment passes its leaf's)."""
     from torch.distributed.tensor import DTensor
 
-    if isinstance(p, DTensor):
-        return p.detach().full_tensor()
-    return p.detach()
+    if not isinstance(p, DTensor):
+        return p.detach()
+    t = p.detach().full_tensor()
+    for dim, pieces, parts in reversed(layout_of(p) if layout is None
+                                       else layout):
+        t = from_split_layout(t, dim, pieces, parts)
+    return t
 
 
 def local_value(p):

@@ -18,6 +18,15 @@ mirror their leaves (`_mirrors` says which leaf each mirrors).
 Checkpoints hold the full state (`unshard_state`, a collective): a run
 with fsdp=2 writes what a one-process run writes, and either restores
 the other's (`reshard_state`, no collective).
+
+Over a `tensor` axis a leaf whose logical axes name a `Fused` dim (GPT-2's
+qkv kernel and bias: q, k and v side by side) is kept in the tensor
+layout (`parallel/sharding.fused_layout`): the DTensor's value has that
+dim's pieces interleaved by split, so each rank's contiguous slice holds
+the q, k and v of its own heads, and so do the moments that mirror it.
+The leaf records its layout; `unshard_state` and `reshard_state` convert
+to and from the one-process layout through `sharding.full_value` and
+`sharding.distribute_full`, so checkpoints keep it.
 """
 
 from __future__ import annotations
@@ -190,12 +199,23 @@ def unshard_state(state: TrainState) -> TrainState:
         d = DTensor.from_local(t, p.device_mesh, p.placements,
                                run_check=False, shape=p.shape,
                                stride=p.stride())
-        return d.full_tensor()
+        return sharding.full_value(d, sharding.layout_of(p))
 
-    params = _rebuild(state.params, [sharding.full_value(p) for p in leaves])
+    params = _rebuild(state.params, full_leaves(state))
     return TrainState(step=state.step, params=params,
                       opt_state=_map_opt(state.opt_state, locals_, moment),
                       extra=state.extra)
+
+
+def full_leaves(state: TrainState, leaves: Optional[List[Any]] = None
+                ) -> List[torch.Tensor]:
+    """The state's param leaves, or `leaves` laid out as they are (their
+    gradients), each whole and in the one-process layout, detached: a
+    collective for a sharded state."""
+    own = state.leaves()
+    leaves = own if leaves is None else leaves
+    return [sharding.full_value(g, sharding.layout_of(p))
+            for p, g in zip(own, leaves)]
 
 
 def reshard_state(full: TrainState, like: TrainState) -> TrainState:
@@ -214,7 +234,7 @@ def reshard_state(full: TrainState, like: TrainState) -> TrainState:
     for p, f in zip(like_leaves, full_leaves):
         if isinstance(p, DTensor):
             d = sharding.distribute_full(f.detach(), p.device_mesh,
-                                         p.placements)
+                                         p.placements, sharding.layout_of(p))
             params.append(d.requires_grad_(p.requires_grad))
         else:
             params.append(f)
@@ -227,8 +247,8 @@ def reshard_state(full: TrainState, like: TrainState) -> TrainState:
         p = like_leaves[i]
         if not isinstance(p, DTensor):
             return t
-        return sharding.distribute_full(t, p.device_mesh,
-                                        p.placements)._local_tensor
+        return sharding.distribute_full(t, p.device_mesh, p.placements,
+                                        sharding.layout_of(p))._local_tensor
 
     if len(opt_like) != len(full_idx):
         raise ValueError("checkpoint and state optimizer structures differ")
@@ -288,8 +308,9 @@ def create_train_state(
 
     With a `mesh` of more than one device and `param_logical_axes`, every
     rank draws the same full params from the same generator seed and keeps
-    its shard of each leaf (the placements of `aligned_param_specs`); the
-    optimizer state is built over the shards."""
+    its shard of each leaf (the placements of `aligned_param_specs`; a
+    `Fused` dim split over the mesh in the tensor layout); the optimizer
+    state is built over the shards."""
     params = init_fn(generator)
     if device is not None:
         params = _to_device(params, torch.device(device))
@@ -298,10 +319,15 @@ def create_train_state(
         flat_specs = _flatten(specs) if isinstance(specs, dict) else \
             {"0": specs}
         leaves = param_leaves(params)
-        params = _rebuild(params, [
-            sharding.distribute_full(p.detach(), mesh,
-                                     sharding.mesh_placements(s, mesh))
-            for p, s in zip(leaves, flat_specs.values())])
+        sharded = []
+        for path, p in zip(flat_specs, leaves):
+            placements = sharding.mesh_placements(flat_specs[path], mesh)
+            axes = _lookup_axes(param_logical_axes or {}, path) \
+                if isinstance(params, dict) else None
+            sharded.append(sharding.distribute_full(
+                p.detach(), mesh, placements,
+                sharding.fused_layout(axes, placements, mesh)))
+        params = _rebuild(params, sharded)
     leaves = param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)

@@ -5,15 +5,20 @@ backward and the optimizer update into one program per trial; PyTorch
 runs eagerly, so a step here is the same sequence of calls (the CUDA
 kernels and PyTorch's own) issued from the host without a sync.
 
-Over a mesh of more than one device (data, fsdp and expert axes), the
-params are DTensors (train/state.py) that the model gathers before use;
-their gradients come back reduce-scattered over fsdp and averaged over
-data (`parallel/sharding.gather_for_use`; an MoE model's experts stay
-split over `expert`, ops/moe.py), the global norm counts each shard once
-and each replica once, and the reported loss and metrics are the means
-over every rank's rows (an all-reduce; the ranks of an expert group hold
-the same rows and the same loss), as the JAX step's are over the global
-batch.
+Over a mesh of more than one device (data, fsdp, expert, context and
+tensor axes), the params are DTensors (train/state.py) that the model
+gathers before use; their gradients come back reduce-scattered over fsdp
+and averaged over data and context (`parallel/sharding.gather_for_use`;
+an MoE model's experts stay split over `expert`, ops/moe.py; a
+tensor-split leaf keeps its own piece's gradient, and a replicated one is
+already whole on every tensor rank through Megatron's f/g pair,
+models/gpt2.py). Over `context` each rank's gradient is its own chunk's
+loss's, once: the loss's mean over the group sums in the backward
+(`collectives.sum_over`), and the average over the axis divides. The
+global norm counts each shard once and each replica once, and the
+reported loss and metrics are the means over every rank (an all-reduce;
+the ranks of an expert, context or tensor group hold the same rows and
+the same loss), as the JAX step's are over the global batch.
 
 `make_multi_step` is the counterpart of the JAX package's `lax.scan` over
 N steps in one executable: on CUDA one training step captured as a CUDA

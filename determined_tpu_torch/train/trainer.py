@@ -20,25 +20,28 @@ preemption and at the end of `fit`.
 Mesh bring-up: the trial's `mesh_config()` resolves over the world size
 (one process per device, `core.init()` forms the process group), and a
 run with a process group trains over a `DeviceMesh` of the world
-(parallel/mesh.py). The `data`, `fsdp` and `expert` axes may be above 1:
-each rank's loader yields its own block of the global batch
-(`parallel.mesh.batch_shard`: the batch is split over the batch rule's
-axes, `("data", "fsdp")`, so the ranks of an expert group hold the same
-rows), the params are sharded by their logical axes (train/state.py; an
-MoE model's experts over `expert`, ops/moe.py), the step's metrics are
-the global means, and a checkpoint holds the full state (the chief
-gathers it) in the one-process format, so a run of any width restores
-it. `expert` above 1 is refused for a trial that does not declare
-`supports_expert_parallel()` (it would replicate the FFN's work across
-the group); `tensor`, `context` and `pipeline` above 1 raise, and so does
-a world of more than one process without a process group: it never
-trains alone in silence.
+(parallel/mesh.py). The `data`, `fsdp`, `expert`, `context` and `tensor`
+axes may be above 1: each rank's loader yields its own block of the
+global batch (`parallel.mesh.batch_shard`: the batch is split over the
+batch rule's axes, `("data", "fsdp")`, so the ranks of an expert,
+context or tensor group hold the same rows; the model splits a row's
+sequence over `context` and its heads, FFN and vocab over `tensor`,
+models/gpt2.py), the params are sharded by their logical axes
+(train/state.py; an MoE model's experts over `expert`, ops/moe.py), the
+step's metrics are the global means, and a checkpoint holds the full
+state (the chief gathers it) in the one-process format, so a run of any
+width restores it. `expert` above 1 is refused for a trial that does not
+declare `supports_expert_parallel()` (it would replicate the FFN's work
+across the group), `tensor` and `context` above 1 for one that does (MoE
+over them is not ported); `pipeline` above 1 raises, and so does a world
+of more than one process without a process group: it never trains alone
+in silence.
 
 Not ported (ROADMAP.md): the compile farm and batch-size bucketing
 (`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
-nothing here), the tensor, context and pipeline axes (item 7) and
-elastic resize in process (item 8): a resize signal takes the preemption
-checkpoint path, as the JAX Trainer does in cluster mode.
+nothing here), the pipeline axis (item 7) and elastic resize in process
+(item 8): a resize signal takes the preemption checkpoint path, as the
+JAX Trainer does in cluster mode.
 """
 
 from __future__ import annotations
@@ -73,9 +76,10 @@ from determined_tpu_torch.train.watchdog import StepWatchdog
 
 logger = logging.getLogger("determined_tpu_torch.train")
 
-# Mesh axes the port trains over; the others raise (ROADMAP.md Queue 1
-# item 7). `expert` only for a trial that supports it.
-PORTED_AXES = ("data", "fsdp", "expert")
+# Mesh axes the port trains over; `pipeline` raises (ROADMAP.md Queue 1
+# item 7). `expert` only for a trial that supports it, `tensor` and
+# `context` only for one that does not (a dense model).
+PORTED_AXES = ("data", "fsdp", "expert", "context", "tensor")
 
 
 def _repeat(iterable_factory) -> Iterator[Any]:
@@ -164,9 +168,10 @@ class Trainer:
 
     def _check_mesh_support(self) -> MeshConfig:
         """Config checks before any state exists: the mesh must resolve
-        over the world size, only the `data`, `fsdp` and `expert` axes may
-        be above 1, and `expert` only for a trial whose model routes over
-        it (the others are refused, not run replicated)."""
+        over the world size, `pipeline` may not be above 1, `expert` only
+        for a trial whose model routes over it (the others are refused,
+        not run replicated), and `tensor` and `context` only for a trial
+        that does not (MoE over them is not ported)."""
         cfg = self.trial.mesh_config()
         world = self._world_size()
         try:
@@ -179,15 +184,19 @@ class Trainer:
                 "the launcher starts one process per device "
                 "(python -m determined_tpu_torch.launch.torch_distributed)"
             ) from None
-        wide = {a: getattr(cfg, a) for a in ("tensor", "context",
-                                              "pipeline")
-                if getattr(cfg, a) > 1}
-        if wide:
+        if cfg.pipeline > 1:
             raise ValueError(
-                f"{type(self.trial).__name__} asks for the mesh axes {wide}; "
-                f"the PyTorch port trains over {PORTED_AXES} only (tensor, "
-                "context and pipeline parallelism: ROADMAP.md Queue 1 item "
-                "7)")
+                f"{type(self.trial).__name__} asks for the mesh axis "
+                f"pipeline={cfg.pipeline}; the PyTorch port trains over "
+                f"{PORTED_AXES} only (pipeline parallelism: ROADMAP.md "
+                "Queue 1 item 7)")
+        split = {a: getattr(cfg, a) for a in ("tensor", "context")
+                 if getattr(cfg, a) > 1}
+        if split and self.trial.supports_expert_parallel():
+            raise ValueError(
+                f"{type(self.trial).__name__} is a Mixture-of-Experts trial "
+                f"and asks for the mesh axes {split}; MoE over the tensor "
+                "or context axis is not ported (ROADMAP.md Queue 1 item 7)")
         if cfg.expert > 1 and not self.trial.supports_expert_parallel():
             # An expert axis the model does not route over would replicate
             # the FFN's work across the group (the JAX Trainer's guard).

@@ -26,7 +26,12 @@ with the `mesh` hparam (`{"fsdp": 2}`) sharding the params by their
 logical axes. With `num_experts` above 1 every block's FFN is a top-k
 routed MoE FFN, and the mesh may add an `expert` axis (moe.yaml: 8
 experts, `{"data": -1, "expert": 4}` over 8 GPU slots): each rank of an
-expert group holds E / expert of the experts and the same rows.
+expert group holds E / expert of the experts and the same rows. The
+`context` and `tensor` axes split each row's work instead
+(long_context.yaml: seq_len 8192, `attention_impl: ring`,
+`{"data": -1, "context": 4}`): a rank's loader keeps whole rows, and the
+model takes its chunk of the sequence and its heads, FFN and vocab
+slices (models/gpt2.py).
 """
 
 import os

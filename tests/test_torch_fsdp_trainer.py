@@ -360,16 +360,21 @@ def test_unported_axes_and_a_world_without_a_group_raise(tmp_path,
                                               global_batches()))
     from determined_tpu_torch.train.trial import TrialContext
 
-    # A world of 2 with a process group: tensor/context/pipeline above 1
-    # name ROADMAP item 7; expert above 1 is refused for this dense trial
-    # (tests/test_torch_moe.py: an MoE trial takes it); data and fsdp
-    # resolve.
+    # A world of 2 with a process group: pipeline above 1 names ROADMAP
+    # item 7; tensor and context resolve for this dense trial
+    # (tests/test_torch_tensor_parallel.py trains over them); expert above
+    # 1 is refused for it (tests/test_torch_moe.py: an MoE trial takes
+    # it); data and fsdp resolve.
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
     for axis in ("tensor", "context", "pipeline"):
         trial = Trial(TrialContext(hparams={"mesh": {axis: 2, "data": 1}}))
-        with pytest.raises(ValueError, match="item 7"):
-            Trainer(trial, device="cpu")
+        if axis == "pipeline":
+            with pytest.raises(ValueError, match="item 7"):
+                Trainer(trial, device="cpu")
+        else:
+            assert getattr(Trainer(trial, device="cpu").mesh_config,
+                           axis) == 2
     trial = Trial(TrialContext(hparams={"mesh": {"expert": 2, "data": 1}}))
     with pytest.raises(ValueError, match="does not declare expert-parallel"):
         Trainer(trial, device="cpu")

@@ -44,7 +44,10 @@ PORT_MODULES = [
     "determined_tpu_torch.ops.flash_attention",
     "determined_tpu_torch.ops.moe",
     "determined_tpu_torch.ops.paged_attention",
+    "determined_tpu_torch.ops.ring_attention",
+    "determined_tpu_torch.ops.ulysses",
     "determined_tpu_torch.parallel",
+    "determined_tpu_torch.parallel.collectives",
     "determined_tpu_torch.parallel.mesh",
     "determined_tpu_torch.parallel.sharding",
     "determined_tpu_torch.serve",
