@@ -259,6 +259,43 @@ fails:
      against a world of one (SPLIT_LOSS_RTOL, SPLIT_NORM_RTOL); with one
      card, `[12d] not run: 1 card`.
 
+  13. the other model families (models/mnist.py, resnet.py, diffusion.py:
+     cuDNN's convolutions and plain ops, no kernel of their own), each
+     sub-phase's wall time printed.
+ 13a. examples/mnist_cuda through `core.init(max_length=100)` and
+     `Trainer.fit` with config.yaml's hparams: losses finite and falling;
+     prints the validation accuracy (synthetic set) and fit's step.
+ 13b. ResNet-50 at ImageNet shapes as bench_resnet.py runs it (B 256,
+     224x224x3, 1000 classes, bf16, sgd(0.1, momentum=0.9)):
+     `make_multi_step` (10 steps a call) against 10 `make_train_step`
+     calls from the same state, cudnn.benchmark off: mean loss, params,
+     momentum and BN stats bitwise equal, or within rtol 1e-6 with the
+     bitwise result printed. Prints the replayed and eager step,
+     samples/s, MFU at 3 x 4.1 GFLOP an image against 989 TFLOP/s, the
+     device ms of convolutions, BatchNorm and the rest over 3 steps under
+     torch.profiler (with the idle share and the top kernels), the peak
+     memory, and data/bench.ab_compare's prefetch A/B over ResNet-shaped
+     host batches (information).
+ 13c. a ResNet-18 CIFAR stateful trial defined here (B 128, 32x32, 30
+     steps) through `Trainer.fit`: losses finite and falling, validation
+     on the running stats, one COMMITTED checkpoint restoring params,
+     momentum and BN stats bit-identical.
+ 13d. ResNet-50 (B 4, 224) and the diffusion base config through the
+     port on CUDA and on the CPU, TF32 off: in float64 the output, the new
+     BN stats and each leaf's gradient within 1e-4 of that leaf's largest
+     element; in fp32 the output and stats likewise, and the gradients'
+     worst leaf against the CPU's float64 at most twice the CPU fp32's
+     (ResNet-50's fp32 gradients at B 4 are themselves far from float64).
+ 13e. the diffusion example (base config, finetune_asha.yaml's hparams at
+     one point, B 64) as a managed trial against 7c's fake master, one op
+     of 60 steps: losses finite and falling, the op-end validation and a
+     COMPLETED checkpoint recorded; then examples/diffusion_cuda/
+     pretrain.py for 20 steps and the trial started from its file through
+     `pretrained_path` (step-0 params bit-equal to the file); then
+     `diffusion.sample` (n 8, T 1000) through the CUDA graph and through
+     the eager loop from one generator seed: bitwise equal, every value in
+     [-1, 1], the ms a denoising step of each.
+
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
 or "ffma" CUDA cores; `launches` counts phase 7's path, phase 5's for the
@@ -277,6 +314,7 @@ import contextlib
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import statistics
@@ -3634,6 +3672,687 @@ def phase_split_world(workdir, hparams, card):
 # ------------------------------------------------------------------ main
 
 
+# ----------------------------------------------------------------- phase 13
+
+
+# The other model families: models/mnist.py, resnet.py and diffusion.py.
+MNIST_STEPS = 100          # examples/mnist_cuda/config.yaml's max_length
+RESNET50_BATCH = 256       # bench_resnet.py's
+RESNET50_WINDOW = 10       # bench_resnet.py's steps_per_call
+RESNET50_IMAGE_FLOPS = 4.1e9   # a forward at 224x224 (bench_resnet.py)
+CIFAR_BATCH, CIFAR_STEPS, CIFAR_REPORT = 128, 30, 5
+DIFFUSION_STEPS, DIFFUSION_REPORT, DIFFUSION_TRIAL = 60, 10, 2
+# One trial's point of finetune_asha.yaml's search space: the middle of
+# the log range of learning rates, the middle clip, the middle decay.
+DIFFUSION_POINT = {"learning_rate": 1e-4, "grad_clip": 1.0,
+                   "weight_decay": 0.025}
+PRETRAIN_STEPS, SAMPLE_N = 20, 8
+PARITY_TOL = 1e-4          # 13d: of each leaf's largest element
+
+
+def yaml_hparams(path):
+    """The scalar entries of a config file's `hyperparameters:` block (the
+    card's host has no PyYAML); a searched entry (a nested block) is left
+    out."""
+    out, inside = {}, False
+    with open(path) as f:
+        for line in f:
+            if not line.strip() or line.lstrip().startswith("#"):
+                continue
+            if not line.startswith(" "):
+                inside = line.startswith("hyperparameters:")
+                continue
+            if not inside or line.startswith("    "):
+                continue
+            key, _, val = line.strip().partition(":")
+            val = val.strip()
+            if not val:
+                continue
+            for cast in (int, float, str):
+                try:
+                    out[key] = cast(val)
+                    break
+                except ValueError:
+                    pass
+    return out
+
+
+def load_example(rel, name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def finite_and_falling(losses):
+    return all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+def report_losses(ctx):
+    return [r["metrics"]["loss"] for r in ctx.train.local_training_metrics
+            if "loss" in r["metrics"]]
+
+
+def fit_step_ms(ctx):
+    """Fit's own step time: the mean of `steps_per_second` over the
+    report windows after the first."""
+    rates = [r["metrics"]["steps_per_second"]
+             for r in ctx.train.local_training_metrics[1:]
+             if "steps_per_second" in r["metrics"]]
+    return 1e3 / statistics.mean(rates)
+
+
+def phase_mnist(workdir, card):
+    """13a: examples/mnist_cuda through `core.init(max_length=100)` and
+    `Trainer.fit` with config.yaml's hparams."""
+    import shutil
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trial import TrialContext
+
+    ex = load_example("examples/mnist_cuda/model_def.py", "mnist_cuda_ex")
+    hp = yaml_hparams(os.path.join(ROOT, "examples/mnist_cuda/config.yaml"))
+    ckpt = os.path.join(workdir, "mnist_checkpoints")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.monotonic()
+    ctx = core.init(max_length=MNIST_STEPS, checkpoint_dir=ckpt)
+    trial = ex.MNistTrial(TrialContext(hparams=hp, core_context=ctx))
+    state = Trainer(trial, core_context=ctx).fit(validation_period=0,
+                                                 report_period=10)
+    ctx.close()
+    wall = time.monotonic() - t0
+    losses = report_losses(ctx)
+    val = ctx.train.local_validation_metrics[-1]["metrics"]
+    say(f"[13a] [{card}] MNIST, hparams {hp}: {state.step} steps through "
+        f"Trainer.fit in {wall:.1f} s; losses every 10 steps "
+        f"{[round(x, 4) for x in losses]}; validation loss "
+        f"{val['validation_loss']:.4f}, accuracy "
+        f"{val['validation_accuracy']:.4f} (synthetic set); step "
+        f"{fit_step_ms(ctx):.3f} ms")
+    if state.step != MNIST_STEPS or not finite_and_falling(losses):
+        fail(f"13a: MNIST losses not finite and falling: {losses}")
+    return {"wall_s": wall}
+
+
+def profile_conv_steps(run_step, n_steps=3):
+    """Device time of `n_steps` calls of `run_step` under torch.profiler,
+    by group: convolutions (cuDNN's kernels), BatchNorm (models/resnet.py
+    `_BatchNorm`'s forward and backward, each wrapped in a record_function
+    range for the window) and the rest; and the profiled loop's idle
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from determined_tpu_torch.models import resnet
+
+    fwd, bwd = resnet._BatchNorm.forward, resnet._BatchNorm.backward
+
+    def fwd_ranged(ctx, *a):
+        with record_function("smoke.bn_forward"):
+            return fwd(ctx, *a)
+
+    def bwd_ranged(ctx, *a):
+        with record_function("smoke.bn_backward"):
+            return bwd(ctx, *a)
+
+    run_step()  # warm, unprofiled
+    resnet._BatchNorm.forward = staticmethod(fwd_ranged)
+    resnet._BatchNorm.backward = staticmethod(bwd_ranged)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                run_step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        resnet._BatchNorm.forward = staticmethod(fwd)
+        resnet._BatchNorm.backward = staticmethod(bwd)
+    busy = conv = bn = 0.0
+    per_kernel = {}
+    conv_re = re.compile(r"conv|xmma|cudnn|implicit_gemm|fprop|dgrad|wgrad",
+                         re.I)
+    for ev in prof.key_averages():
+        kind = str(getattr(ev, "device_type", "")).split(".")[-1]
+        if ev.key.startswith("smoke."):
+            if kind == "CPU":
+                us = getattr(ev, "device_time_total", None)
+                bn += (ev.cuda_time_total if us is None else us) / 1e3
+            continue
+        if kind != "CUDA":
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        busy += us / 1e3
+        per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3
+        if conv_re.search(ev.key):
+            conv += us / 1e3
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"[profile]   {ms / n_steps:8.3f} ms/step  "
+            f"{'conv ' if conv_re.search(name) else ''}{name[:100]}")
+    return {"wall_ms": wall / n_steps, "busy_ms": busy / n_steps,
+            "conv_ms": conv / n_steps, "bn_ms": bn / n_steps,
+            "other_ms": (busy - conv - bn) / n_steps,
+            "idle_share": max(0.0, 1.0 - busy / wall)}
+
+
+def leaves_diff(got, want):
+    """(largest |got - want| / max |want| over the leaves, bitwise equal)."""
+    import torch
+
+    pairs = list(zip(got, want, strict=True))
+    return (max(_rel(a.float(), b.float()) for a, b in pairs),
+            all(bool(torch.equal(a, b)) for a, b in pairs))
+
+
+def phase_resnet50(card, batch=RESNET50_BATCH):
+    """13b: ResNet-50 at ImageNet shapes, bf16, sgd(0.1, momentum=0.9), as
+    bench_resnet.py runs it: make_multi_step (10 steps a call) against 10
+    make_train_step calls from the same state, then the replayed and eager
+    step times, MFU, the profile and the input A/B."""
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.data.bench import ab_compare
+    from determined_tpu_torch.models import resnet
+    from determined_tpu_torch.train import optim
+    from determined_tpu_torch.train.state import create_train_state, \
+        extra_leaves
+    from determined_tpu_torch.train.step import make_multi_step, \
+        make_train_step
+
+    cfg = resnet.Config.resnet50()
+    n = RESNET50_WINDOW
+
+    def loss(p, extra, b, rng):
+        return resnet.loss_fn(p, extra, b, rng, cfg)
+
+    def fresh():
+        tx = optim.sgd(0.1, momentum=0.9)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+        params, stats = resnet.init(gen, cfg)
+        return tx, create_train_state(lambda g: params, tx, gen,
+                                      device="cuda", extra=stats)
+
+    rng = np.random.default_rng(SEED + 31)
+    window = {
+        "images": torch.from_numpy(rng.normal(size=(
+            n, batch, 224, 224, 3)).astype(np.float32)).to(
+            "cuda", torch.bfloat16),
+        "labels": torch.from_numpy(rng.integers(
+            0, cfg.n_classes, (n, batch)).astype(np.int32)).to("cuda")}
+    batches = [{k: v[i] for k, v in window.items()} for i in range(n)]
+    t_start = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    tx, one = fresh()
+    step = make_train_step(loss, tx, stateful=True)
+    acc = None
+    for b in batches:
+        one, m = step(one, b, None)
+        v = m["loss"].float().reshape(())
+        acc = v.clone() if acc is None else acc.add_(v)
+    one_loss = float(acc / n)
+    tx, multi = fresh()
+    multi_step = make_multi_step(loss, tx, n, stateful=True)
+    multi, mm = multi_step(multi, window, None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    checks = {
+        "params": leaves_diff(multi.leaves(), one.leaves()),
+        "BN stats": leaves_diff(extra_leaves(multi.extra),
+                                extra_leaves(one.extra)),
+        "momentum": leaves_diff(multi.opt_state["trace"],
+                                one.opt_state["trace"])}
+    l_same = float(mm["loss"]) == one_loss
+    bitwise = l_same and all(same for _, same in checks.values())
+    say(f"[13b] ResNet-50 ({sum(p.numel() for p in one.leaves()):,} "
+        f"params), B {batch}, 224x224, bf16, sgd(0.1, momentum=0.9): "
+        f"make_multi_step ({n} steps, {multi_step.replays} replays) against "
+        f"{n} make_train_step calls, cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}: mean loss "
+        f"{float(mm['loss']):.6f} vs {one_loss:.6f} (bitwise {l_same}); "
+        + "; ".join(f"{k} max rel {r:.3e} (bitwise {s})"
+                    for k, (r, s) in checks.items())
+        + f"; peak memory {peak:.2f} GiB (both states and the graph's pool)"
+        f"; {time.monotonic() - t_start:.1f} s")
+    if multi.step != one.step or \
+            max(r for r, _ in checks.values()) > 1e-6 or \
+            abs(float(mm["loss"]) - one_loss) > 1e-6 * abs(one_loss):
+        fail("13b: the replayed stateful steps differ from single steps")
+    del one
+    _free_cuda()
+
+    # Step times: the replayed window (bench_resnet.py's scan) and eager.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        multi, mm = multi_step(multi, window, None)
+    float(mm["loss"])
+    replay_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        multi, m = step(multi, b, None)
+    float(m["loss"])
+    eager_ms = (time.perf_counter() - t0) * 1e3 / n
+    flops = 3 * RESNET50_IMAGE_FLOPS * batch
+
+    def mfu(ms):
+        return flops / (ms / 1e3) / PEAK_FLOPS["torch.bfloat16"] * 100
+
+    prof = profile_conv_steps(lambda: step(multi, batches[0], None))
+    say(f"[13b] [{card}] ResNet-50 bf16, B {batch}: replayed step "
+        f"{replay_ms:.2f} ms, {batch / replay_ms * 1e3:.1f} samples/s, MFU "
+        f"{mfu(replay_ms):.2f}% of 989 TFLOP/s (3 x 4.1 GFLOP an image); "
+        f"eager step {eager_ms:.2f} ms, {batch / eager_ms * 1e3:.1f} "
+        f"samples/s, MFU {mfu(eager_ms):.2f}%; 3 eager steps under "
+        f"torch.profiler: wall {prof['wall_ms']:.2f} ms a step, device busy "
+        f"{prof['busy_ms']:.2f} ms (convolutions {prof['conv_ms']:.2f}, "
+        f"BatchNorm {prof['bn_ms']:.2f}, other {prof['other_ms']:.2f}), "
+        f"idle share {prof['idle_share'] * 100:.1f}%; peak memory "
+        f"{peak:.2f} GiB")
+    step_s = min(max(eager_ms / 1e3, 0.01), 0.2)
+    del multi, multi_step, window, batches
+    _free_cuda()
+
+    def make_iter():
+        host = np.random.default_rng(1)
+
+        def gen():
+            for _ in range(6):
+                yield {"images": host.random(size=(64, 224, 224, 3),
+                                             dtype=np.float32),
+                       "labels": host.integers(0, 1000, size=(64,)).astype(
+                           np.int32)}
+        return gen()
+
+    ab = ab_compare(make_iter, lambda b: time.sleep(step_s), device="cuda",
+                    depth=2)
+    say(f"[13b] [{card}] input A/B over ResNet-shaped host batches (B 64, "
+        f"224x224x3 fp32, a step of {step_s * 1e3:.1f} ms): prefetch "
+        f"speedup {ab['speedup']}, input_wait_ms synchronous "
+        f"{ab['sync']['input_wait_ms']} / prefetched "
+        f"{ab['prefetch']['input_wait_ms']}, h2d_ms "
+        f"{ab['prefetch'].get('h2d_ms')} (information)")
+    return {"replay_ms": replay_ms, "eager_ms": eager_ms, "peak_gib": peak,
+            "profile": prof, "batch": batch, "bitwise": bitwise}
+
+
+def cifar_trial_class():
+    """A ResNet-18 CIFAR stateful trial, defined here (the JAX package has
+    no ResNet example): a learnable synthetic set, each class a color
+    shift of normal noise."""
+    import numpy as np
+
+    from determined_tpu_torch.models import resnet
+    from determined_tpu_torch.train import TorchTrial, optim
+
+    class CifarTrial(TorchTrial):
+        stateful = True
+
+        def __init__(self, context):
+            super().__init__(context)
+            self.cfg = resnet.Config.resnet18_cifar()
+            rng = np.random.default_rng(SEED + 40)
+            self.shift = rng.normal(size=(10, 1, 1, 3)).astype(np.float32)
+
+        def _batches(self, seed, n=None):
+            rng = np.random.default_rng(seed)
+            b = self.context.global_batch_size
+            i = 0
+            while n is None or i < n:
+                labels = rng.integers(0, 10, b).astype(np.int32)
+                images = rng.normal(size=(b, 32, 32, 3)).astype(np.float32)
+                yield {"images": images + self.shift[labels],
+                       "labels": labels}
+                i += 1
+
+        def init_params(self, rng):
+            return resnet.init(rng, self.cfg)[0]
+
+        def init_extra(self):
+            return resnet.init_stats(self.cfg)
+
+        def loss(self, params, extra, batch, rng):
+            return resnet.loss_fn(params, extra, batch, rng, self.cfg)
+
+        def param_logical_axes(self):
+            return resnet.param_logical_axes(self.cfg)
+
+        def supports_model_parallel(self):
+            return False
+
+        def optimizer(self):
+            return optim.sgd(0.1, momentum=0.9)
+
+        def build_training_data(self):
+            return self._batches(SEED + 41)
+
+        def build_validation_data(self):
+            return self._batches(SEED + 42, n=4)
+
+        def evaluate(self, params, extra, batch):
+            loss, aux, _ = resnet.loss_fn(params, extra, batch, None,
+                                          self.cfg, train=False)
+            return {"validation_loss": loss, "accuracy": aux["accuracy"]}
+
+    return CifarTrial
+
+
+def phase_cifar_trial(workdir, card):
+    """13c: ResNet-18 CIFAR as a stateful trial through `Trainer.fit`: B
+    128 at 32x32, 30 steps, the op-end validation on the running stats,
+    one COMMITTED checkpoint that restores params, momentum and BN stats
+    bit-identical."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.state import create_train_state
+    from determined_tpu_torch.train.trial import TrialContext
+
+    ckpt = os.path.join(workdir, "cifar_checkpoints")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.monotonic()
+    ctx = core.init(max_length=CIFAR_STEPS, checkpoint_dir=ckpt)
+    trial = cifar_trial_class()(TrialContext(
+        hparams={"global_batch_size": CIFAR_BATCH}, core_context=ctx))
+    trainer = Trainer(trial, core_context=ctx)
+    state = trainer.fit(report_period=CIFAR_REPORT)
+    wall = time.monotonic() - t0
+    losses = report_losses(ctx)
+    val = ctx.train.local_validation_metrics[-1]["metrics"]
+    ids = [r["uuid"] for r in ctx.checkpoint.local_reported]
+    template = create_train_state(
+        trial.init_params, trial.optimizer(),
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+        extra=trial.init_extra())
+    back = ctx.checkpoint.restore_state(ids[-1], template)
+    ctx.close()
+    got, want = state_tensors(back), state_tensors(state)
+    same = len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    say(f"[13c] [{card}] ResNet-18 CIFAR (stateful), B {CIFAR_BATCH}, "
+        f"32x32, bf16, {state.step} steps through Trainer.fit in "
+        f"{wall:.1f} s: losses every {CIFAR_REPORT} steps "
+        f"{[round(x, 4) for x in losses]}, step {fit_step_ms(ctx):.2f} ms; "
+        f"validation on the running stats: loss "
+        f"{val['validation_loss']:.4f}, accuracy "
+        f"{val['validation_accuracy']:.4f}; checkpoints {ids}, restored "
+        f"bit-identical ({len(got)} tensors: params, momentum, BN stats): "
+        f"{same}")
+    if state.step != CIFAR_STEPS or not finite_and_falling(losses) or \
+            ids != [f"trial0-step{CIFAR_STEPS}"] or not same or \
+            not math.isfinite(val["validation_loss"]):
+        fail("13c: the stateful trial did not train, validate and restore")
+    del trainer, state, back, template
+    _free_cuda()
+
+
+def _grads_on(device, dtype, model, params, batch):
+    """(output, new stats or None, {leaf path: gradient}) of `model`'s
+    loss on `device` in `dtype`, from CPU tensors `params` and `batch`,
+    all returned on the CPU in float64."""
+    import torch
+
+    from determined_tpu_torch.models.gpt2 import _flatten, _unflatten, \
+        map_params
+
+    def cast(t):
+        return t.to(device, dtype if t.is_floating_point() else t.dtype)
+
+    flat = _flatten(params)
+    leaves = [cast(t.detach()).requires_grad_(True) for t in flat.values()]
+    out, stats, loss = model(_unflatten(dict(zip(flat, leaves))),
+                             map_params(cast, batch), dtype)
+    grads = torch.autograd.grad(loss, leaves)
+
+    def back(t):
+        return t.detach().cpu().double()
+
+    return (back(out), None if stats is None else
+            {k: back(v) for k, v in _flatten(stats).items()},
+            {k: back(g) for k, g in zip(flat, grads)})
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| (or / 1 where b is 0)."""
+    return float((a - b).abs().max() / (b.abs().max() or 1.0))
+
+
+def phase_conv_parity(card):
+    """13d: ResNet-50 (B 4, 224) and the diffusion base config, each
+    through the port on CUDA and on the CPU (the path the CPU tests hold
+    to JAX), TF32 off. In float64 the output, the new BN stats and each
+    leaf's gradient must agree within PARITY_TOL of that leaf's largest
+    element: the two paths compute one function. In fp32 the output and
+    the stats must agree within PARITY_TOL too, and the gradients are
+    read against the CPU's float64 ones: ResNet-50's fp32 gradients are
+    themselves far from float64 at B 4 (deep leaves' terms cancel in
+    BatchNorm's backward, on either device), so the CUDA path's worst
+    leaf may be at most twice as far from float64 as the CPU's worst
+    leaf, or PARITY_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import diffusion, resnet
+    from determined_tpu_torch.models.gpt2 import map_params
+
+    rng = np.random.default_rng(SEED + 50)
+    rcfg = resnet.Config.resnet50()
+    rparams, rstats = resnet.init(torch.Generator().manual_seed(SEED + 51),
+                                  rcfg)
+    # A nonzero head, so that every gradient is.
+    rparams["head"]["kernel"] = torch.from_numpy(
+        0.01 * rng.normal(size=tuple(rparams["head"]["kernel"].shape))
+        .astype(np.float32))
+    rbatch = {"images": torch.from_numpy(rng.normal(size=(4, 224, 224, 3))
+                                         .astype(np.float32)),
+              "labels": torch.from_numpy(rng.integers(0, 1000, 4)
+                                         .astype(np.int32))}
+
+    def resnet_model(p, b, dtype):
+        cfg = dataclasses.replace(rcfg, dtype=dtype, param_dtype=dtype)
+        stats = map_params(lambda t: t.to(b["images"].device, dtype), rstats)
+        logits, new = resnet.apply(p, stats, b["images"], cfg, train=True)
+        labels = b["labels"].long()
+        loss = -torch.log_softmax(logits, -1).gather(
+            -1, labels[:, None]).mean()
+        return logits, new, loss
+
+    dcfg = diffusion.Config()
+    dparams = diffusion.init(torch.Generator().manual_seed(SEED + 52), dcfg)
+    dparams["conv_out"]["kernel"] = torch.from_numpy(
+        0.05 * rng.normal(size=tuple(dparams["conv_out"]["kernel"].shape))
+        .astype(np.float32))
+    dbatch = {"x0": torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3))
+                                     .astype(np.float32)),
+              "t": torch.from_numpy(rng.integers(0, dcfg.timesteps, 4)),
+              "eps": torch.from_numpy(rng.normal(size=(4, 32, 32, 3))
+                                      .astype(np.float32))}
+
+    def diffusion_model(p, b, dtype):
+        cfg = dataclasses.replace(dcfg, dtype=dtype)
+        ab = diffusion.alpha_bars(cfg, b["x0"].device)[b["t"]].to(dtype)
+        xt = torch.sqrt(ab)[:, None, None, None] * b["x0"] + \
+            torch.sqrt(1 - ab)[:, None, None, None] * b["eps"]
+        out = diffusion.apply(p, xt, b["t"], cfg)
+        return out, None, torch.mean((out - b["eps"]) ** 2)
+
+    for name, model, params, batch in (
+            ("ResNet-50, B 4, 224", resnet_model, rparams, rbatch),
+            ("diffusion base, B 4, 32", diffusion_model, dparams, dbatch)):
+        t0 = time.monotonic()
+        run = {(dev, str(dt)[6:]): _grads_on(dev, dt, model, params, batch)
+               for dev in ("cuda", "cpu")
+               for dt in (torch.float64, torch.float32)}
+        verdict = {}
+        for prec in ("float64", "float32"):
+            (go, gs, gg), (co, cs_, cg) = run["cuda", prec], run["cpu", prec]
+            stat = 0.0 if gs is None else max(
+                _rel(gs[k], cs_[k]) for k in cs_)
+            leaf, grad = max(((k, _rel(g, cg[k])) for k, g in gg.items()),
+                             key=lambda kv: kv[1])
+            verdict[prec] = (_rel(go, co), stat, grad, leaf)
+        o64, s64, g64, l64 = verdict["float64"]
+        o32, s32, g32, l32 = verdict["float32"]
+        ref = run["cpu", "float64"][2]
+        far = {dev: max(_rel(g, ref[k]) for k, g in run[dev, "float32"][2]
+                        .items()) for dev in ("cuda", "cpu")}
+        say(f"[13d] [{card}] parity, {name}, CUDA against CPU (TF32 off). "
+            f"float64: output {o64:.3e}, new BN stats {s64:.3e}, worst "
+            f"gradient leaf {g64:.3e} ({l64}; limit {PARITY_TOL}). fp32: "
+            f"output {o32:.3e}, new BN stats {s32:.3e} (limit "
+            f"{PARITY_TOL}), worst gradient leaf {g32:.3e} ({l32}); the fp32 "
+            f"gradients' worst leaf against the CPU's float64 ones: CUDA "
+            f"{far['cuda']:.3e}, CPU {far['cpu']:.3e} (CUDA at most "
+            f"max({PARITY_TOL}, 2x the CPU's)); {time.monotonic() - t0:.1f} s")
+        if max(o64, s64, g64, o32, s32) > PARITY_TOL or \
+                far["cuda"] > max(PARITY_TOL, 2 * far["cpu"]):
+            fail(f"13d: {name} on CUDA differs from the CPU path")
+    _free_cuda()
+
+
+def phase_diffusion(workdir, card):
+    """13e: the diffusion example as a managed trial against a fake
+    master, pretrain.py into a fine-tune through `pretrained_path`, and
+    `sample` through the CUDA graph against the eager loop."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.models import diffusion
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.state import param_leaves
+    from determined_tpu_torch.train.trial import TrialContext
+
+    ex = load_example("examples/diffusion_cuda/model_def.py",
+                      "diffusion_cuda_ex")
+    hp = {**yaml_hparams(os.path.join(
+        ROOT, "examples/diffusion_cuda/finetune_asha.yaml")),
+        **DIFFUSION_POINT}
+    storage = os.path.join(workdir, "diffusion_checkpoints")
+    shutil.rmtree(storage, ignore_errors=True)
+    env = {"DET_TRIAL_ID": str(DIFFUSION_TRIAL), "DET_EXPERIMENT_ID": "2",
+           "DET_ALLOCATION_ID": "smoke-diffusion",
+           "DET_SESSION_TOKEN": "smoke", "DET_HPARAMS": json.dumps(hp),
+           "DET_EXPERIMENT_CONFIG": json.dumps({"checkpoint_storage": {
+               "type": "shared_fs", "host_path": storage}})}
+    master = FakeMaster(DIFFUSION_STEPS)
+    t0 = time.monotonic()
+    try:
+        with cluster_env(DET_MASTER=master.url, **env):
+            ctx = core.init()
+            if ctx.info is None:
+                fail("13e: core.init() did not take the cluster environment")
+            trial = ex.DiffusionTrial(TrialContext(hparams=ctx.hparams,
+                                                   core_context=ctx))
+            state = Trainer(trial, core_context=ctx).fit(
+                report_period=DIFFUSION_REPORT)
+            master.release()
+            ctx.close()
+    finally:
+        master.close()
+    wall = time.monotonic() - t0
+    train = [b for b in master.posted("/metrics")
+             if b["group"] == "training" and "loss" in b["metrics"]]
+    losses = [b["metrics"]["loss"] for b in train]
+    vals = [b for b in master.posted("/metrics") if b["group"] ==
+            "validation"]
+    ckpts = [(c["uuid"], c["state"])
+             for c in master.posted("/api/v1/checkpoints")]
+    ops = master.posted("/searcher/completed_operation")
+    step_ms = statistics.mean(1e3 / b["metrics"]["steps_per_second"]
+                              for b in train[1:])
+    end = f"trial{DIFFUSION_TRIAL}-step{DIFFUSION_STEPS}"
+    say(f"[13e] [{card}] diffusion base (bf16, 32x32, B {hp['global_batch_size']}), "
+        f"a managed trial at {DIFFUSION_POINT}: {state.step} steps in "
+        f"{wall:.1f} s, step {step_ms:.2f} ms; losses every "
+        f"{DIFFUSION_REPORT} steps {[round(x, 4) for x in losses]}; "
+        f"validation reports "
+        f"{[(b['steps_completed'], round(b['metrics']['validation_loss'], 4)) for b in vals]}; "
+        f"checkpoints {ckpts}; completed op {ops}")
+    if state.step != DIFFUSION_STEPS or not finite_and_falling(losses) or \
+            [b["steps_completed"] for b in vals] != [DIFFUSION_STEPS] or \
+            (end, "COMPLETED") not in ckpts or len(ops) != 1:
+        fail("13e: the managed diffusion trial did not train, validate and "
+             "commit")
+    params = state.params
+    del state
+
+    pretrain = load_example("examples/diffusion_cuda/pretrain.py",
+                            "diffusion_cuda_pretrain")
+    path = os.path.join(workdir, "diffusion_pretrained.pkl")
+    t0 = time.monotonic()
+    pretrain.main(["--steps", str(PRETRAIN_STEPS), "--batch", "64",
+                   "--out", path])
+    ctx = core.init(max_length=1, checkpoint_dir=os.path.join(
+        workdir, "diffusion_finetune"))
+    trainer = Trainer(ex.DiffusionTrial(TrialContext(hparams={
+        **hp, "pretrained_path": path}, core_context=ctx)), core_context=ctx)
+    trainer._build(SEED)
+    want = diffusion.params_from_numpy(ex.load_params(path), "cuda")
+    got_leaves = trainer.state.leaves()
+    same = all(torch.equal(a, b) for a, b in
+               zip(got_leaves, param_leaves(want), strict=True))
+    ctx.close()
+    say(f"[13e] pretrain.py {PRETRAIN_STEPS} steps, then the trial through "
+        f"pretrained_path: step-0 params bit-equal to the file: {same} "
+        f"({time.monotonic() - t0:.1f} s)")
+    if not same:
+        fail("13e: the fine-tune did not start from the pretrained file")
+    del trainer, want, got_leaves
+    _free_cuda()
+
+    cfg = diffusion.Config()
+    out, ms = {}, {}
+    for mode in ("graph", "eager"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode] = diffusion.sample(params, gen, SAMPLE_N, cfg,
+                                     graph=mode == "graph")
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) * 1e3 / cfg.timesteps
+    same = torch.equal(out["graph"], out["eager"])
+    lo, hi = float(out["graph"].min()), float(out["graph"].max())
+    say(f"[13e] [{card}] sample n {SAMPLE_N}, T {cfg.timesteps}, bf16: "
+        f"graph {ms['graph']:.3f} ms a denoising step, eager "
+        f"{ms['eager']:.3f} ms ({ms['eager'] / ms['graph']:.1f}x); bitwise "
+        f"equal {same}; values in [{lo:.4f}, {hi:.4f}]")
+    if not same or lo < -1.0 or hi > 1.0 or \
+            not bool(torch.isfinite(out["graph"]).all()):
+        fail("13e: the graph's samples differ from the eager loop's")
+    del params, out
+    _free_cuda()
+    return {"sample_ms": ms, "step_ms": step_ms}
+
+
+def phase_other_models(workdir, card):
+    """Phase 13, each sub-phase's wall time printed."""
+    times = {}
+    for name, fn in (("13a", lambda: phase_mnist(workdir, card)),
+                     ("13b", lambda: phase_resnet50(card)),
+                     ("13c", lambda: phase_cifar_trial(workdir, card)),
+                     ("13d", lambda: phase_conv_parity(card)),
+                     ("13e", lambda: phase_diffusion(workdir, card))):
+        t0 = time.monotonic()
+        times[name] = (fn(), time.monotonic() - t0)
+        say(f"[{name}] wall {times[name][1]:.1f} s")
+    return {k: v[0] for k, v in times.items()}
+
+
 FLASH_KERNELS = (  # (key, name, TPU kernel it replaces)
     ("fwd", "flash_fwd", "determined_tpu/ops/flash_attention.py:137"),
     ("dq", "flash_dq", "determined_tpu/ops/flash_attention.py:245"),
@@ -3675,6 +4394,7 @@ def main() -> int:
     ring = phase_ring_blocks(card)
     phase_ulysses_inner(card)
     phase_split_world(workdir, hparams, card)
+    other = phase_other_models(workdir, card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -3726,6 +4446,19 @@ def main() -> int:
         f"{long['idle_share'] * 100:.1f}%, peak memory "
         f"{long['peak_gib']:.2f} GiB; flash device ms a layer "
         + ", ".join(f"{k} {v:.3f}" for k, v in long["per_layer_ms"].items()))
+    r50, prof = other["13b"], other["13b"]["profile"]
+    say(f"[times] [{card}] ResNet-50 bf16, B {r50['batch']}, 224x224, "
+        f"sgd(0.1, momentum=0.9): replayed step {r50['replay_ms']:.2f} ms "
+        f"({r50['batch'] / r50['replay_ms'] * 1e3:.1f} samples/s), eager "
+        f"{r50['eager_ms']:.2f} ms ({r50['batch'] / r50['eager_ms'] * 1e3:.1f}"
+        f" samples/s); device ms a step: convolutions {prof['conv_ms']:.2f}, "
+        f"BatchNorm {prof['bn_ms']:.2f}, other {prof['other_ms']:.2f}; idle "
+        f"share {prof['idle_share'] * 100:.1f}%; peak {r50['peak_gib']:.2f} "
+        f"GiB; replay bitwise {r50['bitwise']}")
+    say(f"[times] [{card}] diffusion base bf16, B 64: fit's step "
+        f"{other['13e']['step_ms']:.2f} ms; sample a denoising step: graph "
+        f"{other['13e']['sample_ms']['graph']:.3f} ms, eager "
+        f"{other['13e']['sample_ms']['eager']:.3f} ms")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",

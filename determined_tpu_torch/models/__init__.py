@@ -1,1 +1,3 @@
-"""Model definitions (GPT-2) in PyTorch, in the JAX package's layouts."""
+"""Model definitions in PyTorch, in the JAX package's layouts: GPT-2
+(dense and MoE), and the convolutional models (MNIST, ResNet, the DDPM
+diffusion UNet), whose kernels are OIHW (`models/_conv.py` converts)."""

@@ -11,6 +11,9 @@ arithmetic and defaults:
     bias-corrected update, plus `weight_decay * param` on every leaf (no
     mask), times `-lr`; `lr` may be a schedule, read at the step count
     BEFORE the increment, as `optax.scale_by_schedule` does;
+  - `sgd(lr, momentum=None, nesterov=False)`: optax's `trace` (`t <- g +
+    momentum * t`; the update `g + momentum * t` with nesterov, else `t`)
+    then `-lr` times it (the MNIST and ResNet trials);
   - `warmup_cosine_decay_schedule`, `linear_schedule`,
     `cosine_decay_schedule`: the optax schedules (step 0 of a warmup from
     0 has lr 0);
@@ -197,6 +200,45 @@ def adamw(learning_rate: ScalarOrSchedule, b1: float = 0.9,
         torch._foreach_mul_(mu_hat, neg_lr)
         for g, u in zip(grads, mu_hat):
             g.copy_(u)
+        return grads, new_state
+
+    return GradientTransformation(init, update, next_floats)
+
+
+def sgd(learning_rate: ScalarOrSchedule, momentum: Optional[float] = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """optax.sgd: `trace(decay=momentum, nesterov)` when `momentum` is set,
+    then `scale_by_learning_rate`. Each product is rounded on its own, as
+    optax's are (no fused multiply-add): `t = g + momentum * t`."""
+    schedule = _as_schedule(learning_rate)
+
+    def init(params):
+        trace = None if momentum is None else \
+            [torch.zeros_like(p) for p in params]
+        return {"count": 0, "trace": trace}
+
+    def next_floats(state):
+        """[-lr] of the next update, the schedule read at the count before
+        the increment."""
+        return ([-schedule(state["count"])],
+                {"count": state["count"] + 1, "trace": state["trace"]})
+
+    def update(grads, state, params=None, hyper=None):
+        floats, new_state = next_floats(state)
+        if hyper is None:
+            hyper = torch.tensor(floats, dtype=torch.float32)
+            if grads and grads[0].is_cuda:
+                hyper = hyper.to(grads[0].device, non_blocking=True)
+        trace = state["trace"]
+        if trace is not None:
+            torch._foreach_mul_(trace, momentum)
+            torch._foreach_add_(trace, grads)
+            if nesterov:
+                torch._foreach_add_(grads, torch._foreach_mul(trace, momentum))
+            else:
+                for g, t in zip(grads, trace):
+                    g.copy_(t)
+        torch._foreach_mul_(grads, hyper[0])
         return grads, new_state
 
     return GradientTransformation(init, update, next_floats)

@@ -36,6 +36,7 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from determined_tpu_torch.core._checkpoint import _map_tensors
 from determined_tpu_torch.models.gpt2 import _flatten, _unflatten
 from determined_tpu_torch.parallel import sharding
 from determined_tpu_torch.parallel.sharding import LogicalRules, PartitionSpec
@@ -48,7 +49,8 @@ class TrainState:
     params: Any
     opt_state: Any
     # Non-gradient mutable collections (e.g. BatchNorm running stats). None
-    # for purely functional models.
+    # for purely functional models. A step writes new values into these
+    # tensors in place (`apply_gradients`).
     extra: Any = None
 
     def leaves(self) -> List[torch.Tensor]:
@@ -77,8 +79,37 @@ class TrainState:
             optim.apply_updates(params, updates)
         self.step += 1
         if new_extra is not None:
-            self.extra = new_extra
+            if self.extra is None:
+                self.extra = new_extra
+            else:
+                # Into the state's own buffers: a captured step (a CUDA
+                # graph) reads and writes these same tensors at each replay.
+                with torch.no_grad():
+                    _copy_into(self.extra, new_extra)
         return self
+
+
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy each tensor of `src` into the tensor at the same place (dict
+    key, list index) of `dst`."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"new extra keys {sorted(src)} differ from the "
+                             f"state's {sorted(dst)}")
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src, strict=True):
+            _copy_into(d, s)
+
+
+def extra_leaves(extra: Any) -> List[torch.Tensor]:
+    """The tensors of a non-gradient state tree, in a fixed order."""
+    out: List[torch.Tensor] = []
+    _map_tensors(extra, out.append)
+    return out
 
 
 def param_leaves(params: Any) -> List[torch.Tensor]:
@@ -314,6 +345,10 @@ def create_train_state(
     params = init_fn(generator)
     if device is not None:
         params = _to_device(params, torch.device(device))
+    if extra is not None:
+        # The state's own buffers, updated in place by each step.
+        extra = _map_tensors(extra, lambda t: t.detach().to(
+            t.device if device is None else device, copy=True))
     if mesh is not None and mesh.size() > 1:
         specs = aligned_param_specs(params, param_logical_axes or {}, rules)
         flat_specs = _flatten(specs) if isinstance(specs, dict) else \

@@ -36,7 +36,7 @@ from determined_tpu_torch.core._checkpoint import _map_tensors
 from determined_tpu_torch.parallel import sharding
 from determined_tpu_torch.parallel.sharding import LogicalRules
 from determined_tpu_torch.train import optim
-from determined_tpu_torch.train.state import TrainState
+from determined_tpu_torch.train.state import TrainState, extra_leaves
 
 # loss_fn(params, batch, rng) -> scalar loss OR (loss, aux_metrics)
 LossFn = Callable[..., Any]
@@ -263,6 +263,7 @@ class _MultiStep:
         for t in state.leaves():
             out.append(sharding.local_value(t).data_ptr())
         _map_tensors(state.opt_state, lambda t: out.append(t.data_ptr()))
+        out += [t.data_ptr() for t in extra_leaves(state.extra)]
         return out
 
     def _check_state(self, state) -> None:
@@ -327,7 +328,8 @@ class _MultiStep:
 
 def make_multi_step(loss_fn: LossFn, tx: optim.GradientTransformation,
                     steps_per_call: int, mesh=None,
-                    rules: Optional[LogicalRules] = None):
+                    rules: Optional[LogicalRules] = None,
+                    stateful: bool = False):
     """Build `multi_step(state, batches, rng) -> (state, metrics)` running
     `steps_per_call` optimizer steps per call, the JAX package's contract:
     every batch leaf has a leading `[steps_per_call, ...]` axis, and the
@@ -347,10 +349,14 @@ def make_multi_step(loss_fn: LossFn, tx: optim.GradientTransformation,
     raises (ROADMAP.md Queue 1 item 4): the port does not capture NCCL
     collectives yet. `rules` is the JAX package's argument, kept for its
     signature: a rank's batch already holds only its rows
-    (`step_input_shardings`), so there is nothing to constrain."""
+    (`step_input_shardings`), so there is nothing to constrain.
+    `stateful`: `loss_fn` takes and returns the state's `extra`, as in
+    `make_train_step`; each replay writes the new values into the same
+    buffers (`TrainState.apply_gradients`), so replay N reads replay
+    N - 1's (BatchNorm's running stats)."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    step = _step_fn(loss_fn, tx, False, mesh)
+    step = _step_fn(loss_fn, tx, stateful, mesh)
     return _MultiStep(step, tx, steps_per_call, _is_sharded(mesh))
 
 

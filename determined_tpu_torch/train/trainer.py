@@ -170,9 +170,14 @@ class Trainer:
         """Config checks before any state exists: the mesh must resolve
         over the world size, `pipeline` may not be above 1, `expert` only
         for a trial whose model routes over it (the others are refused,
-        not run replicated), and `tensor` and `context` only for a trial
-        that does not (MoE over them is not ported)."""
+        not run replicated), `tensor` and `context` only for a trial
+        that does not (MoE over them is not ported), and none of the three
+        for a trial whose model computes over the batch axes only
+        (`supports_model_parallel()` False; refused as asked, before the
+        mesh resolves, and again after)."""
         cfg = self.trial.mesh_config()
+        if not self.trial.supports_model_parallel():
+            self._refuse_model_axes(cfg)
         world = self._world_size()
         try:
             cfg = cfg.resolve(world)
@@ -184,6 +189,8 @@ class Trainer:
                 "the launcher starts one process per device "
                 "(python -m determined_tpu_torch.launch.torch_distributed)"
             ) from None
+        if not self.trial.supports_model_parallel():
+            self._refuse_model_axes(cfg)
         if cfg.pipeline > 1:
             raise ValueError(
                 f"{type(self.trial).__name__} asks for the mesh axis "
@@ -207,6 +214,16 @@ class Trainer:
                 "gpt2.Config(num_experts=...)) and override "
                 "supports_expert_parallel(), or drop the expert axis")
         return cfg
+
+    def _refuse_model_axes(self, cfg: MeshConfig) -> None:
+        split = {a: getattr(cfg, a) for a in ("tensor", "context", "expert")
+                 if getattr(cfg, a) > 1}
+        if split:
+            raise ValueError(
+                f"{type(self.trial).__name__} asks for the mesh axes {split}; "
+                "its model splits no work over tensor, context or expert "
+                "(supports_model_parallel() is False), so the port trains it "
+                "over data and fsdp only (ROADMAP.md Queue 1 item 14)")
 
     def _ensure_core(self, max_length: Optional[int]) -> core_mod.Context:
         if self.core is None:

@@ -11,9 +11,11 @@ What differs from the JAX package: `init_params` receives a
 has one process per device, so a loader yields this rank's rows of the
 global batch (`TrialContext.distributed` says which), where a JAX process
 yields its host's (`parallel.mesh.batch_shard` says which block).
-`mesh_config()` may set `data` and `fsdp` above 1, and `expert` for a
-trial that declares `supports_expert_parallel()`; the other axes make the
-Trainer raise (ROADMAP.md Queue 1 item 7).
+`mesh_config()` may set `data` and `fsdp` above 1, `expert` for a
+trial that declares `supports_expert_parallel()`, and `tensor` and
+`context` for a dense GPT-2 trial; `pipeline` makes the Trainer raise
+(ROADMAP.md Queue 1 item 7), and so do `tensor`, `context` and `expert`
+for a trial whose `supports_model_parallel()` is False (item 14).
 """
 
 from __future__ import annotations
@@ -127,6 +129,15 @@ class TorchTrial(abc.ABC):
         hparam block when set)."""
         mc = self.context.hparams.get("mesh")
         return MeshConfig.from_dict(mc) if mc else MeshConfig()
+
+    def supports_model_parallel(self) -> bool:
+        """False for a trial whose model splits no work over the `tensor`,
+        `context` or `expert` axes (the convolutional models: MNIST,
+        ResNet, the diffusion UNet): the Trainer refuses those axes above
+        1 for it, before any state is built, where sharding its leaves by
+        their logical axes would give wrong gradients (ROADMAP.md Queue 1
+        item 14)."""
+        return True
 
     def supports_expert_parallel(self) -> bool:
         """Trials whose model routes tokens over the mesh `expert` axis (an

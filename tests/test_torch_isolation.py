@@ -29,6 +29,7 @@ PORT_MODULES = [
     "determined_tpu_torch.core._searcher",
     "determined_tpu_torch.core._train",
     "determined_tpu_torch.data",
+    "determined_tpu_torch.data.bench",
     "determined_tpu_torch.data.prefetch",
     "determined_tpu_torch.experimental",
     "determined_tpu_torch.experimental.core_v2",
@@ -38,7 +39,11 @@ PORT_MODULES = [
     "determined_tpu_torch.experimental.core_v2._core_v2",
     "determined_tpu_torch.launch",
     "determined_tpu_torch.launch.torch_distributed",
+    "determined_tpu_torch.models._conv",
+    "determined_tpu_torch.models.diffusion",
     "determined_tpu_torch.models.gpt2",
+    "determined_tpu_torch.models.mnist",
+    "determined_tpu_torch.models.resnet",
     "determined_tpu_torch.ops._build",
     "determined_tpu_torch.ops._softmax_common",
     "determined_tpu_torch.ops.flash_attention",
@@ -69,7 +74,10 @@ PORT_MODULES = [
     "determined_tpu_torch.train.watchdog",
 ]
 # Files of the port outside the package, imported by path.
-PORT_FILES = ["examples/gpt2_cuda/model_def.py"]
+PORT_FILES = ["examples/gpt2_cuda/model_def.py",
+              "examples/mnist_cuda/model_def.py",
+              "examples/diffusion_cuda/model_def.py",
+              "examples/diffusion_cuda/pretrain.py"]
 
 
 def _cuda_hidden(monkeypatch):
@@ -288,3 +296,39 @@ def test_trainer_raises_without_cuda(monkeypatch, tmp_path):
         Trainer(trial, core_context=ctx)
     assert Trainer(trial, core_context=ctx, device="cpu").device.type == \
         "cpu"
+
+
+def test_the_conv_examples_and_harnesses_raise_without_cuda(monkeypatch,
+                                                             tmp_path):
+    import importlib.util
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.data.bench import ab_compare
+    from determined_tpu_torch.models import diffusion
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trial import TrialContext
+
+    def load(path, name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(REPO, path))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    mnist_ex = load(PORT_FILES[1], "mnist_cuda_model_def")
+    pretrain = load(PORT_FILES[3], "diffusion_cuda_pretrain")
+    _cuda_hidden(monkeypatch)
+    ctx = core.init(max_length=1, checkpoint_dir=str(tmp_path))
+    trial = mnist_ex.MNistTrial(TrialContext(hparams={"hidden": 8}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(trial, core_context=ctx)
+    ctx.close()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain.main(["--steps", "1", "--model-size", "tiny",
+                       "--out", str(tmp_path / "p.pkl")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ab_compare(lambda: iter(()), lambda b: None)
+    cfg = diffusion.Config.tiny()
+    params = diffusion.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="captures a CUDA graph"):
+        diffusion.sample(params, torch.Generator(), 1, cfg, graph=True)
