@@ -296,12 +296,51 @@ fails:
      the eager loop from one generator seed: bitwise equal, every value in
      [-1, 1], the ms a denoising step of each.
 
+  14. the torch trial APIs and the checkpoint storage backends
+     (determined_tpu_torch/pytorch/, storage/), each sub-phase's wall time
+     printed.
+ 14a. examples/gpt2_torch_cuda's `GPT2TorchTrial` (GPT-2 small, B 8, S
+     1024, bf16 compute, fp32 params, AdamW lr 3e-4) through
+     `pytorch.Trainer.fit` under a local `core.init(max_length=30)` with
+     shared_fs storage, on phase 7's token stream: losses finite and
+     falling, the flash kernels launched by phase 7's formula (8
+     validation batches), the plain attention never run; a fresh trial
+     restores the final checkpoint through `restore_path`, params and
+     AdamW state bitwise equal. Prints fit's step (host clock after each
+     step's `loss.item()`, steps 6-30) and tokens/s beside phase 7's
+     `Trainer.fit` step (information). Then the trial managed against
+     7c's FakeMaster: run A preempted after step 15's report, its
+     checkpoint registered; run B resumes from `DET_LATEST_CHECKPOINT`
+     with params bitwise equal to run A's, reports 20, 25 and 30, and
+     completes the op with a COMPLETED checkpoint.
+ 14b. the same module as examples/gpt2_torch_cuda's `GPT2ZeroTrial` on
+     `ZeroOneEngine` at world 1 (micro batch 4, accumulation 2) through
+     `DeepSpeedTrainer.fit`, 20 steps: losses finite and falling,
+     `optimizer_state_numel` = AdamW's two moments and step counts; an
+     engine step against `torch.optim.AdamW` on the same gradients
+     bitwise (and, printed, through the engine's own backward);
+     `save_checkpoint` then `load_checkpoint` into a fresh engine
+     bitwise. Prints the step and `optimizer_state_numel`.
+ 14c. GPT-2 small's TrainState from the port's Trainer (params and Adam
+     moments after one step, ~1.5 GB) through `CheckpointContext` into
+     `checkpoint_storage: {type: azure}` against an in-process fake Blob
+     service (this script's own, stdlib only, every request's SharedKey
+     signature checked): `save_state` (async), `wait`, `verify`,
+     `restore_state` bitwise, no staging left; `store_path`,
+     `restore_path`, `download` with a selector, `load_metadata` and
+     `delete` on the same backend; then the same save and restore on
+     shared_fs. Prints each one's sync and wait ms and MB/s of upload
+     and restore. gcs and s3: where the SDK does not import,
+     `from_config` must raise naming the package (`[14c] gcs not run:
+     ...`).
+
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
 or "ffma" CUDA cores; `launches` counts phase 7's path, phase 5's for the
 paged kernel, `launches_moe` phase 11a's, 11c's for the paged kernel,
-and for the flash kernels `launches_long` phase 12a's and
-`launches_ring` 12b's ring schedule, and `long_ms` a launch's device
+and for the flash kernels `launches_long` phase 12a's,
+`launches_ring` 12b's ring schedule and `launches_torch_trial` 14a's
+`pytorch.Trainer.fit`, and `long_ms` a launch's device
 time in 12a's steps, at B 4, S 8192, under torch.profiler, beside its
 bound at that shape, `long_bound_ms`); the last line is `{"ok": true,
 "device": {...}}`.
@@ -4353,6 +4392,623 @@ def phase_other_models(workdir, card):
     return {k: v[0] for k, v in times.items()}
 
 
+# ----------------------------------------------------------------- phase 14
+
+TORCH_TRIAL_STEPS = 30
+TORCH_TRIAL_REPORT = 5
+TORCH_TRIAL_ID = 14
+TORCH_TRIAL_PREEMPT_AT = 15
+ZERO_STEPS = 20
+
+
+def torch_trial_example():
+    return load_example("examples/gpt2_torch_cuda/model_def.py",
+                        "gpt2_torch_cuda_model_def")
+
+
+def torch_trial_hparams(hparams, **extra):
+    """examples/gpt2_torch_cuda's hparams at GPT-2 small, S 1024, on phase
+    7's token stream."""
+    return {"model_size": "small", "seq_len": 1024,
+            "per_device_batch_size": 8, "learning_rate": 3e-4,
+            "tokens_path": hparams["tokens_path"], **extra}
+
+
+def step_times(trial):
+    """Wrap `trial.train_batch` to keep the host clock after each step (it
+    ends in `loss.item()`, a device sync): -> the list it appends to."""
+    stamps = [time.monotonic()]
+    real = trial.train_batch
+
+    def timed(*a, **k):
+        out = real(*a, **k)
+        stamps.append(time.monotonic())
+        return out
+
+    trial.train_batch = timed
+    return stamps
+
+
+def steady_step_ms(stamps, skip):
+    """Mean ms a step over the steps after the first `skip`."""
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])][skip:]
+    return statistics.mean(gaps) * 1e3
+
+
+def module_state(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def tensors_equal(a, b):
+    """Nested dicts/lists of tensors and python values, bitwise."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and \
+            a.shape == b.shape and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            tensors_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(
+            tensors_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_torch_trial(workdir, hparams, card, train_step_ms=None):
+    """14a: examples/gpt2_torch_cuda's PyTorchTrial (GPT-2 small, B 8, S
+    1024, bf16 compute, fp32 params, AdamW) through
+    `determined_tpu_torch.pytorch.Trainer.fit` under a local
+    `core.init(max_length=30)` with shared_fs storage; a fresh trial
+    restores the final checkpoint through `restore_path`; then the trial
+    managed against 7c's FakeMaster, preempted after step 15's report
+    and resumed from `DET_LATEST_CHECKPOINT` to 30."""
+    import shutil
+    import types
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.pytorch import PyTorchTrialContext, Trainer
+
+    ex = torch_trial_example()
+    hp = torch_trial_hparams(hparams)
+    ckpt_dir = os.path.join(workdir, "torch_trial_checkpoints")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ctx = core.init(max_length=TORCH_TRIAL_STEPS, checkpoint_dir=ckpt_dir)
+    trial = ex.GPT2TorchTrial(PyTorchTrialContext(ctx, hp))
+    cfg = trial.cfg
+    stamps = step_times(trial)
+    n_val = len(trial.build_validation_data_loader().get_data_loader())
+
+    # The main path runs from here: every count starts at 0.
+    for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+        fn.launches = 0
+    fa.reference_attention.calls = 0
+    stamps[0] = time.monotonic()
+    steps = Trainer(trial, core_context=ctx).fit(
+        report_period=TORCH_TRIAL_REPORT)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - stamps[0]
+    launches = {"fwd": fa.flash_fwd_cuda.launches,
+                "dq": fa.flash_dq_cuda.launches,
+                "dkv": fa.flash_dkv_cuda.launches}
+    ref_calls = fa.reference_attention.calls
+    losses = report_losses(ctx)
+    val = ctx.train.local_validation_metrics
+    want = {"fwd": (2 * TORCH_TRIAL_STEPS + n_val) * cfg.n_layer,
+            "dq": TORCH_TRIAL_STEPS * cfg.n_layer,
+            "dkv": TORCH_TRIAL_STEPS * cfg.n_layer}
+    step_ms = steady_step_ms(stamps, TORCH_TRIAL_REPORT)
+    tokens_per_s = 8 * 1024 / (step_ms / 1e3)
+    say(f"[14a] [{card}] GPT2TorchTrial (GPT-2 small, B 8, S 1024, "
+        f"{str(cfg.dtype)[6:]} compute, fp32 params, AdamW lr 3e-4) through "
+        f"pytorch.Trainer.fit: {steps} steps in {wall:.1f} s; losses every "
+        f"{TORCH_TRIAL_REPORT} steps {[round(x, 4) for x in losses]}; "
+        f"validation {val[-1]['metrics'] if val else None}")
+    say(f"[14a] flash launches {launches} (expected {want}: phase 7's "
+        f"formula, {n_val} validation batches); reference_attention calls "
+        f"{ref_calls}")
+    if steps != TORCH_TRIAL_STEPS or not finite_and_falling(losses) or \
+            len(losses) != TORCH_TRIAL_STEPS // TORCH_TRIAL_REPORT:
+        fail(f"14a: the PyTorchTrial did not train: {steps} steps, "
+             f"losses {losses}")
+    if launches != want or ref_calls != 0:
+        fail(f"14a: flash launches {launches} != {want} or plain attention "
+             f"calls {ref_calls}")
+    phase7 = (f"{train_step_ms:.2f} ms ({8 * 1024 / train_step_ms * 1e3:.0f}"
+              f" tokens/s)" if train_step_ms else "not run")
+    say(f"[14a] [{card}] fit's step over steps {TORCH_TRIAL_REPORT + 1}-"
+        f"{TORCH_TRIAL_STEPS}: {step_ms:.2f} ms, {tokens_per_s:.0f} "
+        f"tokens/s; phase 7's Trainer.fit step for the same model: {phase7}")
+
+    (rec,) = ctx.checkpoint.local_reported
+    sid = rec["uuid"]
+    ctx.close()
+    ctx2 = core.init(max_length=TORCH_TRIAL_STEPS, checkpoint_dir=ckpt_dir)
+    fresh = ex.GPT2TorchTrial(PyTorchTrialContext(ctx2, dict(hp, seed=1)))
+    ctx2.info = types.SimpleNamespace(trial=types.SimpleNamespace(
+        latest_checkpoint=sid))
+    restored = Trainer(fresh, core_context=ctx2)._restore()
+    same = restored == TORCH_TRIAL_STEPS and tensors_equal(
+        module_state(fresh.model), module_state(trial.model)) and \
+        tensors_equal(fresh.opt.state_dict(), trial.opt.state_dict())
+    files = sorted(os.listdir(os.path.join(ckpt_dir, sid)))
+    say(f"[14a] checkpoint {sid} ({files}, {rec['metadata']}) restored "
+        f"through restore_path into a fresh trial: step {restored}, params "
+        f"and AdamW state bitwise equal: {same}")
+    ctx2.close()
+    if not same or files != ["metadata.json", "state.pt"]:
+        fail("14a: the restored trial differs from the trained one")
+    del trial, fresh
+    _free_cuda()
+
+    # Managed: run A preempted after step 15's report, run B resumed.
+    storage = os.path.join(workdir, "torch_trial_managed")
+    shutil.rmtree(storage, ignore_errors=True)
+    base_env = {
+        "DET_TRIAL_ID": str(TORCH_TRIAL_ID), "DET_EXPERIMENT_ID": "1",
+        "DET_ALLOCATION_ID": "smoke-alloc-14", "DET_SESSION_TOKEN": "smoke",
+        "DET_HPARAMS": json.dumps(hp),
+        "DET_EXPERIMENT_CONFIG": json.dumps({"checkpoint_storage": {
+            "type": "shared_fs", "host_path": storage}})}
+
+    def run(master, **extra):
+        with cluster_env(DET_MASTER=master.url, **base_env, **extra):
+            mctx = core.init()
+            if mctx.info is None or mctx.checkpoint._session is None:
+                fail("14a: core.init() did not take the cluster environment")
+            mtrial = ex.GPT2TorchTrial(PyTorchTrialContext(mctx))
+            return mctx, mtrial, Trainer(mtrial, core_context=mctx)
+
+    master_a = FakeMaster(TORCH_TRIAL_STEPS,
+                          preempt_after=TORCH_TRIAL_PREEMPT_AT)
+    t0 = time.monotonic()
+    try:
+        mctx, mtrial, trainer = run(master_a)
+        steps_a = trainer.fit(report_period=TORCH_TRIAL_REPORT)
+        params_a = module_state(mtrial.model)
+        master_a.release()
+        mctx.close()
+    finally:
+        master_a.close()
+    ckpts_a = [(c["uuid"], c["state"], c["steps_completed"])
+               for c in master_a.posted("/api/v1/checkpoints")]
+    say(f"[14a] managed run A: fit returned at step {steps_a} in "
+        f"{time.monotonic() - t0:.1f} s; preemption acked "
+        f"{len(master_a.posted('/signals/ack_preemption'))}x; checkpoint "
+        f"reports {ckpts_a}; registry {master_a.registry}")
+    if steps_a != TORCH_TRIAL_PREEMPT_AT or len(ckpts_a) != 1 or \
+            ckpts_a[0][1:] != ("COMPLETED", TORCH_TRIAL_PREEMPT_AT) or \
+            master_a.registry != [ckpts_a[0][0]] or \
+            not master_a.posted("/signals/ack_preemption") or \
+            master_a.posted("/searcher/completed_operation"):
+        fail("14a: run A did not stop at the preemption with a registered "
+             "checkpoint")
+    sid_a = ckpts_a[0][0]
+
+    master_b = FakeMaster(TORCH_TRIAL_STEPS)
+    t0 = time.monotonic()
+    try:
+        mctx, mtrial, trainer = run(master_b, DET_LATEST_CHECKPOINT=sid_a)
+        seen = {}
+        real_restore = trainer._restore
+
+        def restore():
+            seen["step"] = real_restore()
+            seen["same"] = tensors_equal(module_state(mtrial.model), params_a)
+            return seen["step"]
+
+        trainer._restore = restore
+        steps_b = trainer.fit(report_period=TORCH_TRIAL_REPORT)
+        master_b.release()
+        mctx.close()
+    finally:
+        master_b.close()
+    ckpts_b = [(c["uuid"], c["state"], c["steps_completed"])
+               for c in master_b.posted("/api/v1/checkpoints")]
+    reported = [b["steps_completed"] for b in master_b.posted("/metrics")
+                if b["group"] == "training"]
+    ops = master_b.posted("/searcher/completed_operation")
+    say(f"[14a] managed run B: restored {sid_a} at step {seen.get('step')}, "
+        f"params bitwise equal to run A's: {seen.get('same')}; fit returned "
+        f"at step {steps_b} in {time.monotonic() - t0:.1f} s; training "
+        f"reports at {reported}; completed op {ops}; checkpoint reports "
+        f"{ckpts_b}; registry {master_b.registry}")
+    if seen.get("step") != TORCH_TRIAL_PREEMPT_AT or not seen.get("same") \
+            or steps_b != TORCH_TRIAL_STEPS or reported != [20, 25, 30] or \
+            len(ops) != 1 or ops[0]["length"] != TORCH_TRIAL_STEPS or \
+            [c[1:] for c in ckpts_b] != [("COMPLETED", TORCH_TRIAL_STEPS)] or \
+            master_b.registry != [ckpts_b[0][0]]:
+        fail("14a: run B did not resume from run A's checkpoint and finish")
+    del mtrial, trainer
+    _free_cuda()
+    return {"launches": launches, "step_ms": step_ms,
+            "tokens_per_s": tokens_per_s}
+
+
+def optimizer_states_equal(a, b):
+    sa, sb = a.state_dict()["state"], b.state_dict()["state"]
+    return sa.keys() == sb.keys() and all(
+        tensors_equal(sa[k], sb[k]) for k in sa)
+
+
+def phase_zero_trial(workdir, hparams, card):
+    """14b: the same GPT-2 module as a DeepSpeedTrial on `ZeroOneEngine`
+    at world 1 (micro batch 4, gradient accumulation 2) through
+    `DeepSpeedTrainer.fit` for 20 steps; an engine step against
+    `torch.optim.AdamW` on the same gradients; save_checkpoint and
+    load_checkpoint bitwise."""
+    import shutil
+    import types
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.pytorch import (
+        DeepSpeedTrainer, DeepSpeedTrialContext, ZeroOneEngine)
+
+    ex = torch_trial_example()
+    hp = torch_trial_hparams(hparams, micro_batch_size=4,
+                             gradient_accumulation=2)
+    ckpt_dir = os.path.join(workdir, "zero_checkpoints")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ctx = core.init(max_length=ZERO_STEPS, checkpoint_dir=ckpt_dir)
+    trial = ex.GPT2ZeroTrial(DeepSpeedTrialContext(ctx, hp))
+    stamps = step_times(trial)
+    stamps[0] = time.monotonic()
+    steps = DeepSpeedTrainer(trial, core_context=ctx).fit(
+        searcher_metric="val_loss", report_period=5)
+    wall = time.monotonic() - stamps[0]
+    losses = report_losses(ctx)
+    eng = trial.engine
+    numel = eng.optimizer_state_numel()
+    n_params = sum(p.numel() for p in eng._params)
+    step_ms = steady_step_ms(stamps, 5)
+    files = sorted(os.listdir(os.path.join(
+        ckpt_dir, ctx.checkpoint.local_reported[-1]["uuid"])))
+    say(f"[14b] [{card}] GPT2ZeroTrial on ZeroOneEngine, world 1, micro "
+        f"batch 4 x accumulation 2: {steps} steps in {wall:.1f} s, step "
+        f"{step_ms:.2f} ms over steps 6-{ZERO_STEPS}; losses every 5 "
+        f"{[round(x, 4) for x in losses]}; optimizer_state_numel {numel:,} "
+        f"(2 x {n_params:,} + {len(eng._params)} step counts); checkpoint "
+        f"files {files}")
+    if steps != ZERO_STEPS or not finite_and_falling(losses) or \
+            numel != 2 * n_params + len(eng._params):
+        fail(f"14b: the ZeRO-1 trial did not train: {steps} {losses}")
+
+    # save_checkpoint, then load_checkpoint into a fresh engine.
+    save_dir = os.path.join(workdir, "zero_engine")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    eng.save_checkpoint(save_dir, tag="t")
+    lr = float(hp["learning_rate"])
+    other = ZeroOneEngine(
+        ex.GPT2Module(trial.cfg, 1).cuda(),
+        lambda p: torch.optim.AdamW(p, lr=lr), micro_batch_size=4,
+        gradient_accumulation=2)
+    other.load_checkpoint(save_dir, tag="t")
+    reloaded = tensors_equal(module_state(other.module),
+                             module_state(eng.module)) and \
+        optimizer_states_equal(other.optimizer, eng.optimizer)
+    ctx.close()
+    del trial, eng, other
+    _free_cuda()
+
+    # One engine step against AdamW on the same gradients.
+    trial_cfg = ex.model_config(hp)
+    loader = iter(ex.DataLoader(
+        ex.SyntheticTokens(trial_cfg.vocab_size, 1024,
+                           path=hp["tokens_path"]),
+        batch_size=4).get_data_loader())
+    micro = [{k: v.cuda() for k, v in next(loader).items()} for _ in range(2)]
+    plain = ex.GPT2Module(trial_cfg, 0).cuda()
+    opt = torch.optim.AdamW(plain.parameters(), lr=lr)
+    for b in micro:
+        (plain(b) / 2).backward()
+    grads = [p.grad.clone() for p in plain.parameters()]
+    opt.step()
+    eng = ZeroOneEngine(ex.GPT2Module(trial_cfg, 0).cuda(),
+                        lambda p: torch.optim.AdamW(p, lr=lr),
+                        micro_batch_size=4, gradient_accumulation=2)
+    for p, g in zip(eng._params, grads):
+        p.grad = g.clone()
+    eng.step()  # the first micro batch of two: no update
+    eng.step()
+    same_grads = tensors_equal(module_state(eng.module),
+                               module_state(plain)) and \
+        optimizer_states_equal(eng.optimizer, opt)
+    # The same step through the engine's own backward (information).
+    own = ZeroOneEngine(ex.GPT2Module(trial_cfg, 0).cuda(),
+                        lambda p: torch.optim.AdamW(p, lr=lr),
+                        micro_batch_size=4, gradient_accumulation=2)
+    for b in micro:
+        own.backward(own(b))
+        own.step()
+    own_same = tensors_equal(module_state(own.module), module_state(plain))
+    say(f"[14b] one engine step against torch.optim.AdamW on the same "
+        f"gradients: params and AdamW state bitwise equal: {same_grads}; "
+        f"through the engine's own backward of the same micro batches: "
+        f"params bitwise equal: {own_same}; save_checkpoint -> "
+        f"load_checkpoint into a fresh engine: params and optimizer state "
+        f"bitwise equal: {reloaded}")
+    if not same_grads or not reloaded:
+        fail("14b: the ZeRO-1 engine differs from AdamW or its checkpoint")
+    del plain, opt, eng, own
+    _free_cuda()
+    return {"step_ms": step_ms, "optimizer_state_numel": numel}
+
+
+# The Blob service's REST subset the port's stdlib client speaks (Put Blob,
+# Put Block / Put Block List, Get Blob, List Blobs, Delete Blob), every
+# request's SharedKey signature recomputed: chip_smoke's own copy of the
+# tests' fake.
+BLOB_ACCOUNT = "smokeacct"
+BLOB_KEY = "MDEyMzQ1Njc4OWFiY2RlZjAxMjM0NTY3ODlhYmNkZWY="
+
+
+def fake_blob_service():
+    """-> (server, endpoint, store, auth failures)."""
+    import base64
+    import hashlib
+    import hmac
+    import xml.etree.ElementTree as ET
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    store, blocks, bad = {}, {}, []
+
+    class Blob(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _check(self, length):
+            url = urllib.parse.urlsplit(self.path)
+            query = dict(urllib.parse.parse_qsl(url.query))
+            res = f"/{BLOB_ACCOUNT}{url.path}" + "".join(
+                f"\n{k.lower()}:{query[k]}" for k in sorted(query))
+            ms = "".join(f"{k}:{v}\n" for k, v in sorted(
+                (k.lower(), v.strip()) for k, v in self.headers.items()
+                if k.lower().startswith("x-ms-")))
+            h = self.headers
+            sts = "\n".join([
+                self.command, h.get("Content-Encoding", ""),
+                h.get("Content-Language", ""), str(length) if length else "",
+                h.get("Content-MD5", ""), h.get("Content-Type", ""), "",
+                h.get("If-Modified-Since", ""), h.get("If-Match", ""),
+                h.get("If-None-Match", ""), h.get("If-Unmodified-Since", ""),
+                h.get("Range", "")]) + "\n" + ms + res
+            sig = base64.b64encode(hmac.new(
+                base64.b64decode(BLOB_KEY), sts.encode(),
+                hashlib.sha256).digest()).decode()
+            if h.get("Authorization") != f"SharedKey {BLOB_ACCOUNT}:{sig}":
+                bad.append(f"{self.command} {self.path}")
+            return url, query
+
+        def _name(self, url):
+            container, _, name = url.path.strip("/").partition("/")
+            return container, urllib.parse.unquote(name)
+
+        def _send(self, status, body=b""):
+            self.send_response(status)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def do_PUT(self):  # noqa: N802
+            n = int(self.headers.get("Content-Length", 0))
+            url, query = self._check(n)
+            body = self.rfile.read(n)
+            key = self._name(url)
+            if query.get("comp") == "block":
+                blocks[key + (query["blockid"],)] = body
+            elif query.get("comp") == "blocklist":
+                ids = [e.text for e in ET.fromstring(body).iter("Latest")]
+                store[key] = b"".join(blocks.pop(key + (i,)) for i in ids)
+            else:
+                store[key] = body
+            self._send(201)
+
+        def do_GET(self):  # noqa: N802
+            url, query = self._check(0)
+            if query.get("comp") == "list":
+                container, prefix = url.path.strip("/"), query.get(
+                    "prefix", "")
+                blobs = "".join(
+                    f"<Blob><Name>{n}</Name><Properties><Content-Length>"
+                    f"{len(b)}</Content-Length></Properties></Blob>"
+                    for (c, n), b in sorted(store.items())
+                    if c == container and n.startswith(prefix))
+                self._send(200, ("<?xml version='1.0'?><EnumerationResults>"
+                                 f"<Blobs>{blobs}</Blobs><NextMarker/>"
+                                 "</EnumerationResults>").encode())
+                return
+            data = store.get(self._name(url))
+            self._send(404) if data is None else self._send(200, data)
+
+        def do_DELETE(self):  # noqa: N802
+            url, _ = self._check(0)
+            store.pop(self._name(url), None)
+            self._send(202)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Blob)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}", store, bad
+
+
+def save_restore_times(ctx, state, step):
+    """save_state (async) -> wait -> verify -> restore_state on `ctx`:
+    -> (storage id, sync ms, wait ms, restore ms, restored bitwise)."""
+    import torch
+
+    t0 = time.monotonic()
+    sid = ctx.save_state(state, steps_completed=step)
+    sync_ms = (time.monotonic() - t0) * 1e3
+    t1 = time.monotonic()
+    ctx.wait()
+    wait_ms = (time.monotonic() - t1) * 1e3
+    if ctx.verify(sid) is not True:
+        fail(f"14c: {sid} did not verify")
+    t2 = time.monotonic()
+    back = ctx.restore_state(sid, state)
+    restore_ms = (time.monotonic() - t2) * 1e3
+    got, want = state_tensors(back), state_tensors(state)
+    same = len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    return sid, sync_ms, wait_ms, restore_ms, same
+
+
+def phase_remote_storage(workdir, hparams, card):
+    """14c: GPT-2 small's TrainState from the port's Trainer (params and
+    Adam moments after one step) through `CheckpointContext` into
+    `checkpoint_storage: {type: azure}` against an in-process fake Blob
+    service: save_state -> wait -> verify -> restore_state bitwise, then
+    the file-checkpoint calls on the same backend; shared_fs timed the
+    same way; gcs and s3 where their SDKs import."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.core import _integrity
+    from determined_tpu_torch.core._checkpoint import CheckpointContext
+    from determined_tpu_torch.storage import from_config
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trial import TrialContext
+
+    GPT2Trial = gpt2_trial_class()
+    ctx = core.init(max_length=1,
+                    checkpoint_dir=os.path.join(workdir, "remote_unused"))
+    trainer = Trainer(GPT2Trial(TrialContext(hparams=hparams,
+                                             core_context=ctx)),
+                      core_context=ctx)
+    trainer._build(SEED)
+    tokens = np.memmap(hparams["tokens_path"], dtype=np.int32, mode="r")
+    batch = {"tokens": torch.from_numpy(np.stack(
+        [tokens[i * 1025:(i + 1) * 1025] for i in range(8)])).cuda()}
+    state, _ = trainer._train_step(
+        trainer.state, batch, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in state_tensors(state))
+    ctx.close()
+
+    server, url, store, bad = fake_blob_service()
+    staging = tempfile.mkdtemp(dir=workdir)
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = staging  # the cloud staging lives under build/smoke
+    try:
+        azure = from_config({
+            "type": "azure", "container": "ckpts", "prefix": "smoke",
+            "connection_string": f"AccountName={BLOB_ACCOUNT};AccountKey="
+                                 f"{BLOB_KEY};BlobEndpoint={url}"})
+        remote = CheckpointContext(azure, trial_id=TORCH_TRIAL_ID,
+                                   async_save=True)
+        sid, sync_ms, wait_ms, restore_ms, same = save_restore_times(
+            remote, state, 1)
+        listing = azure.list_files(sid)
+        stored = sum(listing.values())
+        say(f"[14c] [{card}] azure (fake Blob service, in process): "
+            f"save_state of the TrainState ({n_bytes / 1e6:.1f} MB of "
+            f"tensors, {stored / 1e6:.1f} MB stored in {len(listing)} "
+            f"blobs) sync {sync_ms:.1f} ms, wait {wait_ms:.1f} ms (write, "
+            f"upload, manifest, COMMIT): upload "
+            f"{stored / 1e6 / ((sync_ms + wait_ms) / 1e3):.1f} MB/s; "
+            f"restore_state {restore_ms:.1f} ms "
+            f"({stored / 1e6 / (restore_ms / 1e3):.1f} MB/s), bitwise "
+            f"equal: {same}; verify True; staging left: "
+            f"{os.path.exists(azure.path_for(sid))}")
+        if not same or sorted(listing) != sorted(
+                [_integrity.COMMIT_FILE, _integrity.MANIFEST_FILE,
+                 "metadata.json", "state/state.pt"]) or \
+                os.path.exists(azure.path_for(sid)):
+            fail(f"14c: the azure checkpoint did not round-trip: {listing}")
+
+        # The file-checkpoint calls on the same backend.
+        payload = os.urandom(10 << 20)
+        with remote.store_path({"steps_completed": 1}) as (path, fid):
+            with open(os.path.join(path, "weights.bin"), "wb") as f:
+                f.write(payload)
+            with open(os.path.join(path, "notes.txt"), "w") as f:
+                f.write("smoke")
+        with remote.restore_path(fid) as path:
+            with open(os.path.join(path, "weights.bin"), "rb") as f:
+                restored_file = f.read() == payload
+        picked = os.path.join(staging, "picked")
+        remote.download(fid, picked, selector=lambda rel: rel == "notes.txt")
+        md = remote.load_metadata(fid)
+        remote.delete(fid)
+        ok = restored_file and os.listdir(picked) == ["notes.txt"] and \
+            md.get("steps_completed") == 1 and azure.list_files(fid) == {} \
+            and [r["uuid"] for r in remote.local_reported] == [sid, fid]
+        say(f"[14c] azure file checkpoints: store_path -> restore_path "
+            f"(10 MB file bitwise: {restored_file}), download with a "
+            f"selector {os.listdir(picked)}, load_metadata {md}, delete "
+            f"(left {azure.list_files(fid)}); signature failures {len(bad)}")
+        if not ok or bad:
+            fail("14c: the azure file checkpoints did not round-trip")
+        shutil.rmtree(picked, ignore_errors=True)
+    finally:
+        tempfile.tempdir = saved_tmp
+        server.shutdown()
+        server.server_close()
+        store.clear()
+        shutil.rmtree(staging, ignore_errors=True)
+
+    shared_dir = os.path.join(workdir, "remote_shared_fs")
+    shutil.rmtree(shared_dir, ignore_errors=True)
+    shared = CheckpointContext(from_config(
+        {"type": "shared_fs", "host_path": shared_dir}),
+        trial_id=TORCH_TRIAL_ID, async_save=True)
+    sid, s_sync, s_wait, s_restore, s_same = save_restore_times(
+        shared, state, 1)
+    s_bytes = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, fs in os.walk(os.path.join(shared_dir, sid))
+                  for f in fs)
+    say(f"[14c] [{card}] shared_fs: save_state sync {s_sync:.1f} ms, wait "
+        f"{s_wait:.1f} ms (write, sha256 manifest, COMMIT): "
+        f"{s_bytes / 1e6 / ((s_sync + s_wait) / 1e3):.1f} MB/s; "
+        f"restore_state {s_restore:.1f} ms "
+        f"({s_bytes / 1e6 / (s_restore / 1e3):.1f} MB/s), bitwise equal: "
+        f"{s_same}")
+    if not s_same:
+        fail("14c: the shared_fs checkpoint did not round-trip")
+    shutil.rmtree(shared_dir, ignore_errors=True)
+
+    for stype, package in (("gcs", "google-cloud-storage"),
+                           ("s3", "boto3")):
+        try:
+            from_config({"type": stype, "bucket": "smoke"})
+        except RuntimeError as e:
+            if package not in str(e):
+                fail(f"14c: {stype} raised without naming {package}: {e}")
+            say(f"[14c] {stype} not run: {e}")
+            continue
+        say(f"[14c] {stype} not run: its SDK imports on this host, and "
+            "this script carries no fake server for it")
+    del trainer, state
+    _free_cuda()
+    return {"azure": {"sync_ms": sync_ms, "wait_ms": wait_ms,
+                      "restore_ms": restore_ms, "bytes": stored},
+            "shared_fs": {"sync_ms": s_sync, "wait_ms": s_wait,
+                          "restore_ms": s_restore, "bytes": s_bytes}}
+
+
+def phase_torch_trials(workdir, hparams, card, train_step_ms=None):
+    """Phase 14, each sub-phase's wall time printed."""
+    times = {}
+    for name, fn in (
+            ("14a", lambda: phase_torch_trial(workdir, hparams, card,
+                                              train_step_ms)),
+            ("14b", lambda: phase_zero_trial(workdir, hparams, card)),
+            ("14c", lambda: phase_remote_storage(workdir, hparams, card))):
+        t0 = time.monotonic()
+        times[name] = (fn(), time.monotonic() - t0)
+        say(f"[{name}] wall {times[name][1]:.1f} s")
+    return {k: v[0] for k, v in times.items()}
+
+
 FLASH_KERNELS = (  # (key, name, TPU kernel it replaces)
     ("fwd", "flash_fwd", "determined_tpu/ops/flash_attention.py:137"),
     ("dq", "flash_dq", "determined_tpu/ops/flash_attention.py:245"),
@@ -4395,6 +5051,7 @@ def main() -> int:
     phase_ulysses_inner(card)
     phase_split_world(workdir, hparams, card)
     other = phase_other_models(workdir, card)
+    trials = phase_torch_trials(workdir, hparams, card, train["step_ms"])
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -4459,6 +5116,20 @@ def main() -> int:
         f"{other['13e']['step_ms']:.2f} ms; sample a denoising step: graph "
         f"{other['13e']['sample_ms']['graph']:.3f} ms, eager "
         f"{other['13e']['sample_ms']['eager']:.3f} ms")
+    t14a, t14b, t14c = trials["14a"], trials["14b"], trials["14c"]
+    say(f"[times] [{card}] GPT2TorchTrial (GPT-2 small bf16, B 8, S 1024) "
+        f"through pytorch.Trainer.fit: step {t14a['step_ms']:.2f} ms, "
+        f"{t14a['tokens_per_s']:.0f} tokens/s (phase 7's Trainer.fit "
+        f"{train['step_ms']:.2f} ms); GPT2ZeroTrial on ZeroOneEngine (micro "
+        f"batch 4 x 2): step {t14b['step_ms']:.2f} ms, "
+        f"optimizer_state_numel {t14b['optimizer_state_numel']:,}")
+    for name, r in t14c.items():
+        say(f"[times] [{card}] checkpoint of GPT-2 small's TrainState to "
+            f"{name}: save_state sync {r['sync_ms']:.1f} ms, wait "
+            f"{r['wait_ms']:.1f} ms, "
+            f"{r['bytes'] / 1e6 / ((r['sync_ms'] + r['wait_ms']) / 1e3):.1f}"
+            f" MB/s; restore {r['restore_ms']:.1f} ms, "
+            f"{r['bytes'] / 1e6 / (r['restore_ms'] / 1e3):.1f} MB/s")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",
@@ -4482,6 +5153,7 @@ def main() -> int:
             "launches_moe": moe["launches"][key],
             "launches_long": long["launches"][key],
             "launches_ring": ring[key],
+            "launches_torch_trial": t14a["launches"][key],
             "long_ms": long["per_layer_ms"][key],
             "long_bound_ms": long["bound_ms"][key],
             "max_abs_err": flash_err[key],

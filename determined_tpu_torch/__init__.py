@@ -24,6 +24,10 @@ Slices ported so far:
            sharding rules: training over the `data` and `fsdp` axes.
   launch/, exec/  one worker process per GPU slot (`DET_SLOT_IDS`), and
            the task entry point that prepares and launches them.
+  storage/ the checkpoint storage backends (shared_fs, directory, gcs,
+           s3, azure) under the Core API's checkpoints.
+  pytorch/ the class-based trial APIs: PyTorchTrial, DeepSpeedTrial and
+           the ZeRO-1 engine.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`
 (`_device.resolve_device`).

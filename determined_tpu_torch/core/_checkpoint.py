@@ -1,8 +1,11 @@
-"""CheckpointContext — train-state checkpoints under a two-phase commit.
+"""CheckpointContext — train-state checkpoints under a two-phase commit,
+and file checkpoints.
 
-Counterpart of determined_tpu/core/_checkpoint.py. The JAX package writes
-array shards with orbax; here the whole state goes through `torch.save`
-into `<base>/<storage_id>/state/state.pt`, under the same two-phase commit
+Counterpart of determined_tpu/core/_checkpoint.py. Checkpoints live where
+the trial's `checkpoint_storage` says (storage/: `shared_fs`, `directory`,
+`gcs`, `s3`, `azure`). The JAX package writes array shards with orbax;
+here the whole state goes through `torch.save` into
+`<storage_id>/state/state.pt`, under the same two-phase commit
 (core/_integrity.py):
 
   1. `save_state` snapshots the state, writes `metadata.json` and reports
@@ -13,6 +16,13 @@ into `<base>/<storage_id>/state/state.pt`, under the same two-phase commit
      writes the COMMIT marker and reports the checkpoint COMPLETED. A
      write that failed raises there.
 
+On a cloud backend the checkpoint is staged in a local directory: the
+background write uploads the staged files and removes them, and phase 2
+uploads the manifest (each file's size, from the bucket's listing) and
+then the COMMIT marker, as the JAX package commits its remote
+checkpoints. `restore_state` downloads the checkpoint and verifies it;
+`verify` checks the bucket's listing against the manifest.
+
 The snapshot is what makes the background write safe: the optimizer
 updates params and moments in place, so the thread must never read the
 live tensors. Each CUDA leaf is copied into a pinned host buffer on a
@@ -21,17 +31,23 @@ compute stream waits on that copy's event before it runs anything more;
 CPU leaves are copied into reused buffers at once. At most one save is
 pending: `save_state` commits the previous one first.
 
+File checkpoints (`store_path`, `upload`, `download`, `restore_path`,
+`delete`, `load_metadata`) follow the JAX package's contract: the chief
+writes `metadata.json`, and the report goes out after the storage
+context exits (a cloud backend uploads on exit).
+
 Reports go to the master's registry (`POST /api/v1/checkpoints`) in
 managed mode, where `lineage()` is the registry's COMPLETED checkpoints
 of the trial; without a master they are kept in `local_reported`, and the
 lineage is read from them and a scan of the committed `trial{N}-step{M}`
-directories. Serving restores only the params: `restore_params`.
+directories of a filesystem storage. Serving restores only the params:
+`restore_params`.
 
 In a run of several processes every rank calls `save_state` with the
 same (full, gathered) state and step, so every rank names the checkpoint
 alike without a broadcast (`trial{N}-step{M}`); the chief alone writes,
 commits and reports it, and `wait()` ends in a barrier, so no rank reads
-the lineage before the COMMIT is on disk. `upload(shard=True)` is the
+the lineage before the COMMIT is stored. `upload(shard=True)` is the
 file-checkpoint route where each rank contributes its own files: the
 storage id is broadcast from the chief, the gather of each rank's file
 list doubles as the barrier, and the chief writes the manifest and COMMIT
@@ -40,21 +56,25 @@ over every rank's files and reports them merged.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import re
 import shutil
+import tempfile
 import threading
 import time
-import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 import torch
 
+from determined_tpu_torch.common import faultpoint
 from determined_tpu_torch.common import trace as trace_mod
 from determined_tpu_torch.core import _integrity
 from determined_tpu_torch.core._integrity import CorruptCheckpoint  # noqa: F401  (re-export)
+from determined_tpu_torch.storage.base import (
+    SharedFSStorageManager, StorageManager, iter_upload_files)
 
 logger = logging.getLogger("determined_tpu_torch.core")
 
@@ -71,18 +91,10 @@ def state_id_step(storage_id: str) -> Optional[int]:
     return int(m.group(2)) if m else None
 
 
-def _upload_files(src: str, names: Optional[List[str]] = None):
-    """Yield (path, relative key) for every file `upload` stores from
-    `src`: the named entries (all, by default), directories walked."""
-    for name in (names if names is not None else os.listdir(src)):
-        full = os.path.join(src, name)
-        if os.path.isdir(full):
-            for root, _, files in os.walk(full):
-                for f in files:
-                    p = os.path.join(root, f)
-                    yield p, os.path.relpath(p, src)
-        else:
-            yield full, name
+def _dir_files(src: str, names: Optional[List[str]]) -> Dict[str, int]:
+    """rel path -> size for the files upload() pushed from `src` (the
+    storage managers' own walk, storage/base.py)."""
+    return {rel: os.path.getsize(p) for p, rel in iter_upload_files(src, names)}
 
 
 def _map_tensors(tree: Any, fn) -> Any:
@@ -179,13 +191,17 @@ class _Snapshot:
 class _Write:
     """One checkpoint's phase-1 write: the state file (written under a
     temporary name, fsync'd, renamed) and its manifest, on a thread or
-    inline."""
+    inline. Given a cloud `storage`, the staged directory is uploaded
+    instead of manifested, and removed."""
 
-    def __init__(self, path: str, host: Any, event, background: bool):
+    def __init__(self, path: str, host: Any, event, background: bool,
+                 storage: Optional[StorageManager] = None,
+                 storage_id: str = ""):
         self.path = path
         self.manifest: Optional[Dict] = None
         self.error: Optional[BaseException] = None
         self._host, self._event = host, event
+        self._storage, self._storage_id = storage, storage_id
         self._thread = None
         if background:
             self._thread = threading.Thread(
@@ -204,22 +220,34 @@ class _Write:
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(target + ".tmp", target)
-            self.manifest = _integrity.write_manifest(self.path)
+            if self._storage is None:
+                self.manifest = _integrity.write_manifest(self.path)
+            else:
+                self._storage.upload(self.path, self._storage_id)
         except BaseException as e:  # raised to the caller of wait()
             self.error = e
         finally:
             self._host = None
+            if self._storage is not None:
+                shutil.rmtree(self.path, ignore_errors=True)
 
     def join(self) -> None:
         if self._thread is not None:
             self._thread.join()
 
 
+def _manager(storage: Union[StorageManager, str]) -> StorageManager:
+    """A storage manager; a path is a `shared_fs` storage rooted there."""
+    if isinstance(storage, StorageManager):
+        return storage
+    return SharedFSStorageManager(storage)
+
+
 class CheckpointContext:
-    def __init__(self, base_path: str, trial_id: int = 0, session=None,
-                 allocation_id: Optional[str] = None,
+    def __init__(self, storage: Union[StorageManager, str], trial_id: int = 0,
+                 session=None, allocation_id: Optional[str] = None,
                  async_save: bool = False, distributed=None):
-        self.base_path = os.path.abspath(base_path)
+        self._storage = _manager(storage)
         self._dist = distributed
         self._trial_id = trial_id
         self._session = session
@@ -243,14 +271,18 @@ class CheckpointContext:
         if self.tracer is not None:
             self.tracer.emit(name, start_us, trace_mod.now_us(), attrs)
 
-    def path_for(self, storage_id: str) -> str:
-        return os.path.join(self.base_path, storage_id)
-
     def _is_chief(self) -> bool:
         return self._dist is None or self._dist.is_chief
 
     def _shared(self) -> bool:
         return self._dist is not None and self._dist.size > 1
+
+    def _staged(self) -> bool:
+        """True for a cloud backend: files reach it from a local staging
+        directory."""
+        return self._storage.requires_staging
+
+    # -- train-state checkpoints ---------------------------------------
 
     def save_state(self, state: Any, steps_completed: int,
                    metadata: Optional[Dict[str, Any]] = None) -> str:
@@ -268,7 +300,9 @@ class CheckpointContext:
             if not self._async:
                 self.wait()
             return storage_id
-        path = self.path_for(storage_id)
+        path = self._storage.path_for(storage_id)
+        if self._staged():  # never upload an older staging's leftovers
+            shutil.rmtree(path, ignore_errors=True)
         os.makedirs(os.path.join(path, _STATE_SUBDIR), exist_ok=True)
         md = dict(metadata or {})
         md.update({"steps_completed": steps_completed,
@@ -282,7 +316,9 @@ class CheckpointContext:
         t0 = time.monotonic()
         t0_us = trace_mod.now_us()
         host, event = self._snapshot.take(state)
-        write = _Write(path, host, event, background=self._async)
+        write = _Write(path, host, event, background=self._async,
+                       storage=self._storage if self._staged() else None,
+                       storage_id=storage_id)
         self._pending_sync_ms = (time.monotonic() - t0) * 1000.0
         # Phase 1 on the trace: the part of the save the loop paid for.
         self._span("harness.checkpoint.save", t0_us, storage_id=storage_id,
@@ -294,7 +330,7 @@ class CheckpointContext:
 
     def wait(self) -> None:
         """Block until the pending save is written and committed (COMMIT
-        marker written, COMPLETED reported). Raises the write's error, if
+        marker stored, COMPLETED reported). Raises the write's error, if
         it failed; the checkpoint then stays PARTIAL. Several processes:
         every rank calls it, and it ends in a barrier."""
         if self._pending is None:
@@ -311,7 +347,10 @@ class CheckpointContext:
             raise RuntimeError(
                 f"checkpoint {storage_id}: the state write failed") \
                 from write.error
-        _integrity.commit(write.path, storage_id, write.manifest)
+        if self._staged():
+            self._commit_remote(storage_id)
+        else:
+            _integrity.commit(write.path, storage_id, write.manifest)
         self._report(storage_id, md, state="COMPLETED")
         self.last_save_ms = self._pending_sync_ms + \
             (time.monotonic() - t0) * 1000.0
@@ -320,79 +359,95 @@ class CheckpointContext:
         if self._shared():
             self._dist.barrier("checkpoint.commit")
 
-    def upload(self, ckpt_dir: str, metadata: Optional[Dict[str, Any]] = None,
-               shard: bool = False, selector=None) -> str:
-        """Store the files of directory `ckpt_dir` as a checkpoint (a
-        fresh uuid) and return its storage id, committed and reported.
+    def _commit_remote(self, storage_id: str) -> None:
+        """Phase 2 on a cloud backend: the manifest (each stored file's
+        size, from the bucket's listing: checksums would download every
+        file again), then the COMMIT marker, uploaded last."""
+        listing = {rel: size
+                   for rel, size in self._storage.list_files(storage_id).items()
+                   if rel not in (_integrity.MANIFEST_FILE,
+                                  _integrity.COMMIT_FILE)}
+        manifest = {"version": 1,
+                    "files": {rel: {"size": size}
+                              for rel, size in sorted(listing.items())}}
+        files = {_integrity.MANIFEST_FILE: json.dumps(manifest, sort_keys=True)}
+        if faultpoint.fire(_integrity.FAULT_COMMIT_DROP) is \
+                faultpoint.Action.NONE:
+            files[_integrity.COMMIT_FILE] = json.dumps(
+                {"storage_id": storage_id, "n_files": len(listing)})
+        self._upload_small_files(storage_id, files)
 
-        shard=True: every rank copies its own files into the same storage
-        id (rank-unique file names are the caller's contract); the chief
-        draws the id and broadcasts it, each rank's file list is gathered
-        to the chief (the gather is also the barrier after every copy), and
-        the chief writes the manifest and COMMIT over all of them and
-        reports the merged list. Otherwise only the chief copies."""
-        sharded = shard and self._shared()
-        storage_id = str(uuid.uuid4())
-        if sharded:
-            storage_id = self._dist.broadcast(storage_id)
-        names = None
-        if selector is not None:
-            names = [n for n in os.listdir(ckpt_dir) if selector(n)]
-        local_files: Dict[str, int] = {}
-        path = self.path_for(storage_id)
-        if shard or self._is_chief():
-            for src, rel in _upload_files(ckpt_dir, names):
-                dst = os.path.join(path, rel)
-                os.makedirs(os.path.dirname(dst), exist_ok=True)
-                shutil.copy2(src, dst)
-                local_files[rel] = os.path.getsize(src)
-        resources: Optional[Dict[str, int]] = local_files
-        if sharded:
-            gathered = self._dist.gather(local_files)
-            resources = None
-            if gathered is not None:
-                resources = {}
-                for files in gathered:
-                    resources.update(files)
-        md = dict(metadata or {})
-        md.setdefault("time", time.time())
-        if self._is_chief():
-            os.makedirs(path, exist_ok=True)
-            _integrity.commit(path, storage_id,
-                              _integrity.write_manifest(path))
-            self._report(storage_id, md, resources=resources)
-        return storage_id
+    def _upload_small_files(self, storage_id: str,
+                            files: Dict[str, str]) -> None:
+        """Upload name -> content strings into checkpoint `storage_id`, in
+        the order given."""
+        with tempfile.TemporaryDirectory() as td:
+            for name, content in files.items():
+                with open(os.path.join(td, name), "w") as f:
+                    f.write(content)
+            self._storage.upload(td, storage_id, list(files))
 
     def close(self) -> None:
         self.wait()
 
-    def verify(self, storage_id: str) -> str:
-        """Verify checkpoint `storage_id` before any of it is read; returns
-        its state file. Raises FileNotFoundError when it does not exist and
-        CorruptCheckpoint when it fails integrity verification."""
-        path = self.path_for(storage_id)
+    def _state_file(self, path: str, storage_id: str) -> str:
         state_file = os.path.join(path, _STATE_SUBDIR, _STATE_FILE)
-        if not os.path.isdir(path) or not os.path.exists(state_file):
+        if not os.path.exists(state_file):
             raise FileNotFoundError(
                 f"checkpoint {storage_id} not found at {path}")
-        _integrity.verify(path, storage_id)
         return state_file
+
+    def verify(self, storage_id: str) -> bool:
+        """Verify checkpoint `storage_id` without reading its state: True
+        when its manifest verified, False for a checkpoint that predates
+        the integrity protocol. A cloud backend's listing is held to the
+        manifest's sizes. Raises FileNotFoundError when it does not exist
+        and CorruptCheckpoint when it fails verification."""
+        if self._staged():
+            return self._verify_remote(storage_id)
+        path = self._storage.path_for(storage_id)
+        self._state_file(path, storage_id)
+        return _integrity.verify(path, storage_id)
+
+    def _verify_remote(self, storage_id: str) -> bool:
+        listing = self._storage.list_files(storage_id)
+        if not listing:
+            raise FileNotFoundError(f"checkpoint {storage_id} not found")
+        manifest = None
+        with tempfile.TemporaryDirectory() as td:
+            self._storage.download(
+                storage_id, td,
+                selector=lambda rel: rel == _integrity.MANIFEST_FILE)
+            mf = os.path.join(td, _integrity.MANIFEST_FILE)
+            if os.path.exists(mf):
+                try:
+                    with open(mf) as f:
+                        manifest = json.load(f)
+                except (OSError, ValueError):
+                    manifest = None
+        return _integrity.verify_listing(listing, manifest, storage_id)
+
+    def _load(self, storage_id: str) -> Any:
+        """The saved tree of checkpoint `storage_id` (CPU tensors), read
+        after the checkpoint verified (a cloud one once downloaded)."""
+        with self._storage.restore_path(storage_id) as path:
+            state_file = self._state_file(path, storage_id)
+            _integrity.verify(path, storage_id)
+            return torch.load(state_file, map_location="cpu",
+                              weights_only=False)
 
     def restore_state(self, storage_id: str, template: Any) -> Any:
         """Read checkpoint `storage_id` back in the structure, devices and
         dtypes of `template` (e.g. a freshly initialised TrainState).
         Raises as `verify` does."""
-        loaded = torch.load(self.verify(storage_id), map_location="cpu",
-                            weights_only=False)
-        return _like(template, loaded)
+        return _like(template, self._load(storage_id))
 
     def restore_params(self, storage_id: str) -> Any:
         """The `params` subtree of checkpoint `storage_id` as saved (CPU
         tensors), without a template: what a serve replica restores, having
         no optimizer to build a TrainState from. Raises as `verify` does,
         and ValueError for a checkpoint without params."""
-        loaded = torch.load(self.verify(storage_id), map_location="cpu",
-                            weights_only=False)
+        loaded = self._load(storage_id)
         params = loaded.get("params") if isinstance(loaded, dict) else None
         if params is None:
             raise ValueError(
@@ -404,8 +459,9 @@ class CheckpointContext:
         """This trial's COMPLETED checkpoints, newest first. Managed mode
         asks the master's registry, which marks a checkpoint COMPLETED only
         on the phase-2 report; without a master (or when the query fails)
-        it is read from the in-process reports plus the committed
-        `trial{N}-step{M}` directories (so a restarted process sees them)."""
+        it is read from the in-process reports plus, on a filesystem
+        storage, the committed `trial{N}-step{M}` directories (so a
+        restarted process sees them)."""
         if self._session is not None:
             try:
                 resp = self._session.get(
@@ -422,25 +478,106 @@ class CheckpointContext:
             m = _STATE_ID_RE.match(rec["uuid"])
             if m and int(m.group(1)) == self._trial_id:
                 steps[rec["uuid"]] = int(m.group(2))
-        if os.path.isdir(self.base_path):
-            for name in os.listdir(self.base_path):
+        base = self._storage.base_path
+        if not self._staged() and os.path.isdir(base):
+            for name in os.listdir(base):
                 m = _STATE_ID_RE.match(name)
                 if not m or int(m.group(1)) != self._trial_id or \
                         name in steps:
                     continue
                 if os.path.exists(os.path.join(
-                        self.base_path, name, _integrity.COMMIT_FILE)):
+                        base, name, _integrity.COMMIT_FILE)):
                     steps[name] = int(m.group(2))
         return sorted(steps, key=steps.__getitem__, reverse=True)
 
-    def _list_files(self, storage_id: str) -> Dict[str, int]:
-        path = self.path_for(storage_id)
-        out: Dict[str, int] = {}
-        for root, _, files in os.walk(path):
-            for f in files:
-                full = os.path.join(root, f)
-                out[os.path.relpath(full, path)] = os.path.getsize(full)
-        return out
+    # -- file checkpoints ----------------------------------------------
+
+    @contextlib.contextmanager
+    def store_path(self, metadata: Optional[Dict[str, Any]] = None
+                   ) -> Iterator[tuple]:
+        """Chief-only convenience: yield (path, storage_id); report on exit."""
+        md = dict(metadata or {})
+        with self._storage.store_path() as (storage_id, path):
+            yield path, storage_id
+            md.setdefault("time", time.time())
+            if self._is_chief():
+                with open(os.path.join(path, _METADATA_FILE), "w") as f:
+                    json.dump(md, f)
+        # Report after the storage context exits: a cloud backend uploads
+        # on exit, so the report's listing sees the bucket's contents.
+        self._report(storage_id, md)
+
+    def upload(self, ckpt_dir: str, metadata: Optional[Dict[str, Any]] = None,
+               shard: bool = False, selector=None) -> str:
+        """Store the files of directory `ckpt_dir` as a checkpoint (a
+        fresh uuid) and return its storage id, committed and reported.
+
+        shard=True: every rank uploads its own files into the same storage
+        id (rank-unique file names are the caller's contract); the chief
+        draws the id and broadcasts it, each rank's file list is gathered
+        to the chief (the gather is also the barrier after every upload),
+        and the chief writes the manifest and COMMIT over all of them and
+        reports the merged list. Otherwise only the chief uploads."""
+        sharded = shard and self._shared()
+        storage_id = self._storage.new_storage_id()
+        if sharded:
+            storage_id = self._dist.broadcast(storage_id)
+        names = None
+        if selector is not None:
+            names = [n for n in os.listdir(ckpt_dir) if selector(n)]
+        local_files: Dict[str, int] = {}
+        if shard or self._is_chief():
+            self._storage.upload(ckpt_dir, storage_id, names)
+            local_files = _dir_files(ckpt_dir, names)
+        md = dict(metadata or {})
+        md.setdefault("time", time.time())
+        resources: Optional[Dict[str, int]] = None
+        if sharded:
+            gathered = self._dist.gather(local_files)
+            if gathered is not None:
+                resources = {}
+                for files in gathered:
+                    resources.update(files)
+        if self._is_chief():
+            if self._staged():
+                self._commit_remote(storage_id)
+            else:
+                path = self._storage.path_for(storage_id)
+                os.makedirs(path, exist_ok=True)
+                _integrity.commit(path, storage_id,
+                                  _integrity.write_manifest(path))
+            self._report(storage_id, md, resources=resources)
+        return storage_id
+
+    def download(self, storage_id: str, ckpt_dir: str, selector=None) -> None:
+        self._storage.download(storage_id, ckpt_dir, selector)
+
+    @contextlib.contextmanager
+    def restore_path(self, storage_id: str) -> Iterator[str]:
+        with self._storage.restore_path(storage_id) as path:
+            yield path
+
+    def delete(self, storage_id: str) -> None:
+        if self._is_chief():
+            self._storage.delete(storage_id)
+
+    def load_metadata(self, storage_id: str) -> Dict[str, Any]:
+        """The checkpoint's `metadata.json` ({} without one), fetched alone:
+        restore_path on a cloud backend would download every file."""
+        with tempfile.TemporaryDirectory() as td:
+            self._storage.download(
+                storage_id, td, selector=lambda rel: rel == _METADATA_FILE)
+            md_file = os.path.join(td, _METADATA_FILE)
+            if os.path.exists(md_file):
+                with open(md_file) as f:
+                    return json.load(f)
+        # No metadata file: tell a checkpoint without metadata from a bad
+        # storage id (download() is a no-op for missing ids).
+        if not self._storage.list_files(storage_id):
+            raise FileNotFoundError(f"checkpoint {storage_id} not found")
+        return {}
+
+    # -- master reporting ------------------------------------------------
 
     def _report(self, storage_id: str, metadata: Dict[str, Any],
                 state: str = "COMPLETED",
@@ -466,7 +603,7 @@ class CheckpointContext:
             self.local_reported.append(record)
             return
         if resources is None:
-            record["resources"] = self._list_files(storage_id)
+            record["resources"] = self._storage.list_files(storage_id)
         # Idempotent: a retried report must not register the checkpoint
         # twice or move the trial's resume pointer again.
         self._session.post("/api/v1/checkpoints", body=record,

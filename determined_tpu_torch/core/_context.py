@@ -17,17 +17,16 @@ RANK, WORLD_SIZE, MASTER_ADDR, ... one process per device) or from a
 multi-host rendezvous (one process per host): either way `init` forms the
 `torch.distributed` process group (`DistributedContext`) and hands it to
 the sub-contexts, which keep the master's work on the chief and broadcast
-its decisions, as the JAX package's do. What the port cannot do yet it
-refuses, and never runs as local mode in silence instead: any
-`checkpoint_storage` type but `shared_fs` (ROADMAP Queue 1 item 12)
-raises.
+its decisions, as the JAX package's do. Checkpoints go through the
+storage manager `checkpoint_storage` names (storage/: `shared_fs`,
+`directory`, `gcs`, `s3`, `azure`); a cloud type whose SDK does not
+import raises, naming the package, and never falls back to a directory.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import tempfile
 from typing import Any, Dict, Optional
 
 from determined_tpu_torch._info import ClusterInfo, get_cluster_info
@@ -39,35 +38,22 @@ from determined_tpu_torch.core._preempt import PreemptContext
 from determined_tpu_torch.core._profiler import ProfilerContext
 from determined_tpu_torch.core._searcher import SearcherContext
 from determined_tpu_torch.core._train import TrainContext
+from determined_tpu_torch.storage import from_config
 
 logger = logging.getLogger("determined_tpu_torch.core")
 
 
-def default_checkpoint_dir() -> str:
-    return os.path.join(tempfile.gettempdir(), "determined_tpu_torch",
-                        "checkpoints")
-
-
 def checkpoint_base(storage: Optional[Dict[str, Any]],
                     default_base: Optional[str] = None) -> str:
-    """`checkpoint_storage` -> the directory the checkpoints live in.
-
-    Only `shared_fs` is ported (`host_path`, joined with `storage_path`
-    when given); without a block, `default_base` (default: the port's
-    local directory). Any other type raises, naming it."""
-    default_base = default_base or default_checkpoint_dir()
-    storage = dict(storage or {"type": "shared_fs",
-                               "host_path": default_base})
-    stype = storage.get("type", "shared_fs")
-    if stype != "shared_fs":
+    """The directory a filesystem `checkpoint_storage` (`shared_fs`,
+    `directory`) keeps its checkpoints in. A cloud type keeps them in a
+    bucket and has none: it raises, naming the type."""
+    stype = (storage or {}).get("type", "shared_fs")
+    if stype not in ("shared_fs", "directory"):
         raise NotImplementedError(
-            f"checkpoint_storage type {stype!r} is not ported; the port "
-            "reads and writes shared_fs only (ROADMAP.md Queue 1 item 12: "
-            "checkpoint storage backends)")
-    base = storage.get("host_path", default_base)
-    if storage.get("storage_path"):
-        base = os.path.join(base, storage["storage_path"])
-    return base
+            f"checkpoint_storage type {stype!r} keeps its checkpoints in a "
+            "bucket, not a directory; storage.from_config builds its manager")
+    return from_config(storage, default_base).base_path
 
 
 class Context:
@@ -164,13 +150,13 @@ def init(*, max_length: Optional[int] = None,
             trial_id, run_id = info.trial.trial_id, info.trial.run_id
             storage_config = storage_config or \
                 info.trial.config.get("checkpoint_storage")
-    base = checkpoint_base(storage_config, default_base=checkpoint_dir)
+    storage = from_config(storage_config, default_base=checkpoint_dir)
 
     tb_manager = None
     if info is not None and info.trial is not None and distributed.is_chief:
         from determined_tpu_torch.tensorboard import TensorboardManager
 
-        tb_manager = TensorboardManager(base, info.trial.experiment_id,
+        tb_manager = TensorboardManager(storage, info.trial.experiment_id,
                                         info.trial.trial_id)
     train = TrainContext(session, trial_id=trial_id, run_id=run_id,
                          distributed=distributed,
@@ -179,7 +165,7 @@ def init(*, max_length: Optional[int] = None,
                                distributed=distributed,
                                local_max_length=max_length)
     checkpoint = CheckpointContext(
-        base, trial_id=trial_id, session=session,
+        storage, trial_id=trial_id, session=session,
         allocation_id=allocation_id, distributed=distributed,
         async_save=async_checkpointing)
     preempt = PreemptContext(session, allocation_id=allocation_id,

@@ -38,7 +38,7 @@ import hashlib
 import json
 import logging
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 from determined_tpu_torch.common import faultpoint
 
@@ -214,3 +214,35 @@ def verify_against_manifest(path: str, manifest: Dict,
         if want and _sha256(full) != want:
             raise CorruptCheckpoint(storage_id,
                                     f"checksum mismatch for {rel!r}")
+
+
+def verify_listing(listing: Dict[str, int], manifest: Optional[Dict],
+                   storage_id: str) -> bool:
+    """Presence/size verification from a remote file listing (rel -> size),
+    for backends where downloading every file just to checksum it would
+    defeat the point. Same legacy/corrupt semantics as `verify`."""
+    has_commit = COMMIT_FILE in listing
+    has_manifest = MANIFEST_FILE in listing
+    if not has_commit and not has_manifest:
+        logger.warning(
+            "checkpoint %s predates the integrity protocol (no manifest); "
+            "restoring unverified", storage_id)
+        return False
+    if not has_commit:
+        raise CorruptCheckpoint(
+            storage_id, "no COMMIT marker — the save never finished "
+            "committing (process died between write and commit)")
+    if manifest is None:
+        raise CorruptCheckpoint(storage_id, "COMMIT present but manifest "
+                                "missing or unreadable")
+    files = manifest.get("files")
+    if not isinstance(files, dict):
+        raise CorruptCheckpoint(storage_id, "manifest has no file table")
+    for rel, entry in files.items():
+        if rel not in listing:
+            raise CorruptCheckpoint(storage_id, f"missing file {rel!r}")
+        if listing[rel] != entry.get("size"):
+            raise CorruptCheckpoint(
+                storage_id, f"size mismatch for {rel!r}: manifest says "
+                f"{entry.get('size')}, found {listing[rel]}")
+    return True

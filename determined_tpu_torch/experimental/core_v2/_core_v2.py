@@ -10,17 +10,18 @@ from typing import Any, Dict, Optional
 
 from determined_tpu_torch.common.api import Session
 from determined_tpu_torch.core._checkpoint import CheckpointContext
-from determined_tpu_torch.core._context import checkpoint_base
 from determined_tpu_torch.core._distributed import DistributedContext
 from determined_tpu_torch.core._searcher import SearcherContext
 from determined_tpu_torch.core._train import TrainContext
+from determined_tpu_torch.storage import from_config
+from determined_tpu_torch.storage.base import StorageManager
 
 
 class Context:
     """An unmanaged run bound to a master-tracked experiment and trial."""
 
     def __init__(self, session: Session, experiment_id: int, trial_id: int,
-                 storage_base: str, max_length: Optional[int] = None):
+                 storage: StorageManager, max_length: Optional[int] = None):
         self.experiment_id = experiment_id
         self.trial_id = trial_id
         self._session = session
@@ -30,7 +31,7 @@ class Context:
         # max_length.
         self.searcher = SearcherContext(None, trial_id=trial_id,
                                         local_max_length=max_length)
-        self.checkpoint = CheckpointContext(storage_base, trial_id=trial_id,
+        self.checkpoint = CheckpointContext(storage, trial_id=trial_id,
                                             session=session)
 
     def close(self, state: str = "COMPLETED") -> None:
@@ -62,7 +63,7 @@ def init(*, config: Optional[Dict[str, Any]] = None,
          max_length: Optional[int] = None) -> Context:
     """Log in, register an unmanaged experiment and trial with the master,
     and bind the module-level train/checkpoint/searcher handles to them.
-    Checkpoints go to `checkpoint_storage` (`shared_fs` only)."""
+    Checkpoints go to `checkpoint_storage` (any type storage/ reads)."""
     config = dict(config or {})
     config.setdefault("name", "unmanaged-run")
     config.setdefault(
@@ -71,8 +72,8 @@ def init(*, config: Optional[Dict[str, Any]] = None,
          "max_length": {"batches": max_length or 0}})
     if hparams:
         config.setdefault("hyperparameters", hparams)
-    base = checkpoint_base(checkpoint_storage
-                           or config.get("checkpoint_storage"))
+    storage = from_config(checkpoint_storage
+                          or config.get("checkpoint_storage"))
     master = master or os.environ.get("DET_MASTER", "http://127.0.0.1:8080")
     session = Session.login(master, user, password)
     exp = session.post("/api/v1/experiments",
@@ -80,7 +81,7 @@ def init(*, config: Optional[Dict[str, Any]] = None,
     eid = exp["id"]
     trial = session.post(f"/api/v1/experiments/{eid}/trials",
                          body={"hparams": hparams or {}})
-    _Active.ctx = Context(session, eid, trial["id"], base,
+    _Active.ctx = Context(session, eid, trial["id"], storage,
                           max_length=max_length)
     return _Active.ctx
 

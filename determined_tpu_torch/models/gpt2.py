@@ -487,18 +487,20 @@ def _unstack_layers(blocks: Params, n_layer: int):
             for i in range(n_layer)]
 
 
-def _gather_layer(lp: Params) -> Params:
+def _gather_layer(lp: Params, async_op: bool = False) -> Params:
     """One layer's params for use (`sharding.gather_for_use`): a leaf split
     over the `tensor` axis keeps its split; an MoE layer's experts stay
-    split over the `expert` axis."""
-    out = {k: map_params(_gather, v) for k, v in lp.items() if k != "moe"}
+    split over the `expert` axis. `async_op`: the gathers are issued and
+    waited for at first use."""
+    out = {k: map_params(functools.partial(_gather, async_op=async_op), v)
+           for k, v in lp.items() if k != "moe"}
     if "moe" in lp:
-        out["moe"] = moe.gather_params(lp["moe"])
+        out["moe"] = moe.gather_params(lp["moe"], async_op=async_op)
     return out
 
 
-def _gather(p):
-    return sharding.gather_for_use(p, keep=("tensor",))
+def _gather(p, async_op: bool = False):
+    return sharding.gather_for_use(p, keep=("tensor",), async_op=async_op)
 
 
 def _trunk(params: Params, tokens: torch.Tensor, cfg: Config,
@@ -517,9 +519,21 @@ def _trunk(params: Params, tokens: torch.Tensor, cfg: Config,
     block = functools.partial(_block, cfg=cfg, axes=axes)
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block, cfg)
+    # `overlap_allgather`: layer i+1's gather is issued before block i runs,
+    # as the JAX model's `_scan_overlap` does. The gathers are async and
+    # wait at their first use, so the next layer's is in flight while this
+    # one computes; at most two layers are gathered at once, and the
+    # arithmetic is the plain loop's. The gathers stay outside the remat'd
+    # block. Plain tensors (fsdp 1) pass through either way.
+    layers = _unstack_layers(params["blocks"], cfg.n_layer)
+    ahead = 1 if cfg.overlap_allgather else 0
+    gathered = [_gather_layer(lp, async_op=True) for lp in layers[:ahead]]
     auxs = []
-    for lp in _unstack_layers(params["blocks"], cfg.n_layer):
-        x, aux = block(x, _gather_layer(lp))
+    for i in range(len(layers)):
+        if i + ahead < len(layers):
+            gathered.append(_gather_layer(layers[i + ahead],
+                                          async_op=bool(ahead)))
+        x, aux = block(x, gathered.pop(0))
         auxs.append(aux)
     ln_f = map_params(_gather, params["ln_f"])
     x = _layer_norm(x, ln_f["scale"], ln_f["bias"], cfg.layer_norm_eps)

@@ -99,14 +99,16 @@ def moe_logical_axes(layers: bool = False) -> Dict[str, Any]:
     }
 
 
-def gather_params(params: Params) -> Params:
+def gather_params(params: Params, async_op: bool = False) -> Params:
     """One layer's MoE params for use: the router gathered whole, the
     experts' leaves over every axis but `expert` (each rank keeps its
-    E / ep experts); plain tensors pass through."""
+    E / ep experts); plain tensors pass through. `async_op` as
+    `sharding.gather_for_use`'s."""
     return {
         "router": {"kernel": sharding.gather_for_use(
-            params["router"]["kernel"])},
-        **{name: {k: sharding.gather_for_use(v, keep=("expert",))
+            params["router"]["kernel"], async_op=async_op)},
+        **{name: {k: sharding.gather_for_use(v, keep=("expert",),
+                                             async_op=async_op)
                   for k, v in params[name].items()}
            for name in ("up", "down")},
     }

@@ -254,7 +254,7 @@ def distribute_full(full, mesh, placements, layout=()):
     return out
 
 
-def gather_for_use(p, keep: Sequence[str] = ()):
+def gather_for_use(p, keep: Sequence[str] = (), async_op: bool = False):
     """A leaf as a plain tensor for the model to use: a DTensor is
     all-gathered (`redistribute` to `Replicate`) and unwrapped, so the
     kernels' `autograd.Function`s see plain tensors; other tensors pass
@@ -268,7 +268,11 @@ def gather_for_use(p, keep: Sequence[str] = ()):
     the rank's tensor is its piece along them (an MoE rank's own experts,
     ops/moe.py; a tensor-parallel rank's heads, columns or rows,
     models/gpt2.py), and its gradient is that piece's. A leaf replicated
-    on a kept axis has its gradient averaged there as on the others."""
+    on a kept axis has its gradient averaged there as on the others.
+
+    `async_op`: issue the gather and return at once; the tensor waits for
+    it at its first use (a functional collective's AsyncCollectiveTensor),
+    so the gather overlaps whatever runs in between."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not isinstance(p, DTensor):
@@ -277,7 +281,7 @@ def gather_for_use(p, keep: Sequence[str] = ()):
     names = mesh.mesh_dim_names
     target = [pl if names[i] in keep else Replicate()
               for i, pl in enumerate(p.placements)]
-    full = p.redistribute(mesh, target)
+    full = p.redistribute(mesh, target, async_op=async_op)
     grads = [target[i] if target[i].is_shard() or mesh.size(i) == 1
              else Partial("avg") for i in range(mesh.ndim)]
     return full.to_local(grad_placements=grads)

@@ -7,8 +7,9 @@ on the command line. Lifecycle:
   1. build the model config (`serving.model` / `serving.model_config`);
   2. restore the params: `serving.checkpoint` names a COMPLETED checkpoint
      that the port's `Trainer.fit` wrote (an id, or "latest": the newest of
-     the lineage), read from `checkpoint_storage` (type `shared_fs`) and
-     verified against its manifest before a byte is used, with a fallback
+     the lineage), read from `checkpoint_storage` (any type storage/ reads;
+     a cloud checkpoint is downloaded first) and verified against its
+     manifest before a byte is used, with a fallback
      through the lineage (engine.load_checkpoint_params); or a `.npz` file
      written by `models.gpt2.save_params_npz`. Each `serving.adapters`
      entry is restored the same way, from the trial of its checkpoint id,
@@ -24,8 +25,7 @@ on the command line. Lifecycle:
      one), and exit 0.
 
 The config is JSON, or YAML when the file ends in .yaml/.yml (PyYAML is
-imported only then). Not ported yet (ROADMAP.md): compile-farm warm AOT
-and the cloud storage backends.
+imported only then). Not ported yet (ROADMAP.md): compile-farm warm AOT.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from determined_tpu_torch.core._context import checkpoint_base  # noqa: F401  (re-export)
+from determined_tpu_torch.storage import from_config
 
 logger = logging.getLogger("determined_tpu_torch.serve")
 
@@ -153,10 +154,10 @@ def _trial_id_for(serving: Dict[str, Any]) -> int:
     return int(serving.get("trial_id", 0))
 
 
-def _restore(ckpt: str, base: str, trial_id: int) -> Dict[str, Any]:
+def _restore(ckpt: str, storage, trial_id: int) -> Dict[str, Any]:
     """Params from a `.npz` file, or from checkpoint `ckpt` (an id or
-    "latest") of trial `trial_id`'s lineage under `base`. An id names its
-    own trial."""
+    "latest") of trial `trial_id`'s lineage in `storage` (a storage
+    manager). An id names its own trial."""
     from determined_tpu_torch.core._checkpoint import (
         _STATE_ID_RE, CheckpointContext)
     from determined_tpu_torch.models.gpt2 import load_params_npz
@@ -165,7 +166,8 @@ def _restore(ckpt: str, base: str, trial_id: int) -> Dict[str, Any]:
     if ckpt.endswith(".npz"):
         return load_params_npz(ckpt)
     m = _STATE_ID_RE.match(ckpt)
-    ctx = CheckpointContext(base, trial_id=int(m.group(1)) if m else trial_id)
+    ctx = CheckpointContext(storage,
+                            trial_id=int(m.group(1)) if m else trial_id)
     return load_checkpoint_params(ctx, ckpt)
 
 
@@ -180,16 +182,16 @@ def build_replica(config: Dict[str, Any], device=None):
 
     serving = config.get("serving") or {}
     cfg = build_model(serving)
-    base = checkpoint_base(config.get("checkpoint_storage"))
+    storage = from_config(config.get("checkpoint_storage"))
     trial_id = _trial_id_for(serving)
-    params = _restore(str(serving.get("checkpoint", "latest")), base,
+    params = _restore(str(serving.get("checkpoint", "latest")), storage,
                       trial_id)
     # Multi-adapter replicas: each serving.adapters entry restores a
     # head-tuned fine-tune through the same verified path, then lives as
     # one table of the engine's adapter stack, picked per request by its
     # `model:` name. An adapter that is not an explicit id resolves in the
     # base checkpoint's trial.
-    adapters = {str(a["name"]): _restore(str(a["checkpoint"]), base,
+    adapters = {str(a["name"]): _restore(str(a["checkpoint"]), storage,
                                          trial_id)
                 for a in serving.get("adapters") or []}
     slots = int(serving.get("max_batch_size", 8))

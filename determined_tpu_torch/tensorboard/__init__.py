@@ -2,17 +2,16 @@
 
 The port's copy of determined_tpu/tensorboard/__init__.py. The chief of a
 managed trial writes its metric reports as tfevents into a local
-directory, and a background thread copies that directory into the
-checkpoint storage every `sync_period` seconds and on `close()`, at
-``<storage base>/tensorboard/<experiment_id>/<trial_id>/``. The port reads
-`shared_fs` storage only, so the storage is its base directory.
+directory, and a background thread uploads that directory into the
+checkpoint storage (a storage manager, storage/) every `sync_period`
+seconds and on `close()`, at
+``<storage base>/tensorboard/<experiment_id>/<trial_id>/``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import shutil
 import tempfile
 import threading
 from typing import Any, Dict, Optional
@@ -60,13 +59,13 @@ class MetricWriter:
 
 
 class TensorboardManager:
-    """Writes tfevents locally and syncs them into `storage_base` (None:
-    no sync)."""
+    """Writes tfevents locally and syncs them into `storage` (None: no
+    sync)."""
 
-    def __init__(self, storage_base: Optional[str], experiment_id: int,
+    def __init__(self, storage, experiment_id: int,
                  trial_id: int, base_dir: Optional[str] = None,
                  sync_period: float = 10.0):
-        self._storage_base = storage_base
+        self._storage = storage
         self._prefix = storage_prefix(experiment_id, trial_id)
         self.log_dir = base_dir or os.path.join(
             tempfile.gettempdir(), "determined_tpu_torch", "tensorboard",
@@ -75,7 +74,7 @@ class TensorboardManager:
         self._sync_period = sync_period
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        if storage_base is not None:
+        if storage is not None:
             self._thread = threading.Thread(
                 target=self._sync_loop, daemon=True, name="tensorboard-sync")
             self._thread.start()
@@ -85,14 +84,12 @@ class TensorboardManager:
         self.writer.add_scalars(metrics, steps_completed, prefix=f"{group}/")
 
     def sync(self) -> None:
-        if self._storage_base is None:
+        if self._storage is None:
             return
         self.writer.flush()
         try:
-            shutil.copytree(self.log_dir,
-                            os.path.join(self._storage_base, self._prefix),
-                            dirs_exist_ok=True)
-        except OSError:
+            self._storage.upload(self.log_dir, self._prefix)
+        except Exception:
             logger.debug("tensorboard sync failed", exc_info=True)
 
     def _sync_loop(self) -> None:

@@ -68,6 +68,7 @@ class GPT2Trial(TorchTrial):
                 "attention_impl",
                 context.hparams.get("attention_impl", "flash")),
             attention_bf16=bool(opt.get("attention_bf16", False)),
+            overlap_allgather=bool(opt.get("overlap_allgather", False)),
             num_experts=int(context.hparams.get("num_experts", 1)),
             moe_top_k=int(context.hparams.get("moe_top_k", 2)),
         )

@@ -55,6 +55,10 @@ PORT_MODULES = [
     "determined_tpu_torch.parallel.collectives",
     "determined_tpu_torch.parallel.mesh",
     "determined_tpu_torch.parallel.sharding",
+    "determined_tpu_torch.pytorch",
+    "determined_tpu_torch.pytorch._trial",
+    "determined_tpu_torch.pytorch.deepspeed",
+    "determined_tpu_torch.pytorch.zero",
     "determined_tpu_torch.serve",
     "determined_tpu_torch.serve.engine",
     "determined_tpu_torch.serve.http",
@@ -63,6 +67,10 @@ PORT_MODULES = [
     "determined_tpu_torch.serve.scheduler",
     "determined_tpu_torch.serve.task",
     "determined_tpu_torch.serve.tracing",
+    "determined_tpu_torch.storage",
+    "determined_tpu_torch.storage.azure",
+    "determined_tpu_torch.storage.base",
+    "determined_tpu_torch.storage.cloud",
     "determined_tpu_torch.tensorboard",
     "determined_tpu_torch.train",
     "determined_tpu_torch.train.health",
@@ -77,7 +85,8 @@ PORT_MODULES = [
 PORT_FILES = ["examples/gpt2_cuda/model_def.py",
               "examples/mnist_cuda/model_def.py",
               "examples/diffusion_cuda/model_def.py",
-              "examples/diffusion_cuda/pretrain.py"]
+              "examples/diffusion_cuda/pretrain.py",
+              "examples/gpt2_torch_cuda/model_def.py"]
 
 
 def _cuda_hidden(monkeypatch):

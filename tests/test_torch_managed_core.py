@@ -391,15 +391,38 @@ def test_a_multi_host_rendezvous_is_refused(cluster_env):
     assert master.requests == []  # refused before it spoke to the master
 
 
+# Every storage type is ported now: a type is refused only for what it
+# lacks (its SDK, its container), named, before init speaks to the master.
 @pytest.mark.parametrize("stype", ["gcs", "s3", "azure", "directory"])
 def test_storage_other_than_shared_fs_is_refused(cluster_env, monkeypatch,
-                                                 stype):
+                                                 stype, tmp_path):
+    from determined_tpu_torch.storage import cloud
+    from determined_tpu_torch.storage.base import DirectoryStorageManager
+
+    # The tensorboard sync's uploads are recorded, never sent: no SDK call
+    # may reach a real bucket.
+    synced = []
+    monkeypatch.setattr(cloud.GCSStorageManager, "upload",
+                        lambda self, src, sid, paths=None: synced.append(sid))
     master = FakeMaster()
     cluster_env(master, DET_ALLOCATION_ID="")
     monkeypatch.setenv("DET_EXPERIMENT_CONFIG", json.dumps(
-        {"checkpoint_storage": {"type": stype, "bucket": "b"}}))
+        {"checkpoint_storage": {"type": stype, "bucket": "b",
+                                "container_path": str(tmp_path)}}))
     try:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tcore.init()
+        if stype in ("s3", "azure"):
+            missing = {"s3": "boto3", "azure": "container"}[stype]
+            with pytest.raises((RuntimeError, ValueError), match=missing):
+                tcore.init()
+            assert master.requests == []
+            return
+        ctx = tcore.init()
+        want = {"gcs": cloud.GCSStorageManager,
+                "directory": DirectoryStorageManager}[stype]
+        assert isinstance(ctx.checkpoint._storage, want)
+        ctx.close()
+        if stype == "gcs":
+            assert synced and set(synced) == {
+                ttensorboard.storage_prefix(2, 3)}, synced
     finally:
         master.close()
