@@ -334,6 +334,25 @@ fails:
      `from_config` must raise naming the package (`[14c] gcs not run:
      ...`).
 
+  15. preflight on the card host (determined_tpu_torch/analysis), which has
+     no JAX.
+ 15a. the port's `analyze_trial` on the trial and config of 12a (the
+     example's GPT-2 small at S 8192, B 4, `attention_impl: ring` at
+     context 1) and of 13b (ResNet-50 at B 256, bf16, sgd momentum, as a
+     stateful trial defined here): prints params, opt_state, grads,
+     batch, the activation upper bound, total_bytes and the phase's
+     measured `max_memory_allocated`, in GiB, and holds total_bytes <=
+     peak <= total_bytes + activations_upper_bound_bytes. Also prints the
+     estimate for 12a at B 8, which runs out of memory on one card,
+     beside the card's memory (information).
+ 15b. around 15a's analyses `torch.cuda.memory_allocated()` and
+     `max_memory_allocated()` stay where they were and no kernel's
+     launch count moves (the flash forward, dQ, dK/dV and paged
+     wrappers); prints the GPT-2 analysis's wall ms (host time).
+ 15c. `python -m determined_tpu_torch.analysis preflight` in a subprocess
+     on tests/fixtures/preflight_torch/{bad,clean}: exactly {DTL002,
+     DTL101} and exit 1, and nothing and exit 0.
+
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
 or "ffma" CUDA cores; `launches` counts phase 7's path, phase 5's for the
@@ -5015,6 +5034,148 @@ FLASH_KERNELS = (  # (key, name, TPU kernel it replaces)
     ("dkv", "flash_dkv", "determined_tpu/ops/flash_attention.py:293"))
 
 
+# ----------------------------------------------------------------- phase 15
+
+
+def resnet50_trial_class():
+    """13b's model, optimizer and batch as a stateful TorchTrial, which is
+    what the preflight reads (13b drives `make_train_step` with the same
+    pieces). The loader yields host batches of 13b's shapes and dtypes."""
+    import torch
+
+    from determined_tpu_torch.models import resnet
+    from determined_tpu_torch.train import TorchTrial, optim
+
+    class ResNet50Trial(TorchTrial):
+        stateful = True
+        cfg = resnet.Config.resnet50()
+
+        def init_params(self, rng):
+            return resnet.init(rng, self.cfg)[0]
+
+        def init_extra(self):
+            return resnet.init_stats(self.cfg)
+
+        def loss(self, params, extra, batch, rng):
+            return resnet.loss_fn(params, extra, batch, rng, self.cfg)
+
+        def optimizer(self):
+            return optim.sgd(0.1, momentum=0.9)
+
+        def build_training_data(self):
+            b = self.context.global_batch_size
+            while True:
+                yield {"images": torch.zeros((b, 224, 224, 3),
+                                             dtype=torch.bfloat16),
+                       "labels": torch.zeros((b,), dtype=torch.int32)}
+
+    return ResNet50Trial
+
+
+PREFLIGHT_KEYS = (("params", "params_bytes"),
+                  ("opt_state", "opt_state_bytes"),
+                  ("grads", "grads_bytes"), ("batch", "batch_bytes"),
+                  ("activations", "activations_upper_bound_bytes"),
+                  ("total", "total_bytes"))
+
+
+def phase_preflight(hparams, long, r50, card):
+    """15a-15c: the port's preflight held to the card's own peaks."""
+    import torch
+
+    from determined_tpu_torch.analysis import analyze_trial
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.ops import paged_attention as pa
+    from determined_tpu_torch.train.trial import TrialContext
+
+    GPT2Trial = gpt2_trial_class()
+    cases = (("12a", lambda b: GPT2Trial(TrialContext(hparams={
+        **long_hparams(hparams), "global_batch_size": b})), LONG_BATCH,
+        long["peak_gib"]),
+             ("13b", lambda b: resnet50_trial_class()(TrialContext(
+                 hparams={"global_batch_size": b})), RESNET50_BATCH,
+              r50["peak_gib"]))
+    wrappers = {"flash_fwd": fa.flash_fwd_cuda, "flash_dq": fa.flash_dq_cuda,
+                "flash_dkv": fa.flash_dkv_cuda,
+                "paged": pa.paged_attention_cuda}
+    _free_cuda()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {k: f.launches for k, f in wrappers.items()}
+
+    # 15a: the estimate against the measured peak.
+    out, wall_ms = {}, {}
+    for name, make, batch, peak_gib in cases:
+        t0 = time.perf_counter()
+        diags, hbm, notes = analyze_trial(make(batch), 1)
+        wall_ms[name] = (time.perf_counter() - t0) * 1e3
+        gib = {k: hbm.get(key, 0) / 2 ** 30 for k, key in PREFLIGHT_KEYS}
+        say(f"[15a] [{card}] {name} (B {batch}) estimate per device, GiB: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in gib.items())
+            + f"; measured peak {peak_gib:.4f} GiB "
+            f"(max_memory_allocated); analysis {wall_ms[name]:.1f} ms")
+        active = [d.code for d in diags if not d.suppressed]
+        if active or notes or "activations_upper_bound_bytes" not in hbm:
+            fail(f"15a: {name}'s analysis reported {active}, notes {notes}")
+        low, high = gib["total"], gib["total"] + gib["activations"]
+        if not low <= peak_gib <= high:
+            fail(f"15a: {name}'s peak {peak_gib:.4f} GiB is outside the "
+                 f"estimate's bracket [{low:.4f}, {high:.4f}] GiB")
+        say(f"[15a] {name}: total {low:.4f} <= peak {peak_gib:.4f} <= total "
+            f"+ activations {high:.4f} GiB; the peak is "
+            f"{(peak_gib - low) / (high - low) * 100:.1f}% of the way from "
+            "the lower end to the upper")
+        out[name] = {"gib": gib, "peak_gib": peak_gib}
+    # 12a at B 8 runs out of memory on one card (LONG_BATCH's comment).
+    _, hbm8, _ = analyze_trial(cases[0][1](2 * LONG_BATCH), 1)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    say(f"[15a] [{card}] 12a at B {2 * LONG_BATCH} (information): total "
+        f"{hbm8['total_bytes'] / 2 ** 30:.4f} GiB, total + activations "
+        f"{(hbm8['total_bytes'] + hbm8['activations_upper_bound_bytes']) / 2 ** 30:.4f}"
+        f" GiB, the card's memory {total_mem / 2 ** 30:.4f} GiB")
+    out["12a_b8"] = {k: hbm8.get(key, 0) / 2 ** 30 for k, key in
+                     PREFLIGHT_KEYS}
+
+    # 15b: no device work.
+    torch.cuda.synchronize()
+    moved = {k: f.launches - launches[k] for k, f in wrappers.items()}
+    now, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    say(f"[15b] [{card}] around the analyses: memory_allocated {allocated} "
+        f"-> {now} bytes, max_memory_allocated {peak}; launches moved "
+        f"{moved}; GPT-2 small analysis wall {wall_ms['12a']:.1f} ms, "
+        f"ResNet-50 {wall_ms['13b']:.1f} ms (host time)")
+    if now != allocated or peak != allocated or any(moved.values()):
+        fail("15b: the analyses allocated device memory or launched a "
+             "kernel")
+
+    # 15c: the fixtures through the entry point, no JAX on this host.
+    fixtures = os.path.join(ROOT, "tests", "fixtures", "preflight_torch")
+    want = {"bad": (1, ["DTL002", "DTL101"]), "clean": (0, [])}
+    t0 = time.monotonic()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "determined_tpu_torch.analysis", "preflight",
+         os.path.join(fixtures, name, "config.json"),
+         os.path.join(fixtures, name), "--json"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in want}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        try:
+            got = (proc.returncode,
+                   json.loads(stdout)["summary"]["codes"])
+        except ValueError:
+            fail(f"15c: {name}: no JSON report (rc {proc.returncode}): "
+                 f"{stderr[-2000:]}")
+        say(f"[15c] {name} fixture: exit {got[0]}, codes {got[1]} "
+            f"(expected {want[name]})")
+        if got != want[name]:
+            fail(f"15c: the {name} fixture gave {got}, want {want[name]}")
+    say(f"[15c] both fixtures in {time.monotonic() - t0:.1f} s")
+    out["wall_ms"] = wall_ms
+    return out
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -5052,6 +5213,7 @@ def main() -> int:
     phase_split_world(workdir, hparams, card)
     other = phase_other_models(workdir, card)
     trials = phase_torch_trials(workdir, hparams, card, train["step_ms"])
+    pre = phase_preflight(hparams, long, other["13b"], card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -5130,6 +5292,12 @@ def main() -> int:
             f"{r['bytes'] / 1e6 / ((r['sync_ms'] + r['wait_ms']) / 1e3):.1f}"
             f" MB/s; restore {r['restore_ms']:.1f} ms, "
             f"{r['bytes'] / 1e6 / (r['restore_ms'] / 1e3):.1f} MB/s")
+    for name in ("12a", "13b"):
+        g = pre[name]["gib"]
+        say(f"[times] [{card}] preflight {name}: estimate total "
+            f"{g['total']:.4f} GiB <= peak {pre[name]['peak_gib']:.4f} GiB <= "
+            f"total + activations {g['total'] + g['activations']:.4f} GiB; "
+            f"analysis {pre['wall_ms'][name]:.1f} ms of host time")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",

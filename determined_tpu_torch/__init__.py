@@ -28,6 +28,9 @@ Slices ported so far:
            s3, azure) under the Core API's checkpoints.
   pytorch/ the class-based trial APIs: PyTorchTrial, DeepSpeedTrial and
            the ZeRO-1 engine.
+  analysis/ the preflight: config rules, a lint of step functions and a
+           per-device memory estimate on the meta device
+           (`python -m determined_tpu_torch.analysis`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`
 (`_device.resolve_device`).

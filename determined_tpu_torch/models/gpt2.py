@@ -530,7 +530,7 @@ def _trunk(params: Params, tokens: torch.Tensor, cfg: Config,
     gathered = [_gather_layer(lp, async_op=True) for lp in layers[:ahead]]
     auxs = []
     for i in range(len(layers)):
-        if i + ahead < len(layers):
+        if i + ahead < len(layers):  # det: noqa[DTL104]: n_layer, fixed
             gathered.append(_gather_layer(layers[i + ahead],
                                           async_op=bool(ahead)))
         x, aux = block(x, gathered.pop(0))

@@ -35,6 +35,16 @@ sends only shapes the kernels are built for to them (`S % 128 == 0` and
 `D` in 64/128/256, the JAX package's `_pallas_supported` rule), decided from
 the shapes before any launch; any other shape runs the reference.
 
+Meta tensors (the preflight's abstract trace, determined_tpu_torch/analysis)
+take the route a CUDA device would: `flash_attention` resolves the setting
+as for a CUDA tensor, and each wrapper, given meta tensors, returns empty
+meta outputs of the kernel's shapes and dtypes (`o` like q, `lse` [B*H, S]
+fp32; dq, dk, dv like q) after the same layout checks. A meta tensor holds
+no values, so nothing computes and no launch is counted: the estimate
+counts the memory the kernels' outputs take on the card, not the plain
+version's [S, S] scores. CPU tensors still run the plain version (the
+dispatcher) or raise (the wrappers).
+
 `flash_fwd_reference`, `flash_dq_reference` and `flash_dkv_reference` are
 the plain versions of the three kernels on the kernels' own inputs and
 outputs (lse, delta, dq, dk, dv), with the kernels' rounding: what
@@ -218,11 +228,15 @@ def split_bf16(x: torch.Tensor, terms: int = 3):
 # ---------------------------------------------------------- CUDA kernels
 
 
-def _check(name: str, tensors) -> None:
+def _check(name: str, tensors) -> bool:
     """Raise ValueError unless the kernels take these [B, S, H, D] tensors:
     devices first (a CPU tensor never reaches a kernel), then dtypes and
-    layout."""
+    layout. True for meta tensors, which take the kernel's shapes and
+    launch nothing (the module docstring)."""
     q = tensors[0][1]
+    if all(t.device.type == "meta" for _, t in tensors):
+        _check_layout(name, tensors)
+        return True
     for tname, t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {tname} is on {t.device}, not cuda")
@@ -230,6 +244,7 @@ def _check(name: str, tensors) -> None:
             raise ValueError(
                 f"{name}: {tname} is on {t.device}, q on {q.device}")
     _check_layout(name, tensors)
+    return False
 
 
 def _check_layout(name: str, tensors) -> None:
@@ -314,10 +329,12 @@ def flash_fwd_cuda(q, k, v, causal: bool = True, bf16: bool = False
     fp32). Runs on the current stream and does not synchronise. Raises on
     a CPU tensor, a dtype or layout the kernel does not take, and on a
     refused launch: there is no fallback to the plain version."""
-    _check("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)))
+    meta = _check("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)))
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    if meta:
+        return o, lse
     _launch("flash_fwd_cuda", "dtt_flash_fwd", q,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()), _strides(q, k, v), causal,
@@ -332,9 +349,12 @@ flash_fwd_cuda.launches = 0
 def flash_dq_cuda(q, k, v, dout, lse, delta, causal: bool = True,
                   bf16: bool = False) -> torch.Tensor:
     """Launch the dQ kernel -> dq [B, S, H, D] contiguous."""
-    _check("flash_dq_cuda", (("q", q), ("k", k), ("v", v), ("dout", dout)))
+    meta = _check("flash_dq_cuda",
+                  (("q", q), ("k", k), ("v", v), ("dout", dout)))
     _check_stats("flash_dq_cuda", q, lse=lse, delta=delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if meta:
+        return dq
     _launch("flash_dq_cuda", "dtt_flash_bwd_dq", q,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
@@ -349,10 +369,13 @@ flash_dq_cuda.launches = 0
 def flash_dkv_cuda(q, k, v, dout, lse, delta, causal: bool = True,
                    bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel -> (dk, dv) [B, S, H, D] contiguous."""
-    _check("flash_dkv_cuda", (("q", q), ("k", k), ("v", v), ("dout", dout)))
+    meta = _check("flash_dkv_cuda",
+                  (("q", q), ("k", k), ("v", v), ("dout", dout)))
     _check_stats("flash_dkv_cuda", q, lse=lse, delta=delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if meta:
+        return dk, dv
     _launch("flash_dkv_cuda", "dtt_flash_bwd_dkv", q,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
@@ -409,8 +432,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Self-attention over [B, S, H, D], dispatched by `attention_impl`:
     auto | kernel | pallas | reference | dense (None == auto; legacy
     flash/dot accepted). "kernel" on a shape outside `kernel_supported`
-    runs the reference; "kernel" on CPU tensors raises."""
-    resolved = resolve_attention_impl(impl, q.device)
+    runs the reference; "kernel" on CPU tensors raises. Meta tensors take
+    the route of CUDA ones."""
+    device = torch.device("cuda") if q.device.type == "meta" else q.device
+    resolved = resolve_attention_impl(impl, device)
     if resolved == "kernel" and kernel_supported(q):
         return cuda_flash_attention(q, k, v, causal=causal, bf16=bf16)
     if resolved == "dense":

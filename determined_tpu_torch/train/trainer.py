@@ -37,6 +37,11 @@ over them is not ported); `pipeline` above 1 raises, and so does a world
 of more than one process without a process group: it never trains alone
 in silence.
 
+The first step call of a `fit` lands a `harness.compile` span, the JAX
+Trainer's "first executable acquisition": here, the hand-written kernels
+built with nvcc at their first launch (or loaded from build/kernels) and
+the step's first eager run on the host.
+
 Not ported (ROADMAP.md): the compile farm and batch-size bucketing
 (`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
 nothing here), the pipeline axis (item 7) and elastic resize in process
@@ -56,7 +61,7 @@ import torch
 
 from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
-from determined_tpu_torch.common import faultpoint
+from determined_tpu_torch.common import faultpoint, trace
 from determined_tpu_torch.data.prefetch import DevicePrefetcher, PrefetchConfig
 from determined_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 from determined_tpu_torch.train import state as state_mod
@@ -375,6 +380,7 @@ class Trainer:
             watchdog.beat()
             return True
 
+        first_call = True
         try:
             watchdog.start()
             for op in core.searcher.operations():
@@ -385,8 +391,14 @@ class Trainer:
                         # to catch.
                         faultpoint.fire("step.hang")
                         batch = next(data_iter)
+                        t0_us = trace.now_us() if first_call else 0
                         self.state, metrics = self._train_step(
                             self.state, batch, rng)
+                        if first_call:
+                            first_call = False
+                            core.tracer.emit(
+                                "harness.compile", t0_us, trace.now_us(),
+                                {"step": step})
                         step += 1
                         n_report += 1
                         last = (step, metrics)

@@ -99,8 +99,11 @@ class GPT2Trial(TorchTrial):
 
     def _rows(self, batch):
         """This rank's rows of a global batch: its block of the batch
-        split over the mesh's data and fsdp axes."""
+        split over the mesh's data and fsdp axes. One process (no process
+        group, as the preflight loads a trial) holds the whole batch."""
         d = self.context.distributed
+        if d.size == 1:
+            return batch
         i, count = batch_shard(self.mesh_config(), d.rank, d.size)
         n = len(batch["tokens"]) // count
         return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}

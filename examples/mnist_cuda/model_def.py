@@ -74,8 +74,11 @@ class MNistTrial(TorchTrial):
         )
 
     def _rows(self, batch):
-        """This rank's rows of a global batch."""
+        """This rank's rows of a global batch; one process holds the
+        whole batch."""
         d = self.context.distributed
+        if d.size == 1:
+            return batch
         i, count = batch_shard(self.mesh_config(), d.rank, d.size)
         n = len(batch["labels"]) // count
         return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}

@@ -16,6 +16,20 @@ PORT_MODULES = [
     "determined_tpu_torch",
     "determined_tpu_torch._device",
     "determined_tpu_torch._info",
+    "determined_tpu_torch.analysis",
+    "determined_tpu_torch.analysis.__main__",
+    "determined_tpu_torch.analysis._preflight",
+    "determined_tpu_torch.analysis.abstract",
+    "determined_tpu_torch.analysis.astlint",
+    "determined_tpu_torch.analysis.config_rules",
+    "determined_tpu_torch.analysis.diagnostics",
+    "determined_tpu_torch.analysis.metric_lint",
+    "determined_tpu_torch.analysis.native_lint",
+    "determined_tpu_torch.analysis.rules",
+    "determined_tpu_torch.common.metric_names",
+    "determined_tpu_torch.compile",
+    "determined_tpu_torch.compile.bucketing",
+    "determined_tpu_torch.expconf",
     "determined_tpu_torch.common.api",
     "determined_tpu_torch.common.faultpoint",
     "determined_tpu_torch.common.trace",
@@ -86,7 +100,9 @@ PORT_FILES = ["examples/gpt2_cuda/model_def.py",
               "examples/mnist_cuda/model_def.py",
               "examples/diffusion_cuda/model_def.py",
               "examples/diffusion_cuda/pretrain.py",
-              "examples/gpt2_torch_cuda/model_def.py"]
+              "examples/gpt2_torch_cuda/model_def.py",
+              "tests/fixtures/preflight_torch/bad/model_def.py",
+              "tests/fixtures/preflight_torch/clean/model_def.py"]
 
 
 def _cuda_hidden(monkeypatch):
