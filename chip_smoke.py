@@ -353,13 +353,49 @@ fails:
      on tests/fixtures/preflight_torch/{bad,clean}: exactly {DTL002,
      DTL101} and exit 1, and nothing and exit 0.
 
+  16. pipeline parallelism and MoE over the model axes: pipeline.yaml's
+     and moe.yaml's models.
+ 16a. pipeline.yaml's model (GPT-2 small, S 1024, bf16, remat "dots") on
+     one batch shard of that config, B 32 (128 / (data 2 x fsdp 2)): the
+     GPipe schedule walked in one process at 2 and 4 stages with the
+     microbatch count `pipeline_microbatches_default` gives that mesh (8
+     and 16): `gpt2.loss_fn_pipelined` with `parallel/pipeline.walk`
+     (every stage in turn at each tick, each activation handed on in
+     memory). Its loss and every gradient against `gpt2.loss_fn` on the
+     same card and batch within PIPE_BF16_TOL (calibrated, beside the
+     constant), and in fp32 at B 8 within 1e-5 of each leaf's largest
+     element; each flash kernel launched M x the plain step's count for
+     the same layers; two planted faults (a microbatch committed one tick
+     late, the stages' layer slices swapped) refused; the walked step at
+     2 stages against the plain step, in turns.
+ 16b. with two cards or more, pipeline.yaml's trial through the GPU-slot
+     launcher at `pipeline: 2`, world 2, against world 1 at phase 7's
+     hparams, held to 12d's SPLIT_LOSS_RTOL and SPLIT_NORM_RTOL; each
+     world's step and each rank's `max_memory_allocated`. With one card,
+     `[16b] not run: 1 card`.
+ 16c. moe.yaml's model (8 experts, top-2, GPT-2 small, bf16) at B 8, S
+     1024: the first MoE block's input at random weights routed over 2
+     and 4 context chunks in turn, each chunk fed the per-row counts the
+     context group's gather would deliver: pos, kept, the experts and
+     the capacity bitwise those of one route over the whole, the gates
+     and probabilities within MOE_GATE_ATOL (a chunk's router product
+     runs on fewer rows, which cuBLAS sums in another order), the aux
+     loss within 1e-6 relative. The experts' FFN split over
+     tensor 2 (two halves summed, the `down` bias once) against the
+     unsplit FFN: fp32 within 1e-5 of the largest element, bf16 within
+     MOE_TENSOR_BF16_TOL.
+ 16d. with two cards or more, the MoE trial at `tensor: 2` and at
+     `context: 2` (ring), each against world 1 under 12d's limits. With
+     one card, `[16d] not run: 1 card`.
+
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
 or "ffma" CUDA cores; `launches` counts phase 7's path, phase 5's for the
 paged kernel, `launches_moe` phase 11a's, 11c's for the paged kernel,
 and for the flash kernels `launches_long` phase 12a's,
-`launches_ring` 12b's ring schedule and `launches_torch_trial` 14a's
-`pytorch.Trainer.fit`, and `long_ms` a launch's device
+`launches_ring` 12b's ring schedule, `launches_torch_trial` 14a's
+`pytorch.Trainer.fit` and `launches_pipeline` 16a's schedule walked over
+2 stages, and `long_ms` a launch's device
 time in 12a's steps, at B 4, S 8192, under torch.profiler, beside its
 bound at that shape, `long_bound_ms`); the last line is `{"ok": true,
 "device": {...}}`.
@@ -2389,7 +2425,8 @@ out.update(mesh=dict(zip(trainer.mesh.mesh_dim_names,
            launches={"fwd": fa.flash_fwd_cuda.launches,
                      "dq": fa.flash_dq_cuda.launches,
                      "dkv": fa.flash_dkv_cuda.launches},
-           reference_calls=fa.reference_attention.calls)
+           reference_calls=fa.reference_attention.calls,
+           peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 print("RESULT " + json.dumps(out), flush=True)
 ctx.close()
 '''
@@ -3676,10 +3713,11 @@ SPLIT_NORM_RTOL = 5e-2
 
 def phase_split_world(workdir, hparams, card):
     """12d: with two cards, the example trial launched at world 2 over
-    NCCL, `context: 2` with ring attention and `tensor: 2`, each against a
-    world of one at the same hparams: the losses and grad norms of each
-    report window (SPLIT_LOSS_RTOL, SPLIT_NORM_RTOL); prints the last
-    report window's step of each. With one card: not run."""
+    NCCL, `context: 2` with ring attention, and `tensor: 2`, each against
+    a world of one at the same hparams: the losses and grad norms of each
+    report window (SPLIT_LOSS_RTOL, SPLIT_NORM_RTOL; world_against_one,
+    phase 16); prints the last report window's step of each. With one
+    card: not run."""
     import torch
 
     n = torch.cuda.device_count()
@@ -3690,40 +3728,8 @@ def phase_split_world(workdir, hparams, card):
     for name, extra in (("context", {"mesh": {"data": 1, "context": 2},
                                      "attention_impl": "ring"}),
                         ("tensor", {"mesh": {"data": 1, "tensor": 2}})):
-        reports, step_ms = {}, {}
-        for nproc, slots in ((1, "[0]"), (2, "[0,1]")):
-            mesh = {**extra["mesh"], name: nproc}
-            storage = os.path.join(workdir, f"split_{name}_{nproc}")
-            results, master, rc, log = launch_trial(
-                workdir, {**hparams, **extra, "mesh": mesh}, storage, nproc,
-                slots, trial_id=LAUNCHED_TRIAL + 10 + nproc, timeout=300)
-            if rc != 0 or sorted(results) != list(range(nproc)):
-                say(log[-3000:])
-                fail(f"12d {name} at world {nproc} exited {rc}")
-            reports[nproc] = [
-                b["metrics"] for b in master.posted("/metrics")
-                if b["group"] == "training" and "loss" in b["metrics"]]
-            # The last report window's step (the first holds the warm-up).
-            step_ms[nproc] = 1e3 / reports[nproc][-1]["steps_per_second"]
-        if len(reports[2]) != len(reports[1]):
-            fail(f"12d {name}: {len(reports[2])} report windows at world 2, "
-                 f"{len(reports[1])} at world 1")
-        rel = {key: max(abs(a[key] - b[key]) / abs(b[key])
-                        for a, b in zip(reports[2], reports[1]))
-               for key in ("loss", "grad_norm")}
-        say(f"[12d] [{card}] {name}: 2 against 1, each report window: "
-            + "; ".join(
-                f"{key} {[r[key] for r in reports[2]]} / "
-                f"{[r[key] for r in reports[1]]}, max relative diff "
-                f"{rel[key]:.2e} (rtol {tol:g})"
-                for key, tol in (("loss", SPLIT_LOSS_RTOL),
-                                 ("grad_norm", SPLIT_NORM_RTOL)))
-            + f"; step of the last report window {step_ms[2]:.2f} / "
-            f"{step_ms[1]:.2f} ms")
-        if rel["loss"] > SPLIT_LOSS_RTOL or rel["grad_norm"] > SPLIT_NORM_RTOL:
-            fail(f"12d {name}: world 2's losses or grad norms differ from "
-                 f"world 1's: {rel}")
-        out[name] = rel
+        out[name] = world_against_one(workdir, hparams, "12d", name, extra,
+                                      card, LAUNCHED_TRIAL + 10)[0]
     return out
 
 
@@ -5176,6 +5182,447 @@ def phase_preflight(hparams, long, r50, card):
     return out
 
 
+# ----------------------------------------------------------------- phase 16
+
+
+# examples/gpt2_cuda/pipeline.yaml's model and layout: GPT-2 small at S
+# 1024 in bf16 with phase 7's remat ("dots"), 2 GPipe stages x (data 2 x
+# fsdp 2) over 8 slots, a global batch of 128: one batch shard holds 128
+# / (data 2 x fsdp 2) = 32 rows, which every stage of its pipeline group
+# runs. 16a walks 2 and 4 stages of that shard in one process, with the
+# microbatch count `pipeline_microbatches_default` gives that mesh (8 at
+# 2 stages, 16 at 4).
+PIPE_MESH = {"data": 2, "fsdp": 2}
+PIPE_BATCH = 32
+PIPE_STAGES = (2, 4)
+PIPE_FP32_BATCH = 8
+# 16a's limits on the walked schedule against `gpt2.loss_fn`, each
+# gradient leaf as max |walk - plain| / max |plain|. fp32 (the FFMA
+# kernels, TF32 off): the walk runs the same arithmetic on smaller
+# products, so only cuBLAS's choice of kernel for another row count moves
+# a sum's order: 1e-5 of each leaf's largest element, the loss rtol 1e-5.
+PIPE_FP32_TOL = 1e-5
+# bf16: each product rounds its output to bf16, so another kernel choice
+# for a microbatch's rows moves a value by a rounding, and 12 layers and
+# the backward carry it on. PIPE_BF16_TOL = (loss rtol, a leaf's
+# gradient as above), set from a calibration run of this phase on an
+# H100 (PERF.md): the loss came out bitwise at 2 and 4 stages, the
+# worst leaf 3.564e-3 (2 stages) and 3.210e-3 (4 stages) of its largest
+# element; the limits are about three times that. The planted faults
+# moved a leaf by 1.52 and 1.41 of its largest element, the loss by
+# 1.2e-4 and 2.2e-4.
+PIPE_BF16_TOL = (1e-4, 1e-2)
+# 16c's routing: a chunk's slots (pos, kept), its chosen experts and the
+# capacity must be bitwise the whole route's. Its router product runs on
+# T / c rows, and cuBLAS reduces the 768-long fp32 dot products of
+# another row count in another order (a first run of this phase on an
+# H100: probabilities and gates not bitwise, the slots and choices
+# were; a second read 2.98e-7 and 2.68e-7 at 2 and 4 chunks), so the
+# gates and probabilities (values at most 1) are held to MOE_GATE_ATOL.
+MOE_GATE_ATOL = 1e-6
+# 16c's bf16 limit on the experts' FFN split over tensor 2 (two halves
+# summed in bf16, the `down` bias once) against the unsplit FFN, as max
+# |split - whole| / max |whole|: each half rounds its product to bf16
+# before the sum, where the whole rounds once. Two runs of this phase on
+# an H100 (PERF.md) read 5.587e-3; the limit is about 3.6 times
+# that (fp32 read 2.211e-6 against MOE_TENSOR_FP32_TOL).
+MOE_TENSOR_BF16_TOL = 2e-2
+MOE_TENSOR_FP32_TOL = 1e-5
+
+
+def pipe_microbatches(stages, batch):
+    """`pipeline_microbatches_default` of pipeline.yaml's mesh at `stages`
+    stages, for one batch shard of `batch` rows."""
+    from determined_tpu_torch.parallel import pipeline
+    from determined_tpu_torch.parallel.mesh import MeshConfig
+
+    mesh = MeshConfig(pipeline=stages, **PIPE_MESH)
+    return pipeline.pipeline_microbatches_default(
+        mesh, batch * pipeline._batch_shards(mesh, None))
+
+
+def pipe_walk(stages, **faults):
+    """A `schedule` for `gpt2.loss_fn_pipelined`: `pipeline.walk` over
+    `stages` stages in one process (`faults`: its `commit` and
+    `slices`)."""
+    from determined_tpu_torch.parallel import pipeline
+
+    def schedule(block, blocks, x, m):
+        return pipeline.walk(block, blocks, x, stages, m, **faults)
+
+    return schedule
+
+
+def pipe_step(leaves, names, batch, cfg, schedule=None, m=None):
+    """loss and every leaf's gradient: `gpt2.loss_fn`, or with `schedule`
+    the pipelined loss walked over its stages."""
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+
+    params = gpt2._unflatten(dict(zip(names, leaves)))
+    if schedule is None:
+        loss = gpt2.loss_fn(params, batch, cfg)
+    else:
+        loss = gpt2.loss_fn_pipelined(params, batch, cfg, None,
+                                      num_microbatches=m, schedule=schedule)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss), grads
+
+
+def pipe_errors(got, want, names):
+    """(the loss's relative error, the worst leaf's max |diff| / max
+    |plain| and its name)."""
+    loss_rel = abs(got[0] - want[0]) / abs(want[0])
+    name, rel = max(((n, float((g.float() - w.float()).abs().max()
+                               / w.float().abs().max()))
+                     for n, g, w in zip(names, got[1], want[1])),
+                    key=lambda kv: kv[1])
+    return loss_rel, rel, name
+
+
+def flash_counts(reset=False):
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    fns = {"fwd": fa.flash_fwd_cuda, "dq": fa.flash_dq_cuda,
+           "dkv": fa.flash_dkv_cuda}
+    out = {k: f.launches for k, f in fns.items()}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return out
+
+
+def phase_pipeline_walk(card):
+    """16a: pipeline.yaml's model (GPT-2 small, S 1024, bf16, remat "dots",
+    random weights from a seed) on one batch shard of B 32: the GPipe
+    schedule walked in one process at 2 and 4 stages
+    (`gpt2.loss_fn_pipelined` with `pipeline.walk`), its loss and every
+    gradient against `gpt2.loss_fn` on the same batch, within
+    PIPE_BF16_TOL; the same in fp32 at B 8 within PIPE_FP32_TOL. Each
+    flash kernel must launch M times what the plain step launches for the
+    same layers. Two planted faults (a microbatch committed one tick
+    late, the two stages' layer slices swapped) must be refused. Prints
+    the walked step's ms at 2 stages against the plain step's, in turns.
+    -> the launches of the 2-stage bf16 step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.parallel import pipeline
+
+    cfg = dataclasses.replace(gpt2.Config.small(), attention_impl="kernel")
+    flat = gpt2._flatten(gpt2.init(
+        torch.Generator(device="cuda").manual_seed(SEED + 70), cfg))
+    names = list(flat)
+    leaves = [t.requires_grad_() for t in flat.values()]
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 71).integers(
+        0, cfg.vocab_size, (PIPE_BATCH, 1025)).astype(np.int32)).cuda()
+    batch = {"tokens": tokens}
+    fa.reference_attention.calls = 0
+    flash_counts(reset=True)
+    plain = pipe_step(leaves, names, batch, cfg)
+    torch.cuda.synchronize()
+    per_step = flash_counts(reset=True)
+    L = cfg.n_layer
+    if per_step != {"fwd": 2 * L, "dq": L, "dkv": L}:
+        fail(f"the plain step launched {per_step}, want phase 7's "
+             f"{ {'fwd': 2 * L, 'dq': L, 'dkv': L} }")
+    out = {"launches": None}
+    for stages in PIPE_STAGES:
+        m = pipe_microbatches(stages, PIPE_BATCH)
+        # The main path of this slice: every count starts at 0.
+        flash_counts(reset=True)
+        walked = pipe_step(leaves, names, batch, cfg, pipe_walk(stages), m)
+        torch.cuda.synchronize()
+        launches = flash_counts(reset=True)
+        want = {k: m * v for k, v in per_step.items()}
+        loss_rel, rel, worst = pipe_errors(walked, plain, names)
+        say(f"[pipeline] [{card}] bf16 B {PIPE_BATCH}, {stages} stages, M "
+            f"{m} (bubble (S-1)/(M+S-1) = {(stages - 1) / (m + stages - 1):.3f}"
+            f"), walked against loss_fn: loss {walked[0]:.6f} / "
+            f"{plain[0]:.6f} (rel {loss_rel:.2e}, limit "
+            f"{PIPE_BF16_TOL[0]:g}); worst gradient leaf {worst} "
+            f"{rel:.3e} of its largest element (limit {PIPE_BF16_TOL[1]:g});"
+            f" flash launches {launches} (want M x the plain step's "
+            f"{per_step})")
+        if launches != want:
+            fail(f"16a at {stages} stages launched {launches}, want {want}")
+        if loss_rel > PIPE_BF16_TOL[0] or rel > PIPE_BF16_TOL[1]:
+            fail(f"16a: the walked schedule at {stages} stages differs from "
+                 f"loss_fn in bf16 (loss {loss_rel:.2e}, {worst} {rel:.2e})")
+        if stages == 2:
+            out["launches"] = launches
+            out["m"] = m
+        del walked
+    if fa.reference_attention.calls:
+        fail(f"the plain attention ran {fa.reference_attention.calls} "
+             "times in 16a")
+    # The planted faults, at 2 stages.
+    m = pipe_microbatches(2, PIPE_BATCH)
+    for name, faults in (
+            ("a microbatch committed one tick late", {
+                "commit": lambda t, s, mm: (
+                    pipeline.commit_slot(t, s, mm) + 1) % mm}),
+            ("the two stages' layer slices swapped", {"slices": [1, 0]})):
+        wrong = pipe_step(leaves, names, batch, cfg, pipe_walk(2, **faults),
+                          m)
+        loss_rel, rel, worst = pipe_errors(wrong, plain, names)
+        refused = loss_rel > PIPE_BF16_TOL[0] or rel > PIPE_BF16_TOL[1]
+        say(f"[pipeline] planted fault '{name}': loss rel {loss_rel:.2e}, "
+            f"worst leaf {worst} {rel:.3e}: refused {refused}")
+        if not refused:
+            fail(f"16a's checks pass the planted fault '{name}'")
+        del wrong
+    flash_counts(reset=True)
+    # The step's time, in turns: plain, walked, walked, plain.
+    ms = {"plain": [], "walked": []}
+    for kind in ("plain", "walked", "walked", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if kind == "plain":
+            pipe_step(leaves, names, batch, cfg)
+        else:
+            pipe_step(leaves, names, batch, cfg, pipe_walk(2), m)
+        torch.cuda.synchronize()
+        ms[kind].append((time.monotonic() - t0) * 1e3)
+    # Their device time under torch.profiler: what the card works.
+    out["device_ms"] = {
+        "plain": device_ms_per_step(
+            lambda: pipe_step(leaves, names, batch, cfg), 1),
+        "walked": device_ms_per_step(
+            lambda: pipe_step(leaves, names, batch, cfg, pipe_walk(2), m),
+            1)}
+    flash_counts(reset=True)
+    out["ms"] = {k: statistics.mean(v) for k, v in ms.items()}
+    say(f"[pipeline] [{card}] the step (loss and gradients) at B "
+        f"{PIPE_BATCH}, in turns: walked over 2 stages (M {m}) "
+        f"{' / '.join(f'{x:.2f}' for x in ms['walked'])} ms, plain "
+        f"{' / '.join(f'{x:.2f}' for x in ms['plain'])} ms: walked "
+        f"{out['ms']['walked'] / out['ms']['plain']:.3f}x plain; device "
+        f"time under torch.profiler: walked "
+        f"{out['device_ms']['walked']:.2f} ms, plain "
+        f"{out['device_ms']['plain']:.2f} ms")
+    del plain, leaves, flat
+    _free_cuda()
+    # fp32 at B 8.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    flat = gpt2._flatten(gpt2.init(
+        torch.Generator(device="cuda").manual_seed(SEED + 70), cfg32))
+    leaves = [t.requires_grad_() for t in flat.values()]
+    batch = {"tokens": tokens[:PIPE_FP32_BATCH]}
+    plain = pipe_step(leaves, names, batch, cfg32)
+    for stages in PIPE_STAGES:
+        m = pipe_microbatches(stages, PIPE_FP32_BATCH)
+        walked = pipe_step(leaves, names, batch, cfg32, pipe_walk(stages), m)
+        loss_rel, rel, worst = pipe_errors(walked, plain, names)
+        say(f"[pipeline] [{card}] fp32 B {PIPE_FP32_BATCH}, {stages} stages, "
+            f"M {m}: loss rel {loss_rel:.2e}, worst gradient leaf {worst} "
+            f"{rel:.3e} of its largest element (limit {PIPE_FP32_TOL:g})")
+        if loss_rel > PIPE_FP32_TOL or rel > PIPE_FP32_TOL:
+            fail(f"16a: the walked schedule at {stages} stages differs from "
+                 f"loss_fn in fp32 (loss {loss_rel:.2e}, {worst} {rel:.2e})")
+    flash_counts(reset=True)
+    del plain, walked, leaves, flat
+    _free_cuda()
+    return out
+
+
+def phase_moe_chunks(card):
+    """16c: moe.yaml's model (GPT-2 small, 8 experts, top-2, bf16, random
+    weights from a seed) at B 8, S 1024: the first MoE block's input,
+    routed by `ops.moe.route` over 2 and 4 context chunks of each row in
+    turn, each chunk fed the per-row counts of every chunk (what the
+    context group's all-gather delivers), against one route over the
+    whole: pos, kept, the chosen experts and the capacity bitwise, the
+    gates and probabilities within MOE_GATE_ATOL, the aux loss within
+    1e-6 relative. Then the experts' FFN on
+    the whole route's slots split over tensor 2 (two halves of `up`'s
+    columns and `down`'s rows, summed, the `down` bias once) against the
+    unsplit FFN: fp32 within MOE_TENSOR_FP32_TOL of the largest element,
+    bf16 within MOE_TENSOR_BF16_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import gpt2
+    from determined_tpu_torch.ops import moe
+
+    cfg = dataclasses.replace(gpt2.Config.small(), attention_impl="kernel",
+                              **MOE_HPARAMS)
+    params = gpt2.init(torch.Generator(device="cuda").manual_seed(SEED + 72),
+                       cfg)
+    b, s = 8, 1024
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 73).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    seen, block = [], moe.moe_block
+
+    def first_input(x, *args, **kwargs):
+        if not seen:
+            seen.append(x.detach().clone())
+        return block(x, *args, **kwargs)
+
+    moe.moe_block = first_input
+    try:
+        with torch.no_grad():
+            gpt2.apply(params, tokens, cfg)
+    finally:
+        moe.moe_block = block
+    x = seen[0]
+    e, k, cf = cfg.num_experts, cfg.moe_top_k, cfg.moe_capacity_factor
+    lp = gpt2.map_params(lambda t: t[0], params["blocks"]["moe"])
+    router = lp["router"]["kernel"]
+    xt = x.reshape(-1, x.shape[-1])
+    whole = moe.route(xt, router, e, k, cf, rows=b)
+    for chunks in (2, 4):
+        parts = list(x.chunk(chunks, dim=1))
+        alone = [moe.route(p.reshape(-1, p.shape[-1]), router, e, k, cf,
+                           rows=b) for p in parts]
+        counts = torch.stack([moe.row_counts(r.gate_idx, e, b)
+                              for r in alone])[None]
+        walked = [moe.route(p.reshape(-1, p.shape[-1]), router, e, k, cf,
+                            moe.chunk_place(j, chunks), rows=b,
+                            counts=counts)
+                  for j, p in enumerate(parts)]
+
+        def merged(field):
+            return torch.cat([getattr(r, field).reshape(b, s // chunks, -1)
+                              for r in walked], dim=1).reshape(b * s, -1)
+
+        same = {f: torch.equal(merged(f), getattr(whole, f))
+                for f in ("pos", "kept", "gate_idx", "gate_vals", "probs")}
+        gate_err = max(float((merged(f) - getattr(whole, f)).abs().max())
+                       for f in ("gate_vals", "probs"))
+        caps = sorted({r.capacity for r in walked})
+        aux = [float(moe._aux_loss(r, e, None)) for r in (whole, moe.Routing(
+            merged("probs"), merged("gate_idx"), merged("gate_vals"),
+            merged("pos"), merged("kept"), whole.capacity))]
+        aux_rel = abs(aux[1] - aux[0]) / abs(aux[0])
+        kept = float(whole.kept.float().mean())
+        say(f"[moe-chunks] [{card}] bf16 B {b} S {s}, {chunks} context "
+            f"chunks against one route: bitwise {same}; gates and "
+            f"probabilities max |diff| {gate_err:.2e} (limit "
+            f"{MOE_GATE_ATOL:g}); capacity {caps} / {whole.capacity}; aux "
+            f"{aux[1]:.8f} / {aux[0]:.8f} (rel {aux_rel:.2e}, limit 1e-6); "
+            f"kept share {kept:.4f}")
+        slots = ("pos", "kept", "gate_idx")
+        if not all(same[f] for f in slots) or caps != [whole.capacity] or \
+                gate_err > MOE_GATE_ATOL or aux_rel > 1e-6:
+            fail(f"16c: routing over {chunks} context chunks differs from "
+                 f"one route over the whole: {same}, gates {gate_err:.2e}, "
+                 f"capacity {caps}, aux rel {aux_rel:.2e}")
+    # The experts over tensor 2, on the whole route's slots.
+    _, xe = moe.dispatch(xt, whole, 0, e)
+    f = lp["up"]["kernel"].shape[-1]
+    halves = [{"up": {"kernel": lp["up"]["kernel"][..., i * f // 2:
+                                                   (i + 1) * f // 2],
+                      "bias": lp["up"]["bias"][..., i * f // 2:
+                                               (i + 1) * f // 2]},
+               "down": {"kernel": lp["down"]["kernel"][:, i * f // 2:
+                                                       (i + 1) * f // 2]}}
+              for i in range(2)]
+    for dtype, tol in ((torch.float32, MOE_TENSOR_FP32_TOL),
+                       (torch.bfloat16, MOE_TENSOR_BF16_TOL)):
+        xd = xe.to(dtype)
+        with torch.no_grad():
+            full = moe.expert_ffn(xd, lp)
+            split = sum(moe.expert_ffn_part(xd, h) for h in halves) + \
+                lp["down"]["bias"].to(dtype)[:, None, :]
+        rel = float((split.float() - full.float()).abs().max()
+                    / full.float().abs().max())
+        say(f"[moe-chunks] [{card}] {str(dtype)[6:]} experts' FFN over "
+            f"tensor 2 (halves summed, bias once) against the unsplit FFN: "
+            f"max |diff| / max |x| {rel:.3e} (limit {tol:g})")
+        if rel > tol:
+            fail(f"16c: the experts' FFN split over tensor 2 differs from "
+                 f"the unsplit one in {str(dtype)[6:]}: {rel:.3e}")
+    del params, x, xe
+    _free_cuda()
+
+
+def world_against_one(workdir, hparams, tag, name, extra, card, trial_id):
+    """The example trial at world 2 over NCCL (the mesh `extra` names,
+    `name: 2`) through the GPU-slot launcher, against a world of one at
+    the same hparams: the losses and grad norms of each report window
+    within SPLIT_LOSS_RTOL and SPLIT_NORM_RTOL. -> (the relative
+    differences, each world's step of the last report window, each rank's
+    peak memory in GiB)."""
+    reports, step_ms, peaks = {}, {}, {}
+    for nproc, slots in ((1, "[0]"), (2, "[0,1]")):
+        mesh = {**extra["mesh"], name: nproc}
+        storage = os.path.join(workdir, f"split_{tag}_{name}_{nproc}")
+        results, master, rc, log = launch_trial(
+            workdir, {**hparams, **extra, "mesh": mesh}, storage, nproc,
+            slots, trial_id=trial_id + nproc, timeout=300)
+        if rc != 0 or sorted(results) != list(range(nproc)):
+            say(log[-3000:])
+            fail(f"{tag} {name} at world {nproc} exited {rc}")
+        reports[nproc] = [
+            b["metrics"] for b in master.posted("/metrics")
+            if b["group"] == "training" and "loss" in b["metrics"]]
+        # The last report window's step (the first holds the warm-up).
+        step_ms[nproc] = 1e3 / reports[nproc][-1]["steps_per_second"]
+        peaks[nproc] = [results[r].get("peak_gib") for r in sorted(results)]
+    if len(reports[2]) != len(reports[1]):
+        fail(f"{tag} {name}: {len(reports[2])} report windows at world 2, "
+             f"{len(reports[1])} at world 1")
+    rel = {key: max(abs(a[key] - b[key]) / abs(b[key])
+                    for a, b in zip(reports[2], reports[1]))
+           for key in ("loss", "grad_norm")}
+    say(f"[{tag}] [{card}] {name}: 2 against 1, each report window: "
+        + "; ".join(
+            f"{key} {[r[key] for r in reports[2]]} / "
+            f"{[r[key] for r in reports[1]]}, max relative diff "
+            f"{rel[key]:.2e} (rtol {tol:g})"
+            for key, tol in (("loss", SPLIT_LOSS_RTOL),
+                             ("grad_norm", SPLIT_NORM_RTOL)))
+        + f"; step of the last report window {step_ms[2]:.2f} / "
+        f"{step_ms[1]:.2f} ms; max_memory_allocated by rank "
+        f"{peaks[2]} / {peaks[1]} GiB")
+    if rel["loss"] > SPLIT_LOSS_RTOL or rel["grad_norm"] > SPLIT_NORM_RTOL:
+        fail(f"{tag} {name}: world 2's losses or grad norms differ from "
+             f"world 1's: {rel}")
+    return rel, step_ms, peaks
+
+
+def phase_pipeline_world(workdir, hparams, card):
+    """16b: with two cards, pipeline.yaml's trial at `pipeline: 2`, world
+    2, against world 1 at phase 7's hparams (world_against_one). With one
+    card: not run."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[16b] not run: {n} card")
+        return None
+    return world_against_one(workdir, hparams, "16b", "pipeline",
+                             {"mesh": {"data": 1}}, card,
+                             LAUNCHED_TRIAL + 20)
+
+
+def phase_moe_split_world(workdir, hparams, card):
+    """16d: with two cards, the MoE trial (moe.yaml's model) at `tensor:
+    2` and at `context: 2` with ring attention, each against world 1
+    (world_against_one). With one card: not run."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[16d] not run: {n} card")
+        return None
+    moe = {**hparams, **MOE_HPARAMS}
+    return {name: world_against_one(workdir, moe, "16d", name, extra, card,
+                                    LAUNCHED_TRIAL + 30 + 10 * i)
+            for i, (name, extra) in enumerate((
+                ("tensor", {"mesh": {"data": 1}}),
+                ("context", {"mesh": {"data": 1},
+                             "attention_impl": "ring"})))}
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -5214,6 +5661,10 @@ def main() -> int:
     other = phase_other_models(workdir, card)
     trials = phase_torch_trials(workdir, hparams, card, train["step_ms"])
     pre = phase_preflight(hparams, long, other["13b"], card)
+    pipe = phase_pipeline_walk(card)
+    phase_pipeline_world(workdir, hparams, card)
+    phase_moe_chunks(card)
+    phase_moe_split_world(workdir, hparams, card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -5298,6 +5749,12 @@ def main() -> int:
             f"{g['total']:.4f} GiB <= peak {pre[name]['peak_gib']:.4f} GiB <= "
             f"total + activations {g['total'] + g['activations']:.4f} GiB; "
             f"analysis {pre['wall_ms'][name]:.1f} ms of host time")
+    say(f"[times] [{card}] GPT-2 small bf16, B {PIPE_BATCH}, S 1024, the "
+        f"GPipe schedule walked over 2 stages in one process (M "
+        f"{pipe['m']}): step {pipe['ms']['walked']:.2f} ms against the "
+        f"plain step's {pipe['ms']['plain']:.2f} ms; device time "
+        f"{pipe['device_ms']['walked']:.2f} against "
+        f"{pipe['device_ms']['plain']:.2f} ms")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",
@@ -5322,6 +5779,7 @@ def main() -> int:
             "launches_long": long["launches"][key],
             "launches_ring": ring[key],
             "launches_torch_trial": t14a["launches"][key],
+            "launches_pipeline": pipe["launches"][key],
             "long_ms": long["per_layer_ms"][key],
             "long_bound_ms": long["bound_ms"][key],
             "max_abs_err": flash_err[key],

@@ -9,8 +9,9 @@ graph and replays it, where Python RNG, the wall clock and shape branches
 keep the value they had at capture and each distinct shape costs a capture.
 
 What counts as a step function (the roots):
-  - methods named loss / evaluate / init_extra on classes whose bases
-    mention TorchTrial (and their same-module subclasses)
+  - methods named loss / loss_pipelined / evaluate / evaluate_pipelined /
+    init_extra on classes whose bases mention TorchTrial (and their
+    same-module subclasses)
   - functions handed to the port's step factories (`make_train_step`,
     `make_multi_step`, `make_eval_step`, train/step.py), including a
     nested def the enclosing factory builds and hands over, and a lambda
@@ -40,7 +41,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 from determined_tpu_torch.analysis.diagnostics import Diagnostic
 from determined_tpu_torch.analysis.rules import RULES
 
-TRACED_METHODS = {"loss", "evaluate", "init_extra"}
+TRACED_METHODS = {
+    "loss", "loss_pipelined", "evaluate", "evaluate_pipelined", "init_extra",
+}
 # Data-loader roots (DTL105): not step code — linted for the opposite
 # hazard, host code that copies to the device itself (paid twice with the
 # DevicePrefetcher, which owns that copy).

@@ -21,8 +21,9 @@ logsumexp in fp32. Attention goes through ops/flash_attention.py by
 ops/ring_attention.py and ops/ulysses.py. With `num_experts > 1` every
 block's FFN is the routed MoE FFN of ops/moe.py (its params under
 `blocks/moe`), and the loss adds `moe_aux_coef` times the layers' mean
-load-balance loss. The pipelined forward (`apply_pipelined`) is not
-ported yet (ROADMAP.md).
+load-balance loss. `apply_pipelined` and `loss_fn_pipelined` run the
+blocks as GPipe stages over the `pipeline` mesh axis
+(parallel/pipeline.py) for a dense config.
 
 Over a mesh (the params DTensors, train/state.py) two axes split the
 work of one row as the JAX package's GSPMD layout does:
@@ -48,9 +49,23 @@ work of one row as the JAX package's GSPMD layout does:
     over data). `apply` takes the whole sequence and gives the whole
     logits.
 
-An MoE model over either axis is refused (ROADMAP.md item 7): its
-routing's slot order is the global token order, which a context split
-spreads over ranks.
+An MoE model takes both axes too (ops/moe.py): its routing's slot order
+is the global token order, so a context rank's count prefix runs over
+the context group as over the batch group, and each expert's FFN is
+split over `tensor` as the dense FFN is.
+
+Over `pipeline` (`apply_pipelined`, `loss_fn_pipelined`, the JAX
+package's functions) every stage embeds its rows, stage s runs layers
+[s L/S, (s+1) L/S) of each microbatch (the blocks' "layers" dim is
+sharded over the axis; `_block` keeps its tensor and fsdp work inside a
+stage), and the last stage runs `ln_f`, the tied head and the loss,
+whose value `pipeline.from_last` gives every stage. The replicated
+leaves (`wte`, `wpe`, `ln_f`) are used for real on the first stage (the
+embedding) and the last (the head), with zero gradients elsewhere, and
+their gradients are summed over the axis: `wte`'s is the head's plus
+the embedding's, as `jax.grad` of the JAX function gives it. Activations
+are in `cfg.dtype` throughout (the JAX function computes in fp32 on its
+CPU backend only, to dodge an XLA crash there).
 """
 
 from __future__ import annotations
@@ -69,7 +84,7 @@ from determined_tpu_torch.ops import moe
 from determined_tpu_torch.ops.flash_attention import flash_attention
 from determined_tpu_torch.ops.ring_attention import ring_attention
 from determined_tpu_torch.ops.ulysses import ulysses_attention
-from determined_tpu_torch.parallel import collectives, sharding
+from determined_tpu_torch.parallel import collectives, pipeline, sharding
 from determined_tpu_torch.parallel.mesh import AxisGroup, axis_group, chunk
 
 Params = Dict[str, Any]
@@ -337,14 +352,8 @@ class _Axes(NamedTuple):
 
 def _axes(params: Params, cfg: Config) -> _Axes:
     mesh = sharding.mesh_of(params["wte"])
-    axes = _Axes(mesh, axis_group(mesh, "tensor"),
+    return _Axes(mesh, axis_group(mesh, "tensor"),
                  axis_group(mesh, "context"))
-    if cfg.num_experts > 1 and (axes.tensor or axes.context):
-        raise ValueError(
-            "an MoE model over the tensor or context mesh axis is not "
-            "ported (ROADMAP.md Queue 1 item 7): its routing's slot order "
-            "is the global token order")
-    return axes
 
 
 def _attention(q, k, v, cfg: Config, axes: Optional[_Axes]
@@ -508,14 +517,9 @@ def _trunk(params: Params, tokens: torch.Tensor, cfg: Config,
     """tokens [B, s] at positions start.. -> (the final layer norm's
     output [B, s, D] in cfg.dtype, the tied table as this rank holds it,
     the layers' MoE losses)."""
-    s = tokens.shape[1]
-    dt = cfg.dtype
     # Sharded params (DTensors, train/state.py) are gathered just before
-    # use; plain tensors pass through. The tied `wte` is gathered once, so
-    # its two uses' gradients sum before the one reduce-scatter.
-    wte = _gather(params["wte"])
-    x = _embed_tokens({"wte": wte}, tokens, cfg, dt, axes.tensor)
-    x = x + _gather(params["wpe"]).to(dt)[start:start + s][None]
+    # use; plain tensors pass through.
+    x, wte = _embed(params, tokens, cfg, axes, start, _gather)
     block = functools.partial(_block, cfg=cfg, axes=axes)
     if cfg.remat and torch.is_grad_enabled():
         block = _remat(block, cfg)
@@ -538,6 +542,18 @@ def _trunk(params: Params, tokens: torch.Tensor, cfg: Config,
     ln_f = map_params(_gather, params["ln_f"])
     x = _layer_norm(x, ln_f["scale"], ln_f["bias"], cfg.layer_norm_eps)
     return x, wte, auxs
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: Config, axes: _Axes,
+           start: int, gather):
+    """tokens [B, s] at positions start.. -> (the embedding [B, s, D] in
+    cfg.dtype, the tied table as this rank holds it). `gather` makes a
+    leaf ready for use; the tied `wte` is gathered once, so its two uses'
+    gradients sum before the one reduce-scatter."""
+    wte = gather(params["wte"])
+    x = _embed_tokens({"wte": wte}, tokens, cfg, cfg.dtype, axes.tensor)
+    pos = gather(params["wpe"]).to(cfg.dtype)
+    return x + pos[start:start + tokens.shape[1]][None], wte
 
 
 def _head(x: torch.Tensor, wte: torch.Tensor, cfg: Config,
@@ -589,15 +605,30 @@ def apply(params: Params, tokens: torch.Tensor, cfg: Config,
     each computes its chunk and vocab slice, and the pieces are
     gathered."""
     axes, _, logits, auxs = _chunk_logits(params, tokens, cfg)
-    if axes.tensor is not None:
-        logits = _all_gather(logits, axes.tensor, 2, cfg.vocab_size)
-    if axes.context is not None:
-        logits = _all_gather(logits, axes.context, 1)
+    logits = _whole_logits(logits, axes, cfg)
     if not return_aux:
         return logits
     if cfg.num_experts > 1:
         return logits, torch.stack(auxs).mean()
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def _whole_logits(logits: torch.Tensor, axes: _Axes, cfg: Config
+                  ) -> torch.Tensor:
+    """A rank's logits (its chunk of the sequence, its vocab slice) ->
+    the whole [B, S, V], gathered over the context and tensor groups."""
+    if axes.tensor is not None:
+        logits = _all_gather(logits, axes.tensor, 2, cfg.vocab_size)
+    if axes.context is not None:
+        logits = _all_gather(logits, axes.context, 1)
+    return logits
+
+
+def _shift(batch: Dict[str, torch.Tensor]):
+    tokens = batch["tokens"]
+    if "targets" in batch:
+        return tokens, batch["targets"]
+    return tokens[:, :-1], tokens[:, 1:]
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -627,20 +658,13 @@ def _nll_vocab_split(logits: torch.Tensor, targets: torch.Tensor,
     return torch.mean(lse - collectives.reduce_from(tgt, tensor.group))
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: Config) -> torch.Tensor:
-    """{"tokens": [B, S+1]} (or {"tokens", "targets"}) -> mean NLL (fp32),
-    plus `moe_aux_coef` times the load-balance loss for an MoE config.
-    Over a context axis every rank passes the whole rows and keeps its
-    chunk of the shifted sequence; the result is the mean over the
-    group."""
-    tokens = batch["tokens"]
-    if "targets" in batch:
-        inputs, targets = tokens, batch["targets"]
-    else:
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    axes, (start, stop), logits, auxs = _chunk_logits(params, inputs, cfg)
-    targets = targets[:, start:stop]
+def _chunk_nll(logits: torch.Tensor, targets: torch.Tensor, cfg: Config,
+               axes: _Axes) -> torch.Tensor:
+    """The mean NLL from this rank's logits and targets (its chunk, its
+    vocab slice): over a context axis the mean over the group's chunks
+    (`collectives.sum_over`, so each rank's gradient is its own chunk's,
+    which `sharding.gather_for_use` averages over the axis as over
+    data)."""
     if axes.tensor is not None:
         nll = _nll_vocab_split(logits, targets, cfg, axes.tensor)
     else:
@@ -648,6 +672,121 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     if axes.context is not None:
         nll = collectives.sum_over(nll, axes.context.group) / \
             axes.context.size
+    return nll
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: Config) -> torch.Tensor:
+    """{"tokens": [B, S+1]} (or {"tokens", "targets"}) -> mean NLL (fp32),
+    plus `moe_aux_coef` times the load-balance loss for an MoE config.
+    Over a context axis every rank passes the whole rows and keeps its
+    chunk of the shifted sequence; the result is the mean over the
+    group."""
+    inputs, targets = _shift(batch)
+    axes, (start, stop), logits, auxs = _chunk_logits(params, inputs, cfg)
+    nll = _chunk_nll(logits, targets[:, start:stop], cfg, axes)
     if cfg.num_experts > 1:
         return nll + cfg.moe_aux_coef * torch.stack(auxs).mean()
     return nll
+
+
+# ------------------------------------------------------------- pipelined
+
+
+def _pipelined_trunk(params: Params, inputs: torch.Tensor, cfg: Config,
+                     mesh, rules, num_microbatches: Optional[int],
+                     schedule):
+    """inputs [B, S] (this rank's rows) -> (the axes, the pipeline stage,
+    this rank's (start, stop) of the sequence, the final layer norm's
+    output on the last stage (None on the others), the tied table as this
+    rank holds it, and on the other stages the token their loss hangs on
+    (None on the last))."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError(
+            "MoE blocks are not supported under pipeline parallelism yet — "
+            "drop the pipeline axis or use a dense config")
+    axes = _axes(params, cfg)
+    mesh = mesh if mesh is not None else axes.mesh
+    stage = pipeline.Stage(mesh)
+    start, stop = 0, inputs.shape[1]
+    if axes.context is not None:
+        start, stop = chunk(inputs.shape[1], axes.context.index,
+                            axes.context.size)
+
+    def rep(p):  # replicated over the stages: the shares' sum
+        return sharding.gather_for_use(p, keep=("tensor",),
+                                       sum_over=("pipeline",))
+
+    x, wte = _embed(params, inputs[:, start:stop], cfg, axes, start, rep)
+    ln_f = map_params(rep, params["ln_f"])
+
+    def block(xx, lp):
+        return _block(xx, lp, cfg, axes)[0]
+
+    if cfg.remat and torch.is_grad_enabled():
+        block = _remat(block, cfg)
+    shards = pipeline._batch_shards(mesh, rules)
+    m = num_microbatches or pipeline.pipeline_microbatches_default(
+        mesh, inputs.shape[0] * shards, rules)
+    tail = None
+    if schedule is not None:
+        y = schedule(block, params["blocks"], x, m)
+    elif stage.n_stages == 1:
+        y = pipeline.pipeline_apply(block, params["blocks"], x, mesh=mesh,
+                                    num_microbatches=m, rules=rules)
+    else:
+        y, tail = pipeline.run_stage(
+            block, pipeline.stage_layers(params["blocks"], stage), x,
+            stage=stage, num_microbatches=m, shards=shards)
+    if y is None:
+        # No head here; the final norm's gradient collectives still run.
+        tail = pipeline.tie(tail, ln_f["scale"], ln_f["bias"], zero=True)
+        return axes, stage, (start, stop), None, wte, tail
+    x = _layer_norm(y, ln_f["scale"], ln_f["bias"], cfg.layer_norm_eps)
+    return axes, stage, (start, stop), x, wte, None
+
+
+def _from_last(t: torch.Tensor, shape, dtype, stage, schedule
+               ) -> torch.Tensor:
+    if schedule is not None or stage.n_stages == 1:
+        return t
+    return pipeline.from_last(t, shape, dtype, stage)
+
+
+def apply_pipelined(params: Params, tokens: torch.Tensor, cfg: Config,
+                    mesh, rules: Optional[sharding.LogicalRules] = None,
+                    num_microbatches: Optional[int] = None,
+                    schedule=None) -> torch.Tensor:
+    """Forward pass with the transformer blocks run as pipeline stages
+    over the mesh's `pipeline` axis (GPipe; parallel/pipeline.py):
+    tokens [B, S] -> logits [B, S, vocab] in cfg.dtype, on every stage.
+    The embedding runs on every stage, `ln_f` and the head on the last.
+    `mesh`: the DeviceMesh (None: the params'); `num_microbatches` by
+    default `pipeline_microbatches_default` of the global batch.
+    `schedule(block_fn, blocks, x, num_microbatches)`, when given, runs
+    the blocks in its place (`pipeline.walk`: every stage in one
+    process)."""
+    b, s = tokens.shape
+    axes, stage, _, x, wte, tail = _pipelined_trunk(
+        params, tokens, cfg, mesh, rules, num_microbatches, schedule)
+    if x is not None:
+        tail = _whole_logits(_head(x, wte, cfg, axes.tensor), axes, cfg)
+    return _from_last(tail, (b, s, cfg.vocab_size), cfg.dtype, stage,
+                      schedule)
+
+
+def loss_fn_pipelined(params: Params, batch: Dict[str, torch.Tensor],
+                      cfg: Config, mesh,
+                      rules: Optional[sharding.LogicalRules] = None,
+                      num_microbatches: Optional[int] = None,
+                      schedule=None) -> torch.Tensor:
+    """`loss_fn` with the blocks run as pipeline stages
+    (`apply_pipelined`): the mean NLL (fp32), computed on the last stage
+    and the same on every stage. A dense config only."""
+    inputs, targets = _shift(batch)
+    axes, stage, (start, stop), x, wte, tail = _pipelined_trunk(
+        params, inputs, cfg, mesh, rules, num_microbatches, schedule)
+    if x is not None:
+        tail = _chunk_nll(_head(x, wte, cfg, axes.tensor),
+                          targets[:, start:stop], cfg, axes)
+    return _from_last(tail, (), torch.float32, stage, schedule)

@@ -33,17 +33,32 @@ reads a device value on the host, so the serving engine and
 `make_multi_step` capture the block.
 
 Over a mesh (`mesh`, a DeviceMesh; the params' DTensors carry it) the
-default rules put "batch" on (data, fsdp) and the expert dim on `expert`:
-tokens are replicated across the expert group and each expert rank holds
-E / ep experts (`gather_params` gathers their leaves over fsdp only).
-Routing stays global: each rank adds the exclusive prefix, over the batch
-group, of the per-expert counts of each choice (one all-gather of [k, E]
-ints), capacity comes from the global t, and f and p are summed over the
-batch group before their product. The expert group runs Megatron's f/g
-pair around the local experts: the dispatched tokens and the gates pass
-identity forward and are all-reduced backward (f), the partial output is
-all-reduced forward and passes identity backward (g). Without the pair a
-rank would hold only its experts' share of the trunk's gradients.
+default rules put "batch" on (data, fsdp), "seq" on `context`, the expert
+dim on `expert` and the FFN's "mlp" dim on `tensor`: tokens are
+replicated across the expert and tensor groups, each expert rank holds
+E / ep experts and each tensor rank its slice of their FFN
+(`gather_params` gathers their leaves over fsdp only).
+
+Routing stays global, in the token order `b * S + s` of the global batch
+(b the global row): each rank holds its rows' chunk `S / c` of the
+sequence. The slots a (row b, chunk j) token finds taken before it, for
+its choice, are every earlier choice's (all tokens), then the choice's
+counts in every earlier row, then in the chunks before j of row b, then
+in this chunk before it. So each rank counts its kept-or-not choices per
+row ([rows, k, E] ints) and one all-gather over the batch and context
+groups gives every block's and chunk's (`route`'s `counts`); capacity
+comes from the global t, and f and p are summed over the batch and
+context groups before their product.
+
+The expert group runs Megatron's f/g pair around the local experts: the
+dispatched tokens and the gates pass identity forward and are
+all-reduced backward (f), the partial output is all-reduced forward and
+passes identity backward (g). Without the pair a rank would hold only its
+experts' share of the trunk's gradients. Inside it the tensor group runs
+a second pair around each expert's FFN, as around the dense FFN
+(models/gpt2.py): `up` split by its columns, `down` by its rows, the
+`down` bias added once, after the all-reduce. The router runs on the
+replicated tokens on every tensor rank.
 """
 
 from __future__ import annotations
@@ -101,13 +116,13 @@ def moe_logical_axes(layers: bool = False) -> Dict[str, Any]:
 
 def gather_params(params: Params, async_op: bool = False) -> Params:
     """One layer's MoE params for use: the router gathered whole, the
-    experts' leaves over every axis but `expert` (each rank keeps its
-    E / ep experts); plain tensors pass through. `async_op` as
-    `sharding.gather_for_use`'s."""
+    experts' leaves over every axis but `expert` and `tensor` (each rank
+    keeps its E / ep experts and its slice of their FFN); plain tensors
+    pass through. `async_op` as `sharding.gather_for_use`'s."""
     return {
         "router": {"kernel": sharding.gather_for_use(
             params["router"]["kernel"], async_op=async_op)},
-        **{name: {k: sharding.gather_for_use(v, keep=("expert",),
+        **{name: {k: sharding.gather_for_use(v, keep=("expert", "tensor"),
                                              async_op=async_op)
                   for k, v in params[name].items()}
            for name in ("up", "down")},
@@ -120,14 +135,27 @@ def gather_params(params: Params, async_op: bool = False) -> Params:
 class _Groups(NamedTuple):
     """Where a rank sits for the block: the process groups of the batch
     axes above 1 (outermost first) with their sizes, this rank's block of
-    the batch and the count of blocks, and the expert group, its size and
-    this rank's place in it."""
+    the batch and the count of blocks; the context group and size (None,
+    1 without one) and this rank's chunk; the expert group, its size and
+    this rank's place in it; and the tensor group (None without one)."""
     batch: Tuple[Tuple[Any, int], ...]
     batch_index: int
     batch_count: int
+    context: Any
+    context_size: int
+    context_index: int
     expert: Any
     expert_size: int
     expert_rank: int
+    tensor: Any
+
+
+def chunk_place(index: int, count: int) -> "_Groups":
+    """The place of chunk `index` of `count` context chunks of one batch
+    block, without process groups: what `route` needs, with `counts`
+    given, to route one chunk as the context group's rank `index` does
+    (a one-process walk of the chunks)."""
+    return _Groups((), 0, 1, None, count, index, None, 1, 0, None)
 
 
 def _groups(mesh, rules: Optional[LogicalRules]) -> Optional[_Groups]:
@@ -141,25 +169,30 @@ def _groups(mesh, rules: Optional[LogicalRules]) -> Optional[_Groups]:
         a = () if a is None else (a,) if isinstance(a, str) else tuple(a)
         return [x for x in a if mesh.size(names.index(x)) > 1]
 
+    def one(logical):
+        found = axes(logical)
+        if len(found) > 1:
+            raise ValueError(
+                f"the {logical} dim maps to several mesh axes {found}")
+        if not found:
+            return None, 1, 0
+        i = names.index(found[0])
+        return mesh.get_group(i), mesh.size(i), mesh.get_local_rank(i)
+
     batch, index, count = [], 0, 1
     for a in axes("batch"):
         i = names.index(a)
         batch.append((mesh.get_group(i), mesh.size(i)))
         index = index * mesh.size(i) + mesh.get_local_rank(i)
         count *= mesh.size(i)
-    expert = axes("expert")
-    if len(expert) > 1:
-        raise ValueError(f"the expert dim maps to several mesh axes {expert}")
-    if expert:
-        i = names.index(expert[0])
-        return _Groups(tuple(batch), index, count, mesh.get_group(i),
-                       mesh.size(i), mesh.get_local_rank(i))
-    return _Groups(tuple(batch), index, count, None, 1, 0)
+    return _Groups(tuple(batch), index, count, *one("seq"),
+                   *one("expert"), one("mlp")[0])
 
 
 def _gather_batch(t: torch.Tensor, groups: Sequence[Tuple[Any, int]]
                   ) -> torch.Tensor:
-    """Every batch block's `t`, stacked in block order: [count, *t.shape]."""
+    """Every rank's `t` over `groups` (outermost first), stacked in rank
+    order: [prod(sizes), *t.shape]."""
     import torch.distributed as dist
 
     shape = t.shape
@@ -182,15 +215,39 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def _selection(gate_idx: torch.Tensor, num_experts: int, rows: int
+               ) -> torch.Tensor:
+    """[k, E, rows, T / rows] int64: 1 where a row's token chose the
+    expert as that choice. The scan over a row's tokens runs along the
+    innermost dim (a scan over the outer dim of [T, k*E] runs each column
+    serially)."""
+    t, k = gate_idx.shape
+    sel = F.one_hot(gate_idx.t(), num_experts).transpose(1, 2).contiguous()
+    return sel.view(k, num_experts, rows, t // rows)
+
+
+def row_counts(gate_idx: torch.Tensor, num_experts: int, rows: int
+               ) -> torch.Tensor:
+    """[rows, k, E]: how many of each row's tokens chose each expert as
+    each choice: what a rank gives the gather of `route`'s counts."""
+    return _selection(gate_idx, num_experts, rows).sum(-1).permute(2, 0, 1)
+
+
 def route(xt: torch.Tensor, router: torch.Tensor, num_experts: int,
           top_k: int, capacity_factor: float,
-          groups: Optional[_Groups] = None) -> Routing:
-    """The router's choices for tokens `xt` [T, D] and each (token,
-    choice)'s slot, in the global token order of the batch."""
+          groups: Optional[_Groups] = None, rows: int = 1,
+          counts: Optional[torch.Tensor] = None) -> Routing:
+    """The router's choices for tokens `xt` [T, D] (`rows` rows of T /
+    rows positions, row-major: this rank's chunk of each of its rows) and
+    each (token, choice)'s slot, in the global token order of the batch.
+    `counts`: every batch block's and context chunk's per-row counts,
+    [blocks, chunks, rows, k, E], as the gather over the groups delivers
+    them (by default gathered here)."""
     e = num_experts
     k = min(top_k, e)
     t = xt.shape[0]
-    n_blocks = groups.batch_count if groups is not None else 1
+    if groups is None:
+        groups = chunk_place(0, 1)
     logits = xt.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
@@ -198,23 +255,29 @@ def route(xt: torch.Tensor, router: torch.Tensor, num_experts: int,
     gate_vals = probs.gather(1, gate_idx)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    capacity = max(1, int(math.ceil(t * n_blocks / e * capacity_factor)))
+    global_t = t * groups.batch_count * groups.context_size
+    capacity = max(1, int(math.ceil(global_t / e * capacity_factor)))
 
-    # [k, E, T]: the scan over tokens runs along the innermost dim (a
-    # scan over the outer dim of [T, k*E] runs each column serially).
-    sel = F.one_hot(gate_idx.t(), e).transpose(1, 2).contiguous()
-    counts = sel.sum(-1)  # [k, E]
-    if groups is not None and groups.batch:
-        every = _gather_batch(counts, groups.batch)  # [blocks, k, E]
-        before = every[:groups.batch_index].sum(0)
-        total = every.sum(0)
-    else:
-        before, total = torch.zeros_like(counts), counts
-    # Slots taken by earlier choices (every block's), then by this
-    # choice's earlier tokens (earlier blocks', then this block's).
-    start = torch.cumsum(total, 0) - total + before  # [k, E]
-    rank_in = torch.cumsum(sel, -1) - 1 + start[..., None]  # [k, E, T]
-    pos = rank_in.gather(1, gate_idx.t()[:, None, :])[:, 0].t()  # [T, k]
+    sel = _selection(gate_idx, e, rows)
+    if counts is None:
+        mine = sel.sum(-1).permute(2, 0, 1).contiguous()  # [rows, k, E]
+        ctx = ((groups.context, groups.context_size),) \
+            if groups.context is not None else ()
+        every = _gather_batch(mine, groups.batch + ctx) \
+            if groups.batch or ctx else mine[None]
+        counts = every.view(groups.batch_count, groups.context_size,
+                            *mine.shape)
+    bi, ci = groups.batch_index, groups.context_index
+    # Slots taken before a (row r, chunk j) token, for its choice: every
+    # earlier choice's, then its choice's in earlier blocks, earlier rows
+    # of this block (every chunk) and earlier chunks of row r.
+    total = counts.sum((0, 1, 2))  # [k, E]
+    row_sums = counts[bi].sum(0)  # [rows, k, E]
+    before = (torch.cumsum(total, 0) - total + counts[:bi].sum((0, 1, 2))
+              + torch.cumsum(row_sums, 0) - row_sums + counts[bi, :ci].sum(0))
+    rank_in = torch.cumsum(sel, -1) - 1 + before.permute(1, 2, 0)[..., None]
+    pos = rank_in.view(k, e, t).gather(
+        1, gate_idx.t()[:, None, :])[:, 0].t()  # [T, k]
     return Routing(probs, gate_idx, gate_vals, pos, pos < capacity, capacity)
 
 
@@ -224,14 +287,60 @@ def _aux_loss(r: Routing, num_experts: int, groups: Optional[_Groups]
     first = F.one_hot(r.gate_idx[:, 0], num_experts).float()
     sums = torch.stack([first.sum(0), r.probs.sum(0)])  # [2, E]
     t = r.probs.shape[0]
-    if groups is not None and groups.batch:
-        sums = collectives.sum_over(sums, [g for g, _ in groups.batch])
-        t *= groups.batch_count
+    if groups is not None:
+        over = [g for g, _ in groups.batch]
+        if groups.context is not None:
+            over.append(groups.context)
+        if over:
+            sums = collectives.sum_over(sums, over)
+        t *= groups.batch_count * groups.context_size
     f, p = sums / t
     return num_experts * torch.sum(f * p)
 
 
 # ---------------------------------------------------------------- block
+
+
+def dispatch(xt: torch.Tensor, r: Routing, first: int, local: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tokens xt [T, D] into the slots of experts first..first + local - 1
+    -> (each (token, choice)'s row [T, k] in the [local * capacity] slots,
+    the slots [local, capacity, D]). A dropped choice, or one of another
+    rank's experts, points at the spare row local * capacity, which the
+    scatter discards and the gather reads as 0."""
+    k, cap = r.gate_idx.shape[1], r.capacity
+    mine = r.kept & (r.gate_idx >= first) & (r.gate_idx < first + local)
+    spare = local * cap
+    slot = torch.where(mine, (r.gate_idx - first) * cap + r.pos,
+                       torch.full_like(r.pos, spare))  # [T, k]
+    xe = xt.new_zeros(spare + 1, xt.shape[1]).index_put(
+        (slot.t().reshape(-1),), xt.repeat(k, 1))
+    return slot, xe[:spare].view(local, cap, xt.shape[1])
+
+
+def expert_ffn_part(xe: torch.Tensor, params: Params) -> torch.Tensor:
+    """The experts' FFN on their slots xe [local, cap, D] without the
+    `down` bias: over a tensor axis, this rank's slice of `up`'s columns
+    and `down`'s rows gives its part of the sum."""
+    dt = xe.dtype
+    h = torch.bmm(xe, params["up"]["kernel"].to(dt)) + \
+        params["up"]["bias"].to(dt)[:, None, :]
+    h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, params["down"]["kernel"].to(dt))
+
+
+def expert_ffn(xe: torch.Tensor, params: Params, tensor=None
+               ) -> torch.Tensor:
+    """The experts' FFN, xe [local, cap, D] -> [local, cap, D]: over the
+    `tensor` group (None: one piece) Megatron's f before the column-split
+    `up` and its g after the row-split `down`, whose bias is added once,
+    after the sum."""
+    if tensor is not None:
+        xe = collectives.copy_to(xe, tensor)
+    ye = expert_ffn_part(xe, params)
+    if tensor is not None:
+        ye = collectives.reduce_from(ye, tensor)
+    return ye + params["down"]["bias"].to(xe.dtype)[:, None, :]
 
 
 def moe_block(x: torch.Tensor, params: Params, num_experts: int, *,
@@ -241,20 +350,20 @@ def moe_block(x: torch.Tensor, params: Params, num_experts: int, *,
     """x [B, S, D] -> (y [B, S, D] in x's dtype, aux loss fp32 scalar).
 
     `params` as `gather_params` returns them: over a mesh with an expert
-    axis above 1, the experts' leaves hold this rank's E / ep experts.
-    `mesh` (None: one process) is the DeviceMesh the batch and the
-    experts are laid out on by `rules`."""
+    axis above 1, the experts' leaves hold this rank's E / ep experts, and
+    over a tensor axis their FFN slice. `mesh` (None: one process) is the
+    DeviceMesh the batch, the sequence and the experts are laid out on by
+    `rules`; x holds this rank's rows and, over a context axis, its chunk
+    of them."""
     b, s, d = x.shape
     t, e = b * s, num_experts
     dt = x.dtype
     groups = _groups(mesh, rules)
     xt = x.reshape(t, d)
     r = route(xt, params["router"]["kernel"], e, top_k, capacity_factor,
-              groups)
-    k, cap = r.gate_idx.shape[1], r.capacity
-
-    up_w, down_w = params["up"]["kernel"], params["down"]["kernel"]
-    local = up_w.shape[0]
+              groups, rows=b)
+    k = r.gate_idx.shape[1]
+    local = params["up"]["kernel"].shape[0]
     ep = groups.expert_size if groups is not None else 1
     if local * ep != e:
         raise ValueError(
@@ -265,22 +374,9 @@ def moe_block(x: torch.Tensor, params: Params, num_experts: int, *,
         xt = collectives.copy_to(xt, groups.expert)
         gate = collectives.copy_to(gate, groups.expert)
 
-    # Slot of each (token, choice) among this rank's experts; a dropped or
-    # another rank's one goes to the spare row local * cap, which is 0 in
-    # the gather and discarded after the scatter.
-    mine = r.kept & (r.gate_idx >= first) & (r.gate_idx < first + local)
-    spare = local * cap
-    slot = torch.where(mine, (r.gate_idx - first) * cap + r.pos,
-                       torch.full_like(r.pos, spare))  # [T, k]
-
-    xe = xt.new_zeros(spare + 1, d).index_put(
-        (slot.t().reshape(-1),), xt.repeat(k, 1))
-    xe = xe[:spare].view(local, cap, d)
-    h = torch.bmm(xe, up_w.to(dt)) + params["up"]["bias"].to(dt)[:, None, :]
-    h = F.gelu(h, approximate="tanh")
-    ye = torch.bmm(h, down_w.to(dt)) + \
-        params["down"]["bias"].to(dt)[:, None, :]
-    ye = torch.cat([ye.reshape(spare, d), ye.new_zeros(1, d)])
+    slot, xe = dispatch(xt, r, first, local)
+    ye = expert_ffn(xe, params, groups.tensor if groups is not None else None)
+    ye = torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)])
 
     y = None
     for c in range(k):

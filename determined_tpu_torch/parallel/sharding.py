@@ -254,7 +254,8 @@ def distribute_full(full, mesh, placements, layout=()):
     return out
 
 
-def gather_for_use(p, keep: Sequence[str] = (), async_op: bool = False):
+def gather_for_use(p, keep: Sequence[str] = (), async_op: bool = False,
+                   sum_over: Sequence[str] = ()):
     """A leaf as a plain tensor for the model to use: a DTensor is
     all-gathered (`redistribute` to `Replicate`) and unwrapped, so the
     kernels' `autograd.Function`s see plain tensors; other tensors pass
@@ -272,7 +273,11 @@ def gather_for_use(p, keep: Sequence[str] = (), async_op: bool = False):
 
     `async_op`: issue the gather and return at once; the tensor waits for
     it at its first use (a functional collective's AsyncCollectiveTensor),
-    so the gather overlaps whatever runs in between."""
+    so the gather overlaps whatever runs in between.
+
+    `sum_over`: mesh axes over which the leaf is replicated and each rank
+    holds a share of its gradient rather than a copy (a pipeline stage's,
+    parallel/pipeline.py): the shares are summed there, not averaged."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not isinstance(p, DTensor):
@@ -283,7 +288,8 @@ def gather_for_use(p, keep: Sequence[str] = (), async_op: bool = False):
               for i, pl in enumerate(p.placements)]
     full = p.redistribute(mesh, target, async_op=async_op)
     grads = [target[i] if target[i].is_shard() or mesh.size(i) == 1
-             else Partial("avg") for i in range(mesh.ndim)]
+             else Partial("sum" if names[i] in sum_over else "avg")
+             for i in range(mesh.ndim)]
     return full.to_local(grad_placements=grads)
 
 
@@ -318,6 +324,15 @@ def local_value(p):
     if isinstance(p, DTensor):
         return p._local_tensor
     return p
+
+
+def shard_axes(p) -> Tuple[str, ...]:
+    """The names of the mesh axes (above size 1) a leaf is sharded over;
+    () for a plain tensor or a replicated DTensor."""
+    if not shard_mesh_dims(p):
+        return ()
+    names = p.device_mesh.mesh_dim_names
+    return tuple(names[i] for i in shard_mesh_dims(p))
 
 
 def shard_mesh_dims(p) -> Tuple[int, ...]:

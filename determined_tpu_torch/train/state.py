@@ -249,6 +249,15 @@ def full_leaves(state: TrainState, leaves: Optional[List[Any]] = None
             for p, g in zip(own, leaves)]
 
 
+def gathered(params: Any) -> Any:
+    """A param tree whose sharded leaves are whole plain tensors in the
+    one-process layout (a collective for a sharded tree): what a model
+    computes with as one process would."""
+    if isinstance(params, dict):
+        return {k: gathered(v) for k, v in params.items()}
+    return sharding.full_value(params)
+
+
 def reshard_state(full: TrainState, like: TrainState) -> TrainState:
     """`full` (plain tensors, the same on every rank: a checkpoint read)
     laid out as `like`: each leaf of a sharded `like` becomes this rank's

@@ -32,10 +32,12 @@ step's metrics are the global means, and a checkpoint holds the full
 state (the chief gathers it) in the one-process format, so a run of any
 width restores it. `expert` above 1 is refused for a trial that does not
 declare `supports_expert_parallel()` (it would replicate the FFN's work
-across the group), `tensor` and `context` above 1 for one that does (MoE
-over them is not ported); `pipeline` above 1 raises, and so does a world
-of more than one process without a process group: it never trains alone
-in silence.
+across the group). `pipeline` above 1 selects the trial's
+`loss_pipelined` (GPipe, parallel/pipeline.py: the ranks of a pipeline
+group hold the same rows, each stage its layers) and its
+`evaluate_pipelined` when it has one; a trial without `loss_pipelined`,
+or a stateful one, is refused under it. A world of more than one process
+without a process group raises: it never trains alone in silence.
 
 The first step call of a `fit` lands a `harness.compile` span, the JAX
 Trainer's "first executable acquisition": here, the hand-written kernels
@@ -44,9 +46,9 @@ the step's first eager run on the host.
 
 Not ported (ROADMAP.md): the compile farm and batch-size bucketing
 (`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
-nothing here), the pipeline axis (item 7) and elastic resize in process
-(item 8): a resize signal takes the preemption checkpoint path, as the
-JAX Trainer does in cluster mode.
+nothing here) and elastic resize in process (item 8): a resize signal
+takes the preemption checkpoint path, as the JAX Trainer does in cluster
+mode.
 """
 
 from __future__ import annotations
@@ -80,11 +82,6 @@ from determined_tpu_torch.train.trial import TorchTrial
 from determined_tpu_torch.train.watchdog import StepWatchdog
 
 logger = logging.getLogger("determined_tpu_torch.train")
-
-# Mesh axes the port trains over; `pipeline` raises (ROADMAP.md Queue 1
-# item 7). `expert` only for a trial that supports it, `tensor` and
-# `context` only for one that does not (a dense model).
-PORTED_AXES = ("data", "fsdp", "expert", "context", "tensor")
 
 
 def _repeat(iterable_factory) -> Iterator[Any]:
@@ -172,14 +169,15 @@ class Trainer:
         return 1
 
     def _check_mesh_support(self) -> MeshConfig:
-        """Config checks before any state exists: the mesh must resolve
-        over the world size, `pipeline` may not be above 1, `expert` only
-        for a trial whose model routes over it (the others are refused,
-        not run replicated), `tensor` and `context` only for a trial
-        that does not (MoE over them is not ported), and none of the three
-        for a trial whose model computes over the batch axes only
-        (`supports_model_parallel()` False; refused as asked, before the
-        mesh resolves, and again after)."""
+        """Config checks before any state exists (a misconfigured mesh
+        fails in milliseconds, not after sharding a large model): the mesh
+        must resolve over the world size; `pipeline` above 1 only for a
+        stateless trial with `loss_pipelined` (the JAX Trainer's checks);
+        `expert` only for a trial whose model routes over it (the others
+        are refused, not run replicated); and none of `tensor`, `context`
+        and `expert` for a trial whose model computes over the batch axes
+        only (`supports_model_parallel()` False; refused as asked, before
+        the mesh resolves, and again after)."""
         cfg = self.trial.mesh_config()
         if not self.trial.supports_model_parallel():
             self._refuse_model_axes(cfg)
@@ -197,18 +195,18 @@ class Trainer:
         if not self.trial.supports_model_parallel():
             self._refuse_model_axes(cfg)
         if cfg.pipeline > 1:
-            raise ValueError(
-                f"{type(self.trial).__name__} asks for the mesh axis "
-                f"pipeline={cfg.pipeline}; the PyTorch port trains over "
-                f"{PORTED_AXES} only (pipeline parallelism: ROADMAP.md "
-                "Queue 1 item 7)")
-        split = {a: getattr(cfg, a) for a in ("tensor", "context")
-                 if getattr(cfg, a) > 1}
-        if split and self.trial.supports_expert_parallel():
-            raise ValueError(
-                f"{type(self.trial).__name__} is a Mixture-of-Experts trial "
-                f"and asks for the mesh axes {split}; MoE over the tensor "
-                "or context axis is not ported (ROADMAP.md Queue 1 item 7)")
+            # A pipeline axis without a pipelined loss would run the plain
+            # step with every stage's layers gathered: refused instead.
+            if not self.trial.supports_pipeline():
+                raise ValueError(
+                    f"mesh requests pipeline={cfg.pipeline} but "
+                    f"{type(self.trial).__name__} does not implement "
+                    "loss_pipelined(); implement it (see models/gpt2."
+                    "loss_fn_pipelined) or drop the pipeline axis")
+            if self.trial.stateful:
+                raise ValueError(
+                    "pipeline parallelism does not support stateful trials "
+                    "(non-gradient extra state crossing stage boundaries)")
         if cfg.expert > 1 and not self.trial.supports_expert_parallel():
             # An expert axis the model does not route over would replicate
             # the FFN's work across the group (the JAX Trainer's guard).
@@ -254,12 +252,31 @@ class Trainer:
             extra=trial.init_extra(), mesh=self.mesh,
             param_logical_axes=trial.param_logical_axes(),
             rules=trial.sharding_rules())
-        self._train_step = make_train_step(trial.loss, tx,
-                                           stateful=trial.stateful,
-                                           mesh=self.mesh)
+        loss, evaluate = trial.loss, trial.evaluate
         has_eval = type(trial).evaluate is not TorchTrial.evaluate
-        self._eval_step = (make_eval_step(trial.evaluate,
-                                          stateful=trial.stateful)
+        if self.mesh_config.pipeline > 1:
+            mesh = self.mesh
+
+            def loss(params, batch, rng):  # noqa: F811: the pipelined one
+                return trial.loss_pipelined(params, batch, rng, mesh)
+
+            if trial.supports_pipelined_eval():
+                has_eval = True
+
+                def evaluate(params, batch):  # noqa: F811
+                    return trial.evaluate_pipelined(params, batch, mesh)
+            elif has_eval:
+                logger.warning(
+                    "%s has no evaluate_pipelined(); validation will gather "
+                    "pipeline-sharded params every eval step (slow but "
+                    "correct) — implement evaluate_pipelined() to fix",
+                    type(trial).__name__)
+
+                def evaluate(params, batch):  # noqa: F811
+                    return trial.evaluate(state_mod.gathered(params), batch)
+        self._train_step = make_train_step(loss, tx, stateful=trial.stateful,
+                                           mesh=self.mesh)
+        self._eval_step = (make_eval_step(evaluate, stateful=trial.stateful)
                            if has_eval else None)
 
     # -- the loop --------------------------------------------------------

@@ -12,10 +12,12 @@ has one process per device, so a loader yields this rank's rows of the
 global batch (`TrialContext.distributed` says which), where a JAX process
 yields its host's (`parallel.mesh.batch_shard` says which block).
 `mesh_config()` may set `data` and `fsdp` above 1, `expert` for a
-trial that declares `supports_expert_parallel()`, and `tensor` and
-`context` for a dense GPT-2 trial; `pipeline` makes the Trainer raise
-(ROADMAP.md Queue 1 item 7), and so do `tensor`, `context` and `expert`
-for a trial whose `supports_model_parallel()` is False (item 14).
+trial that declares `supports_expert_parallel()`, `tensor` and `context`
+for a GPT-2 trial (dense or MoE), and `pipeline` for a stateless trial
+that implements `loss_pipelined()` (the Trainer selects it, and
+`evaluate_pipelined()` when the trial has it); the Trainer raises for
+`tensor`, `context` and `expert` for a trial whose
+`supports_model_parallel()` is False (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -108,6 +110,18 @@ class TorchTrial(abc.ABC):
         """Stateless: (params, batch, rng) -> loss | (loss, metrics).
         Stateful: (params, extra, batch, rng) -> (loss, metrics, new_extra)."""
 
+    def loss_pipelined(self, params, batch, rng, mesh):
+        """Pipeline-parallel loss, used by the Trainer whenever the mesh has
+        `pipeline > 1`. Implementations run the model's layer stack through
+        `parallel.pipeline.pipeline_apply` over `mesh` (see
+        models/gpt2.loss_fn_pipelined). Trials that do not implement this
+        cannot run with a pipeline axis: the Trainer refuses the mesh
+        instead of silently running a gathered non-pipelined step."""
+        raise NotImplementedError
+
+    def supports_pipeline(self) -> bool:
+        return type(self).loss_pipelined is not TorchTrial.loss_pipelined
+
     def init_extra(self) -> Any:
         """Initial non-gradient state (stateful trials only)."""
         return None
@@ -165,6 +179,17 @@ class TorchTrial(abc.ABC):
         raise NotImplementedError(
             "implement evaluate() or leave build_validation_data() empty"
         )
+
+    def evaluate_pipelined(self, params, batch, mesh) -> Dict[str, Any]:
+        """Pipeline-parallel evaluate, selected by the Trainer when
+        mesh.pipeline > 1 (mirrors loss/loss_pipelined). Without it, the
+        plain evaluate() runs under the pipeline mesh with every stage's
+        layers gathered: correct but slow; the Trainer warns."""
+        raise NotImplementedError
+
+    def supports_pipelined_eval(self) -> bool:
+        return (type(self).evaluate_pipelined
+                is not TorchTrial.evaluate_pipelined)
 
     # -- knobs ----------------------------------------------------------
 

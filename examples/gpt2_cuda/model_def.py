@@ -31,7 +31,11 @@ expert group holds E / expert of the experts and the same rows. The
 (long_context.yaml: seq_len 8192, `attention_impl: ring`,
 `{"data": -1, "context": 4}`): a rank's loader keeps whole rows, and the
 model takes its chunk of the sequence and its heads, FFN and vocab
-slices (models/gpt2.py).
+slices (models/gpt2.py). The `pipeline` axis splits the layers instead
+(pipeline.yaml: `{"pipeline": 2, "data": -1, "fsdp": 2}` over 8 GPU
+slots): the Trainer selects `loss_pipelined` and `evaluate_pipelined`,
+and the GPipe stages run the blocks (parallel/pipeline.py); the ranks of
+a pipeline group keep the same rows.
 """
 
 import os
@@ -94,6 +98,11 @@ class GPT2Trial(TorchTrial):
         # Only an MoE config routes tokens over the expert axis.
         return self.cfg.num_experts > 1
 
+    def loss_pipelined(self, params, batch, rng, mesh):
+        # Selected by the Trainer whenever the config mesh has pipeline > 1
+        # (GPipe over the `pipeline` axis, parallel/pipeline.py).
+        return gpt2.loss_fn_pipelined(params, batch, self.cfg, mesh)
+
     def param_logical_axes(self):
         return gpt2.param_logical_axes(self.cfg)
 
@@ -144,6 +153,10 @@ class GPT2Trial(TorchTrial):
 
     def evaluate(self, params, batch):
         return {"validation_loss": gpt2.loss_fn(params, batch, self.cfg)}
+
+    def evaluate_pipelined(self, params, batch, mesh):
+        return {"validation_loss": gpt2.loss_fn_pipelined(
+            params, batch, self.cfg, mesh)}
 
 
 if __name__ == "__main__":

@@ -159,9 +159,9 @@ def inputs(tmp_path_factory):
     return d, params, tokens
 
 
-def run_port(tmp_path, inputs, world, mesh, preempt=False):
-    """The port's fit over `world` worker processes -> (report, final
-    params, run dir)."""
+def start_port(tmp_path, inputs, world, mesh, preempt=False):
+    """The port's fit, started in `world` worker processes -> (the
+    processes, the run dir)."""
     src, _, _ = inputs
     out = tmp_path / f"world{world}"
     out.mkdir()
@@ -178,8 +178,15 @@ def run_port(tmp_path, inputs, world, mesh, preempt=False):
         env=env, cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+    return procs, out
+
+
+def finish_port(procs, out, meanwhile=lambda: None):
+    """Run `meanwhile` while the processes run, then wait for them ->
+    (report, final params, run dir, what `meanwhile` returned)."""
     logs = []
     try:
+        result = meanwhile()
         for p in procs:
             logs.append(p.communicate(timeout=TIMEOUT_S)[0])
     finally:
@@ -191,7 +198,14 @@ def run_port(tmp_path, inputs, world, mesh, preempt=False):
     report = json.loads((out / "report.json").read_text())
     with np.load(out / "final.npz") as f:
         final = {k: f[k] for k in f.files}
-    return report, final, out
+    return report, final, out, result
+
+
+def run_port(tmp_path, inputs, world, mesh, preempt=False):
+    """The port's fit over `world` worker processes -> (report, final
+    params, run dir)."""
+    return finish_port(*start_port(tmp_path, inputs, world, mesh,
+                                   preempt))[:3]
 
 
 class JaxGPT2(JaxTrial):
@@ -296,9 +310,18 @@ FSDP2 = {"data": 1, "fsdp": 2}
 
 
 @pytest.fixture(scope="module")
+def one_process(tmp_path_factory, inputs):
+    """The one-process fit, shared by the tests that read it."""
+    return port_one_process(tmp_path_factory.mktemp("one"), inputs)
+
+
+@pytest.fixture(scope="module")
 def world2(tmp_path_factory, inputs):
-    """The world-2 fsdp=2 run, shared by the tests that read it."""
-    return run_port(tmp_path_factory.mktemp("world2"), inputs, 2, FSDP2)
+    """The world-2 fsdp=2 run, and the JAX Trainer's on 2 devices computed
+    while it runs, shared by the tests that read them."""
+    tmp = tmp_path_factory.mktemp("world2")
+    procs, out = start_port(tmp, inputs, 2, FSDP2)
+    return finish_port(procs, out, lambda: run_jax(tmp, inputs, 2, FSDP2))
 
 
 @pytest.mark.parametrize("world,mesh", [
@@ -306,16 +329,21 @@ def world2(tmp_path_factory, inputs):
     (4, {"data": 2, "fsdp": 2}),
 ], ids=["fsdp2", "data2-fsdp2"])
 def test_fit_over_processes_matches_jax_and_one_process(tmp_path, request,
-                                                        inputs, world, mesh):
-    report, final, out = request.getfixturevalue("world2") if world == 2 \
-        else run_port(tmp_path, inputs, world, mesh)
+                                                        inputs, one_process,
+                                                        world, mesh):
+    if world == 2:
+        report, final, out, jax_run = request.getfixturevalue("world2")
+    else:
+        procs, out = start_port(tmp_path, inputs, world, mesh)
+        report, final, out, jax_run = finish_port(
+            procs, out, lambda: run_jax(tmp_path, inputs, world, mesh))
     assert report["sharded"] is True
-    jmetrics, jfinal, jmesh = run_jax(tmp_path, inputs, world, mesh)
+    jmetrics, jfinal, jmesh = jax_run
     assert jmesh["data"] == mesh["data"] and jmesh["fsdp"] == mesh["fsdp"]
     assert report["mesh"] == [mesh["data"], 1, mesh["fsdp"], 1, 1, 1]
     assert_metrics(report["metrics"], jmetrics, f"world {world} vs JAX")
     assert_params(final, jfinal, f"world {world} vs JAX")
-    one_metrics, one_final, _ = port_one_process(tmp_path, inputs)
+    one_metrics, one_final, _ = one_process
     assert_metrics(report["metrics"], one_metrics,
                    f"world {world} vs one process")
     assert_params(final, one_final, f"world {world} vs one process")
@@ -323,15 +351,15 @@ def test_fit_over_processes_matches_jax_and_one_process(tmp_path, request,
 
 
 def test_a_world_2_checkpoint_restores_into_one_process(tmp_path, inputs,
-                                                        world2):
+                                                        world2, one_process):
     from determined_tpu_torch import core as tcore
     from determined_tpu_torch.models import gpt2 as tgpt2
     from determined_tpu_torch.train import Trainer
     from determined_tpu_torch.train.trial import TrialContext
 
-    report, final, out = world2
+    report, final, out, _ = world2
     (sid,) = report["checkpoints"]
-    _, _, Trial = port_one_process(tmp_path, inputs)
+    _, _, Trial = one_process
     # A copy: the restoring run must not add to the shared run's storage.
     shutil.copytree(out / "ckpt", tmp_path / "ckpt")
     ctx = tcore.init(max_length=STEPS, checkpoint_dir=str(tmp_path / "ckpt"))
@@ -346,7 +374,8 @@ def test_a_world_2_checkpoint_restores_into_one_process(tmp_path, inputs,
 
 
 def test_unported_axes_and_a_world_without_a_group_raise(tmp_path,
-                                                         monkeypatch):
+                                                         monkeypatch,
+                                                         one_process):
     import torch.distributed as dist
 
     from determined_tpu_torch import core as tcore
@@ -356,22 +385,34 @@ def test_unported_axes_and_a_world_without_a_group_raise(tmp_path,
     )
     from determined_tpu_torch.train import Trainer
 
-    _, _, Trial = port_one_process(tmp_path, (None, numpy_params(),
-                                              global_batches()))
+    _, _, Trial = one_process
     from determined_tpu_torch.train.trial import TrialContext
 
-    # A world of 2 with a process group: pipeline above 1 names ROADMAP
-    # item 7; tensor and context resolve for this dense trial
+    # A world of 2 with a process group: pipeline above 1 is refused for
+    # this trial, which has no loss_pipelined, and for a stateful one
+    # (tests/test_torch_pipeline.py trains a trial that has it); tensor
+    # and context resolve for this dense trial
     # (tests/test_torch_tensor_parallel.py trains over them); expert above
     # 1 is refused for it (tests/test_torch_moe.py: an MoE trial takes
     # it); data and fsdp resolve.
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+
+    class Stateful(Trial):
+        stateful = True
+
+        def loss_pipelined(self, params, batch, rng, mesh):
+            raise AssertionError("never built")
+
     for axis in ("tensor", "context", "pipeline"):
         trial = Trial(TrialContext(hparams={"mesh": {axis: 2, "data": 1}}))
         if axis == "pipeline":
-            with pytest.raises(ValueError, match="item 7"):
+            with pytest.raises(ValueError,
+                               match="does not implement loss_pipelined"):
                 Trainer(trial, device="cpu")
+            with pytest.raises(ValueError, match="does not support stateful"):
+                Trainer(Stateful(TrialContext(hparams={"mesh": {
+                    axis: 2, "data": 1}})), device="cpu")
         else:
             assert getattr(Trainer(trial, device="cpu").mesh_config,
                            axis) == 2

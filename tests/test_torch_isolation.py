@@ -68,6 +68,7 @@ PORT_MODULES = [
     "determined_tpu_torch.parallel",
     "determined_tpu_torch.parallel.collectives",
     "determined_tpu_torch.parallel.mesh",
+    "determined_tpu_torch.parallel.pipeline",
     "determined_tpu_torch.parallel.sharding",
     "determined_tpu_torch.pytorch",
     "determined_tpu_torch.pytorch._trial",

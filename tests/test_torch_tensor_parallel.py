@@ -146,14 +146,18 @@ for name, (sizes, impl) in CASES.items():
     report["cases"][name] = {"rows": [i, n], "round_trip": same,
                              "qkv_heads": bool(torch.equal(local, want))}
     # What the model refuses over this mesh: plain attention over a
-    # context axis, and an MoE config over either axis.
+    # context axis, and (as JAX does) MoE blocks under pipeline; an MoE
+    # config over tensor and context is trained in
+    # tests/test_torch_moe_axes.py.
     refused = []
-    for bad in (dict(attention_impl="flash"), dict(num_experts=4)):
+    for bad, fn in ((dict(attention_impl="flash"), gpt2.loss_fn),
+                    (dict(num_experts=4), lambda p, b, c: (
+                        gpt2.loss_fn_pipelined(p, b, c, mesh)))):
         try:
-            gpt2.loss_fn(state.params, {"tokens": rows},
-                         gpt2.Config(**{**cfg.__dict__, **bad}))
+            fn(state.params, {"tokens": rows},
+               gpt2.Config(**{**cfg.__dict__, **bad}))
             refused.append(None)
-        except ValueError as e:
+        except (ValueError, NotImplementedError) as e:
             refused.append(str(e))
     report["cases"][name]["refused"] = refused
     del state, grads
@@ -269,8 +273,9 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory, inputs):
-    """Every case in one world of 4 -> (rank 0's report, the run dir)."""
+def world(tmp_path_factory, inputs, devices):
+    """Every case in one world of 4, and the JAX side computed while it
+    runs -> (rank 0's report, the run dir, the JAX results)."""
     params, tokens = inputs
     out = tmp_path_factory.mktemp("tensor_world")
     np.savez(out / "params.npz", **params)
@@ -287,6 +292,7 @@ def world(tmp_path_factory, inputs):
         text=True) for r in range(WORLD)]
     logs = []
     try:
+        ref = jax_side(inputs, devices, tmp_path_factory.mktemp("jax"))
         for p in procs:
             logs.append(p.communicate(timeout=TIMEOUT_S)[0])
     finally:
@@ -297,35 +303,45 @@ def world(tmp_path_factory, inputs):
         assert p.returncode == 0, log[-4000:]
     reports = [json.loads((out / f"report{r}.json").read_text())
                for r in range(WORLD)]
-    return reports, out
+    return reports, out, ref
+
+
+def jax_side(inputs, devices, tmp):
+    """JAX's logits, loss and gradients for each model case on its mesh,
+    and the JAX Trainer's ring and Ulysses runs."""
+    params, tokens = inputs
+    batch = {"tokens": jnp.asarray(tokens[0])}
+    jparams = jax.tree_util.tree_map(jnp.asarray, unflatten(params))
+    ref = {}
+    for name, (sizes, impl) in MODEL_CASES.items():
+        cfg = jax_config(impl)
+        mesh = jax_mesh(sizes, devices)
+        with jax.sharding.set_mesh(mesh):
+            loss, grads, logits = jax.jit(lambda p: (*jax.value_and_grad(
+                lambda q: jgpt2.loss_fn(q, batch, cfg))(p),
+                jgpt2.apply(p, batch["tokens"][:, :-1], cfg)))(jparams)
+        ref[name] = (float(loss), flatten(grads), np.asarray(logits))
+    for name in ("ring", "ulysses"):
+        ref[f"fit_{name}"] = run_jax(tmp / name, inputs, *FIT_CASES[name])
+    return ref
 
 
 @pytest.mark.parametrize("name", list(MODEL_CASES))
-def test_model_matches_jax(world, inputs, devices, name):
-    reports, out = world
-    params, tokens = inputs
-    sizes, impl = MODEL_CASES[name]
-    cfg = jax_config(impl)
-    mesh = jax_mesh(sizes, devices)
-    batch = {"tokens": jnp.asarray(tokens[0])}
-    jparams = jax.tree_util.tree_map(jnp.asarray, unflatten(params))
-    with jax.sharding.set_mesh(mesh):
-        loss, grads = jax.jit(jax.value_and_grad(
-            lambda p: jgpt2.loss_fn(p, batch, cfg)))(jparams)
-        logits = jax.jit(lambda p: jgpt2.apply(
-            p, batch["tokens"][:, :-1], cfg))(jparams)
+def test_model_matches_jax(world, name):
+    reports, out, ref = world
+    loss, grads, logits = ref[name]
     ranks = [dict(np.load(out / f"{name}.rank{r}.npz")) for r in range(WORLD)]
     got = np.zeros(np.shape(logits), np.float32)
     for r in range(WORLD):
         i, n = reports[r]["cases"][name]["rows"]
         got[i * GLOBAL_BATCH // n:(i + 1) * GLOBAL_BATCH // n] = \
             ranks[r]["logits"]
-    np.testing.assert_allclose(got, np.asarray(logits), atol=2e-5,
+    np.testing.assert_allclose(got, logits, atol=2e-5,
                                err_msg=f"{name} logits")
     for r in range(WORLD):
-        np.testing.assert_allclose(ranks[r]["loss"], float(loss), rtol=1e-5,
+        np.testing.assert_allclose(ranks[r]["loss"], loss, rtol=1e-5,
                                    err_msg=f"{name} loss, rank {r}")
-    for k, want in flatten(grads).items():
+    for k, want in grads.items():
         scale = np.abs(want).max()
         for r in range(WORLD):
             err = np.abs(ranks[r][k] - want).max()
@@ -334,7 +350,7 @@ def test_model_matches_jax(world, inputs, devices, name):
 
 @pytest.mark.parametrize("name", list(MODEL_CASES))
 def test_tensor_layout(world, name):
-    reports, _ = world
+    reports = world[0]
     for r, rep in enumerate(reports):
         case = rep["cases"][name]
         assert case["round_trip"], (name, r)
@@ -342,7 +358,7 @@ def test_tensor_layout(world, name):
 
 
 def test_the_model_refuses_what_it_cannot_split(world):
-    reports, _ = world
+    reports = world[0]
     for name, (sizes, impl) in MODEL_CASES.items():
         for rep in reports:
             flash, moe = rep["cases"][name]["refused"]
@@ -350,7 +366,7 @@ def test_the_model_refuses_what_it_cannot_split(world):
                 assert "use attention_impl ring or ulysses" in flash, name
             else:
                 assert flash is None, name
-            assert "item 7" in moe, name
+            assert "not supported under pipeline parallelism" in moe, name
 
 
 class JaxGPT2(JaxTrial):
@@ -378,9 +394,9 @@ class JaxGPT2(JaxTrial):
         return [{"tokens": t} for t in self.tokens]
 
 
-def run_jax(tmp_path, inputs, impl, vocab):
+def run_jax(tmp, inputs, impl, vocab):
     params, tokens = inputs
-    ctx = jcore.init(max_length=STEPS, checkpoint_dir=str(tmp_path / "jax"))
+    ctx = jcore.init(max_length=STEPS, checkpoint_dir=str(tmp))
     trainer = JTrainer(JaxGPT2(JTrialContext(hparams={"mesh": FIT_MESH},
                                              core_context=ctx),
                                impl, vocab, params, tokens),
@@ -414,11 +430,11 @@ def assert_metrics(got, want, what):
 
 
 @pytest.mark.parametrize("name", ["ring", "ulysses"])
-def test_fit_matches_the_jax_trainer(tmp_path, world, inputs, name):
-    reports, out = world
+def test_fit_matches_the_jax_trainer(world, name):
+    reports, out, ref = world
     run = reports[0][f"fit_{name}"]
     assert run["mesh"]["tensor"] == 2 and run["mesh"]["context"] == 2
-    jmetrics, jfinal, jmesh = run_jax(tmp_path, inputs, *FIT_CASES[name])
+    jmetrics, jfinal, jmesh = ref[f"fit_{name}"]
     assert (jmesh["tensor"], jmesh["context"]) == (2, 2)
     assert_metrics(run["metrics"], jmetrics, name)
     assert_params(dict(np.load(out / f"fit_{name}.npz")), jfinal, name)
@@ -459,7 +475,7 @@ def test_fit_with_an_uneven_vocab_matches_one_process(tmp_path, world,
     from determined_tpu_torch.train import Trainer
     from determined_tpu_torch.train.trial import TrialContext
 
-    reports, out = world
+    reports, out, _ = world
     run = reports[0]["fit_ring_uneven"]
     Trial = port_trial_class(*inputs, DIMS["vocab_size"])
     ctx = tcore.init(max_length=STEPS, checkpoint_dir=str(tmp_path / "one"))
@@ -479,7 +495,7 @@ def test_the_checkpoint_restores_into_one_process(tmp_path, world, inputs):
     from determined_tpu_torch.train import Trainer
     from determined_tpu_torch.train.trial import TrialContext
 
-    reports, out = world
+    reports, out, _ = world
     (sid,) = reports[0]["fit_ring"]["checkpoints"]
     final = dict(np.load(out / "fit_ring.npz"))
     shutil.copytree(out / "ckpt_ring", tmp_path / "ckpt")
