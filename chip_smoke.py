@@ -387,6 +387,25 @@ fails:
  16d. with two cards or more, the MoE trial at `tensor: 2` and at
      `context: 2` (ring), each against world 1 under 12d's limits. With
      one card, `[16d] not run: 1 card`.
+ 17a. elastic resize's checkpoints: a gloo world of 4 CPU processes
+     builds phase 7's state (fsdp 4, seed 0) and writes it per rank
+     (`state/rank{r}.pt`, `shards.json`), and its chief the same state in
+     the one-process format; this process restores both at world 1 on
+     the card into templates built from the checkpoints with no
+     `init_params` call, holds them to each other bitwise, prints each
+     rank's bytes written, each restore's ms and MB/s beside 14c's and
+     each template's host ms, then trains ELASTIC_FIT_STEPS steps of
+     `fit` resumed from the per-rank checkpoint through the kernels.
+ 17b. with two cards or more, an NCCL world in local mode trains phase
+     7's trial at `fsdp: -1` for ELASTIC_STEPS steps, shrinking 4 -> 2 at
+     step 6 and growing back at step 12 (2 -> 1 -> 2 on two or three
+     cards), the resizes offered from the chief's metrics report; each
+     stretch after a resize against an uninterrupted run of its width
+     resumed from the checkpoint the resize took, bitwise or within
+     12d's limits; each transition's `resize_downtime_ms` and its parts
+     by rank (checkpoint, groups, template, restore, stream, the first
+     step after), each rank's bytes read and peak memory. With one card,
+     `[17b] not run: 1 card`.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
@@ -394,8 +413,9 @@ or "ffma" CUDA cores; `launches` counts phase 7's path, phase 5's for the
 paged kernel, `launches_moe` phase 11a's, 11c's for the paged kernel,
 and for the flash kernels `launches_long` phase 12a's,
 `launches_ring` 12b's ring schedule, `launches_torch_trial` 14a's
-`pytorch.Trainer.fit` and `launches_pipeline` 16a's schedule walked over
-2 stages, and `long_ms` a launch's device
+`pytorch.Trainer.fit`, `launches_pipeline` 16a's schedule walked over
+2 stages and `launches_elastic` 17a's `fit` after the per-rank restore,
+and `long_ms` a launch's device
 time in 12a's steps, at B 4, S 8192, under torch.profiler, beside its
 bound at that shape, `long_bound_ms`); the last line is `{"ok": true,
 "device": {...}}`.
@@ -5623,6 +5643,354 @@ def phase_moe_split_world(workdir, hparams, card):
                              "attention_impl": "ring"})))}
 
 
+# ----------------------------------------------------------------- phase 17
+
+ELASTIC_STEPS = 18      # 17b: shrink at step 6, grow back at step 12
+ELASTIC_FIT_STEPS = 5   # 17a: fit after the restore at world 1
+# One rank of phase 17, run as `python elastic_worker.py ROOT OUT MODE
+# RANK WORLD HPARAMS_JSON [PORT]`. MODE "write" (17a): a gloo world on the
+# CPU builds phase 7's state over `fsdp: WORLD` and writes it per rank,
+# and the chief the same state in the one-process format. MODE "elastic"
+# (17b): an NCCL world, one card a rank, trains ELASTIC_STEPS steps with
+# a shrink to half the world at step 6 and a grow back at step 12, then
+# two uninterrupted runs resumed from the checkpoints the resizes took.
+ELASTIC_WORKER = r"""
+import json, os, shutil, sys, time
+root, out, mode = sys.argv[1], sys.argv[2], sys.argv[3]
+rank, world = int(sys.argv[4]), int(sys.argv[5])
+hparams = json.loads(sys.argv[6])
+sys.path.insert(0, root)
+sys.path.insert(0, os.path.join(root, "examples", "gpt2_cuda"))
+import torch
+import torch.distributed as tdist
+from determined_tpu_torch import core
+from determined_tpu_torch.core._checkpoint import CheckpointContext
+from determined_tpu_torch.core._distributed import DistributedContext
+from determined_tpu_torch.train import Trainer
+from determined_tpu_torch.train import state as state_mod
+from determined_tpu_torch.train.trial import TrialContext
+from model_def import GPT2Trial
+
+
+def dump(name, obj):
+    with open(os.path.join(out, name), "w") as f:
+        json.dump(obj, f)
+
+
+if mode == "write":
+    dist = DistributedContext.from_allocation(
+        "file://" + os.path.join(out, "store"), world, rank, backend="gloo")
+    ctx = core.init(max_length=1, distributed=dist, async_checkpointing=False,
+                    checkpoint_dir=os.path.join(out, "sharded"))
+    trainer = Trainer(GPT2Trial(TrialContext(
+        hparams={**hparams, "mesh": {"data": 1, "fsdp": world}},
+        core_context=ctx)), core_context=ctx, device="cpu")
+    trainer._build(0)
+    sid = ctx.checkpoint.save_state(state_mod.checkpoint_view(trainer.state),
+                                    0)
+    ck = os.path.join(out, "sharded", sid)
+    mine = [f"state/rank{rank}.pt"] + (
+        ["state/tree.pt", "shards.json", "metadata.json"] if rank == 0
+        else [])
+    dump(f"write{rank}.json", {"sid": sid, "bytes": sum(
+        os.path.getsize(os.path.join(ck, rel)) for rel in mine)})
+    full = state_mod.unshard_state(trainer.state)
+    if rank == 0:
+        CheckpointContext(os.path.join(out, "one")).save_state(full, 0)
+    tdist.barrier()
+    ctx.close()
+    sys.exit(0)
+
+port = int(sys.argv[7])
+# NCCL on the cards; DET_TORCH_BACKEND=gloo runs the same world on the CPU.
+backend = os.environ.get("DET_TORCH_BACKEND", "nccl")
+device = "cuda" if backend == "nccl" else "cpu"
+dist = DistributedContext.from_allocation(
+    f"tcp://127.0.0.1:{port}", world, rank, backend=backend, local_rank=rank)
+cuda = device == "cuda"
+half = world // 2 if world >= 4 else 1
+full_width = 4 if world >= 4 else 2
+
+
+class Trial(GPT2Trial):
+    def __init__(self, context, skip=0):
+        super().__init__(context)
+        self._skip = skip
+
+    def build_training_data(self):
+        for b, batch in enumerate(super().build_training_data()):
+            if b >= self._skip:
+                yield batch
+
+
+contexts = []
+
+
+def run(name, max_length, slots, skip=0, resizes=None, resume_from=None):
+    # `resizes`: {step: target}, offered when the step's metrics are
+    # reported, so the poll after it resizes (the prefetcher's producer
+    # runs ahead of the loop: the loader cannot time it).
+    d = os.path.join(out, name)
+    ctx = core.init(max_length=max_length, distributed=dist,
+                    checkpoint_dir=os.path.join(d, "ckpt"))
+    contexts.append(ctx)  # closed at the end: close() ends the group
+    pending, report = dict(resizes or {}), ctx.train.report_training_metrics
+
+    def report_and_offer(step, metrics):
+        report(step, metrics)
+        if "loss" in metrics and step in pending:
+            ctx.preempt.force_resize(pending.pop(step), deadline=600.0)
+
+    ctx.train.report_training_metrics = report_and_offer
+    trial = Trial(TrialContext(hparams={**hparams,
+                                        "mesh": {"data": 1, "fsdp": -1}},
+                               core_context=ctx), skip=skip)
+    trainer = Trainer(trial, core_context=ctx, slots=slots, device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state = trainer.fit(report_period=1, preempt_period=1,
+                        resume_from=resume_from)
+    if cuda:
+        torch.cuda.synchronize()
+    dump(f"{name}.rank{rank}.json", {
+        "step": None if state is None else state.step,
+        "parts": trainer.resize_parts,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+        else 0.0})
+    if rank == 0:
+        dump(f"{name}.json", {"metrics": [
+            [r["steps_completed"], r["metrics"]]
+            for r in ctx.train.local_training_metrics]})
+    del state, trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    tdist.barrier()
+
+
+def copy(src_run, sid, dst_run):
+    if rank == 0:
+        shutil.copytree(os.path.join(out, src_run, "ckpt", sid),
+                        os.path.join(out, dst_run, "ckpt", sid))
+    tdist.barrier()
+
+
+run("elastic", ELASTIC_STEPS, full_width, resizes={6: half, 12: full_width})
+copy("elastic", "trial0-step6", "resumed_half")
+run("resumed_half", 12, half, skip=6, resume_from="trial0-step6")
+copy("elastic", "trial0-step12", "resumed_full")
+run("resumed_full", ELASTIC_STEPS, full_width, skip=12,
+    resume_from="trial0-step12")
+for ctx in contexts:
+    ctx.close()
+""".replace("ELASTIC_STEPS", str(ELASTIC_STEPS))
+
+
+def elastic_world(workdir, hparams, mode, world, env=None, timeout=900):
+    """Phase 17's worker in `world` processes -> (the run directory, each
+    rank's output)."""
+    import shutil
+
+    out = os.path.join(workdir, f"elastic_{mode}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    script = os.path.join(out, "elastic_worker.py")
+    with open(script, "w") as f:
+        f.write(ELASTIC_WORKER)
+    port = str(free_port())
+    full_env = dict(os.environ, **(env or {}))
+    full_env["PYTHONPATH"] = ROOT + os.pathsep + full_env.get("PYTHONPATH",
+                                                              "")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        full_env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, script, ROOT, out, mode, str(r), str(world),
+         json.dumps(hparams), port], env=full_env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            say(log[-4000:])
+            fail(f"17 {mode}: rank {r} exited {p.returncode}")
+    return out, logs
+
+
+def phase_elastic_restore(workdir, hparams, card, one_restore_ms=None):
+    """17a: a gloo world of 4 CPU processes builds phase 7's state (fsdp
+    4, the phase's seed) and writes it per rank, and the chief writes the
+    same state in the one-process format; this process restores both at
+    world 1 on the card, into templates built from the checkpoints with
+    no `init_params` call, holds them to each other bitwise, then trains
+    ELASTIC_FIT_STEPS steps of `fit` resumed from the per-rank one."""
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.core._checkpoint import CheckpointContext
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train import state as state_mod
+    from determined_tpu_torch.train.trial import TrialContext
+
+    t0 = time.monotonic()
+    out, _ = elastic_world(workdir, hparams, "write", 4,
+                           env={"CUDA_VISIBLE_DEVICES": ""}, timeout=600)
+    write_s = time.monotonic() - t0
+    wrote = [json.load(open(os.path.join(out, f"write{r}.json")))
+             for r in range(4)]
+    sid = wrote[0]["sid"]
+    GPT2Trial = gpt2_trial_class()
+    calls = [0]
+
+    class Counted(GPT2Trial):
+        def init_params(self, rng):
+            calls[0] += 1
+            return super().init_params(rng)
+
+    trial = Counted(TrialContext(hparams=hparams))
+    restored, times = {}, {}
+    torch.zeros(1, device="cuda")  # the CUDA context, outside the times
+    torch.cuda.synchronize()
+    for name in ("sharded", "one"):
+        ctx = CheckpointContext(os.path.join(out, name))
+        t1 = time.monotonic()
+        template = state_mod.empty_train_state(
+            ctx.abstract_state(sid), trial.optimizer(), "cuda")
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        restored[name] = state_mod.from_checkpoint_view(ctx.restore_state(
+            sid, state_mod.checkpoint_view(template), into=True))
+        torch.cuda.synchronize()
+        t3 = time.monotonic()
+        times[name] = {"template_ms": (t2 - t1) * 1e3,
+                       "restore_ms": (t3 - t2) * 1e3,
+                       "bytes": ctx.last_restore_bytes}
+        del template
+    got, want = (state_tensors(restored[k]) for k in ("sharded", "one"))
+    same = len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    n_bytes = sum(t.numel() * t.element_size() for t in want)
+    del restored, got, want
+    _free_cuda()
+    say(f"[17a] [{card}] a gloo world of 4 CPU processes wrote phase 7's "
+        f"state ({n_bytes / 1e9:.2f} GB of tensors) per rank at fsdp 4 in "
+        f"{write_s:.1f} s (world start included); bytes written by rank "
+        f"{[w['bytes'] for w in wrote]}")
+    for name, what in (("sharded", "per-rank checkpoint"),
+                       ("one", "one-process checkpoint")):
+        t = times[name]
+        say(f"[17a] [{card}] world 1 on the card from the {what}: template "
+            f"{t['template_ms']:.1f} ms of host time (no init_params), "
+            f"restore {t['restore_ms']:.1f} ms, {t['bytes'] / 1e6:.1f} MB "
+            f"read, {t['bytes'] / 1e6 / (t['restore_ms'] / 1e3):.1f} MB/s")
+    if one_restore_ms is not None:
+        say(f"[17a] [{card}] 14c's one-process restore_state of the same "
+            f"size of state in this run: {one_restore_ms:.1f} ms")
+    say(f"[17a] per-rank restore bitwise equal to the one-process one: "
+        f"{same}; init_params calls for the templates: {calls[0]}")
+    if not same or calls[0] != 0:
+        fail("17a: the per-rank checkpoint did not restore the one-process "
+             "state bitwise, or a template called init_params")
+
+    ckpt = os.path.join(workdir, "elastic_fit")
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.copytree(os.path.join(out, "sharded"), ckpt)
+    ctx = core.init(max_length=ELASTIC_FIT_STEPS, checkpoint_dir=ckpt)
+    trainer = Trainer(GPT2Trial(TrialContext(hparams=hparams,
+                                             core_context=ctx)),
+                      core_context=ctx)
+    flash_counts(reset=True)
+    state = trainer.fit(report_period=1, resume_from=sid)
+    launches = flash_counts()
+    losses = [r["metrics"]["loss"] for r in ctx.train.local_training_metrics
+              if "loss" in r["metrics"]]
+    ctx.close()
+    say(f"[17a] [{card}] fit resumed from the per-rank checkpoint at world "
+        f"1: {len(losses)} steps to step {state.step}, losses "
+        f"{[round(x, 4) for x in losses]}, flash launches {launches}")
+    if state.step != ELASTIC_FIT_STEPS or len(losses) != ELASTIC_FIT_STEPS \
+            or not all(math.isfinite(x) for x in losses) \
+            or min(launches.values()) == 0:
+        fail("17a: fit after the per-rank restore did not train through "
+             "the flash kernels")
+    shutil.rmtree(out, ignore_errors=True)
+    del state, trainer
+    _free_cuda()
+    return {"launches": launches, "times": times, "wrote": wrote}
+
+
+def _stretch(rep, lo, hi):
+    return {s: m for s, m in rep["metrics"] if "loss" in m and lo < s <= hi}
+
+
+def phase_elastic_world(workdir, hparams, card):
+    """17b: with two cards or more, an NCCL world trains phase 7's trial
+    at `fsdp: -1` in local mode: four cards shrink 4 -> 2 at step 6 and
+    grow back to 4 at step 12, two or three 2 -> 1 -> 2. Each stretch
+    after a resize against an uninterrupted run of its width resumed from
+    the checkpoint the resize took: bitwise, or within 12d's limits. With
+    one card: not run."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[17b] not run: {n} card")
+        return None
+    world = min(n, 4)
+    out, _ = elastic_world(workdir, hparams, "elastic", world)
+    load = lambda name: json.load(open(os.path.join(out, name)))  # noqa
+    rep = load("elastic.json")
+    ranks = [load(f"elastic.rank{r}.json") for r in range(world)]
+    rows = [(s, m) for s, m in rep["metrics"] if "resize_downtime_ms" in m]
+    if [s for s, _ in rows] != [6, 12] or ranks[0]["step"] != ELASTIC_STEPS:
+        fail(f"17b: resizes at {[s for s, _ in rows]}, final step "
+             f"{ranks[0]['step']}")
+    for i, (step, row) in enumerate(rows):
+        say(f"[17b] [{card}] resize {int(row['resize_from_slots'])} -> "
+            f"{int(row['resize_target_slots'])} at step {step}: "
+            f"resize_downtime_ms {row['resize_downtime_ms']:.1f}")
+        for r, got in enumerate(ranks):
+            parts = [p for p in got["parts"]]
+            if i >= len(parts):
+                continue
+            p = parts[i]
+            say(f"[17b]   rank {r}: " + ", ".join(
+                f"{k[:-3]} {v:.1f} ms" for k, v in p.items()
+                if k.endswith("_ms"))
+                + f"; read {p.get('restore_bytes', 0) / 1e6:.1f} MB")
+    say(f"[17b] [{card}] peak memory by rank over the elastic fit "
+        f"{[round(g['peak_gib'], 3) for g in ranks]} GiB")
+    worst = {}
+    for ref, lo, hi in (("resumed_half", 6, 12),
+                        ("resumed_full", 12, ELASTIC_STEPS)):
+        a, b = _stretch(rep, lo, hi), _stretch(load(f"{ref}.json"), lo, hi)
+        if sorted(a) != sorted(b) or len(a) != hi - lo:
+            fail(f"17b: steps {sorted(a)} against {ref}'s {sorted(b)}")
+        bitwise = all(a[s][k] == b[s][k] for s in a
+                      for k in ("loss", "grad_norm"))
+        rel = {k: max(abs(a[s][k] - b[s][k]) / abs(b[s][k]) for s in a)
+               for k in ("loss", "grad_norm")}
+        worst[ref] = rel
+        say(f"[17b] [{card}] steps {lo + 1}-{hi} against {ref} (resumed "
+            f"from trial0-step{lo}): bitwise {bitwise}; max relative diff "
+            f"loss {rel['loss']:.2e}, grad norm {rel['grad_norm']:.2e}")
+        if not bitwise and (rel["loss"] > SPLIT_LOSS_RTOL
+                            or rel["grad_norm"] > SPLIT_NORM_RTOL):
+            fail(f"17b: the stretch after a resize differs from {ref}")
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    return {"rows": rows, "ranks": ranks, "rel": worst}
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -5665,6 +6033,9 @@ def main() -> int:
     phase_pipeline_world(workdir, hparams, card)
     phase_moe_chunks(card)
     phase_moe_split_world(workdir, hparams, card)
+    elastic = phase_elastic_restore(workdir, hparams, card,
+                                    trials["14c"]["shared_fs"]["restore_ms"])
+    phase_elastic_world(workdir, hparams, card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -5780,6 +6151,7 @@ def main() -> int:
             "launches_ring": ring[key],
             "launches_torch_trial": t14a["launches"][key],
             "launches_pipeline": pipe["launches"][key],
+            "launches_elastic": elastic["launches"][key],
             "long_ms": long["per_layer_ms"][key],
             "long_bound_ms": long["bound_ms"][key],
             "max_abs_err": flash_err[key],

@@ -54,15 +54,6 @@ SPAN_SOURCES = [
     "determined_tpu_torch/serve/tracing.py",
 ]
 
-# Registered spans whose emitting path the port has not ported yet, each
-# with its ROADMAP.md item (the drift is a Queue 3 fault there). They are
-# not stale rows while the path is missing, and become a finding the day
-# a port emitter publishes one: then its row here must go.
-UNPORTED_SPANS = {
-    "harness.reshard": "Queue 1 item 8, elastic resize in process",
-    "harness.resize.downtime": "Queue 1 item 8, elastic resize in process",
-}
-
 _SELF = "determined_tpu_torch/analysis/metric_lint.py"
 _REGISTRY = "determined_tpu_torch/common/metric_names.py"
 
@@ -133,13 +124,7 @@ def lint_registry(root: str = REPO_ROOT) -> List[str]:
                 f"{rel}: span {name!r} emitted but not registered in "
                 f"{_REGISTRY} SPAN_NAMES")
         emitted_spans |= names
-    for name in sorted(set(UNPORTED_SPANS) & emitted_spans):
-        problems.append(
-            f"{_SELF}: span {name!r} "
-            "is emitted but listed in UNPORTED_SPANS (drop its row and "
-            "its ROADMAP.md Queue 3 entry)")
-    for name in sorted(set(metric_names.SPAN_NAMES) - emitted_spans
-                       - set(UNPORTED_SPANS)):
+    for name in sorted(set(metric_names.SPAN_NAMES) - emitted_spans):
         problems.append(
             f"{_REGISTRY}: span {name!r} registered but emitted nowhere "
             "(stale registry row)")

@@ -44,10 +44,41 @@ directories of a filesystem storage. Serving restores only the params:
 `restore_params`.
 
 In a run of several processes every rank calls `save_state` with the
-same (full, gathered) state and step, so every rank names the checkpoint
-alike without a broadcast (`trial{N}-step{M}`); the chief alone writes,
-commits and reports it, and `wait()` ends in a barrier, so no rank reads
-the lineage before the COMMIT is stored. `upload(shard=True)` is the
+same step, so every rank names the checkpoint alike without a broadcast
+(`trial{N}-step{M}`), and `wait()` ends in a barrier, so no rank reads the
+lineage before the COMMIT is stored. A state of plain tensors (the same
+on every rank) is written by the chief alone, in the one-process format.
+A state with sharded DTensor leaves (train/state.py `checkpoint_view`:
+the params and the moments that mirror them) is written per rank, as the
+JAX package's hosts each write their own shards:
+
+  <storage_id>/metadata.json        the chief's
+  <storage_id>/state/tree.pt        the chief's: the state's structure,
+                                    `step`, `extra`, every replicated
+                                    tensor, a placeholder per sharded one
+  <storage_id>/state/rank{r}.pt     rank r's pieces: of each sharded leaf
+                                    the piece it holds, when it is the
+                                    lowest rank holding that piece
+  <storage_id>/shards.json          the chief's, written at the commit:
+                                    each sharded leaf's global shape,
+                                    dtype, placements, `sharding.layout_of`
+                                    layout (GPT-2's fused qkv in the tensor
+                                    layout of the width that wrote it), and
+                                    its pieces: offsets, sizes, the rank
+                                    that wrote it, the ranks that held it,
+                                    the sha256 of its bytes
+  <storage_id>/manifest.json, COMMIT over every rank's files
+
+Every rank snapshots and writes its own file (async, staged and uploaded
+as above); `wait()` gathers each rank's outcome, file sizes and checksums
+and piece checksums to the chief, which writes `shards.json`, the
+manifest over all of them and the COMMIT. A restore reads into its
+template's layout: a sharded template (a DTensor leaf) reads only the
+pieces that overlap its own (`torch.load(mmap=True)`), checks each
+piece's sha256 as it reads it, and converts a fused leaf whose layout
+differs; a plain template assembles the full tensor. A one-process
+checkpoint reads into either. `last_restore_bytes` counts the stored
+bytes the newest restore read. `upload(shard=True)` is the
 file-checkpoint route where each rank contributes its own files: the
 storage id is broadcast from the chief, the gather of each rank's file
 list doubles as the barrier, and the chief writes the manifest and COMMIT
@@ -57,6 +88,7 @@ over every rank's files and reports them merged.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import logging
 import os
@@ -81,6 +113,13 @@ logger = logging.getLogger("determined_tpu_torch.core")
 _STATE_SUBDIR = "state"
 _STATE_FILE = "state.pt"
 _METADATA_FILE = "metadata.json"
+_SHARDS_FILE = "shards.json"
+_TREE_FILE = f"{_STATE_SUBDIR}/tree.pt"
+_PIECE = "__piece__"  # a sharded tensor's place in tree.pt
+
+
+def _rank_file(rank: int) -> str:
+    return f"{_STATE_SUBDIR}/rank{rank}.pt"
 
 _STATE_ID_RE = re.compile(r"^trial(\d+)-step(\d+)$")
 
@@ -113,25 +152,267 @@ def _map_tensors(tree: Any, fn) -> Any:
     return tree
 
 
-def _like(template: Any, loaded: Any) -> Any:
-    """`loaded` in the structure of `template`: each tensor on the
-    template's device with its dtype and requires_grad."""
+def _is_dtensor(t: Any) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _digest(t: torch.Tensor) -> str:
+    """sha256 of a host tensor's bytes."""
+    data = t.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+    return hashlib.sha256(data).hexdigest()
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _has_shards(tree: Any) -> bool:
+    from determined_tpu_torch.parallel import sharding
+
+    found: List[bool] = []
+    _map_tensors(tree, lambda t: found.append(
+        _is_dtensor(t) and bool(sharding.shard_mesh_dims(t))))
+    return any(found)
+
+
+def _replicated(tree: Any) -> Any:
+    """`tree` with each DTensor replaced by its local tensor: the whole
+    value of a replicated leaf. A sharded one has no whole value here."""
+    from determined_tpu_torch.parallel import sharding
+
+    def leaf(t):
+        if not _is_dtensor(t):
+            return t
+        if sharding.shard_mesh_dims(t):
+            raise ValueError("a sharded DTensor in a one-process checkpoint")
+        return sharding.local_value(t)
+
+    return _map_tensors(tree, leaf)
+
+
+def _split(tree: Any, rank: int):
+    """(skeleton, owned, index) of a state with sharded DTensor leaves:
+    the saved tree with a placeholder per sharded tensor (the replicated
+    ones as their local tensors), {key: this rank's piece} of the sharded
+    tensors it writes (it is the lowest rank holding that piece), and
+    {key: global shape, dtype, placements, layout, pieces} for
+    `shards.json`."""
+    from determined_tpu_torch.parallel import sharding
+
+    index: Dict[str, Any] = {}
+    owned: Dict[str, torch.Tensor] = {}
+
+    def leaf(t):
+        if not _is_dtensor(t):
+            return t.detach()
+        if not sharding.shard_mesh_dims(t):
+            return sharding.local_value(t).detach()
+        key = str(len(index))
+        holders: Dict[tuple, List[int]] = {}
+        for r, off, size in sharding.regions(t):
+            holders.setdefault((off, size), []).append(r)
+        pieces = [{"rank": ranks[0], "holders": ranks, "offsets": list(off),
+                   "sizes": list(size)}
+                  for (off, size), ranks in holders.items()]
+        index[key] = {
+            "shape": list(t.shape),
+            "dtype": str(t.dtype).replace("torch.", ""),
+            "placements": [repr(p) for p in t.placements],
+            "layout": [list(x) for x in sharding.layout_of(t)],
+            "pieces": pieces}
+        if any(p["rank"] == rank for p in pieces):
+            owned[key] = sharding.local_value(t).detach()
+        return {_PIECE: key}
+
+    return _map_tensors(tree, leaf), owned, index
+
+
+class _Source:
+    """A stored tensor as pieces: its shape, dtype, the fused layout its
+    pieces are in, and [(offsets, sizes, fetch, sha256 or None)], `fetch`
+    giving the piece as a CPU tensor."""
+
+    def __init__(self, shape, dtype, layout, pieces):
+        self.shape, self.dtype = tuple(shape), dtype
+        self.layout = tuple(tuple(x) for x in layout)
+        self.pieces = pieces
+
+
+class _Reader:
+    """Reads stored tensors into regions of a template's layout, fetching
+    only the pieces that overlap. A piece of a sharded checkpoint is
+    checked against its sha256 at its first fetch; `bytes` counts what
+    was read."""
+
+    def __init__(self, storage_id: str, path: Optional[str] = None,
+                 shards: Optional[Dict[str, Any]] = None):
+        self._sid, self._path = storage_id, path
+        self._leaves = (shards or {}).get("leaves", {})
+        self._files: Dict[str, Any] = {}
+        self._fetched: Dict[tuple, torch.Tensor] = {}
+        self.bytes = 0
+
+    def source(self, loaded: Any) -> _Source:
+        if isinstance(loaded, torch.Tensor):
+            return _Source(loaded.shape, loaded.dtype, (), [
+                ((0,) * loaded.dim(), tuple(loaded.shape),
+                 lambda: loaded, None)])
+        key = loaded[_PIECE]
+        entry = self._leaves.get(key)
+        if entry is None:
+            raise CorruptCheckpoint(self._sid, f"sharded tensor {key} is not "
+                                    f"in {_SHARDS_FILE}")
+        pieces = [(tuple(p["offsets"]), tuple(p["sizes"]),
+                   (lambda p=p: self._piece(key, p)), p.get("sha256"))
+                  for p in entry["pieces"]]
+        return _Source(entry["shape"], _dtype(entry["dtype"]),
+                       entry["layout"], pieces)
+
+    def _piece(self, key: str, p: Dict[str, Any]) -> torch.Tensor:
+        rel = _rank_file(p["rank"])
+        if (rel, key) in self._fetched:
+            return self._fetched[(rel, key)]
+        if rel not in self._files:
+            try:
+                self._files[rel] = torch.load(
+                    os.path.join(self._path, rel), map_location="cpu",
+                    mmap=True, weights_only=False)["pieces"]
+            except FileNotFoundError:
+                raise CorruptCheckpoint(self._sid, f"missing file {rel!r}")
+            except Exception as e:
+                raise CorruptCheckpoint(self._sid,
+                                        f"unreadable {rel!r}: {e}") from e
+        t = self._files[rel].get(key)
+        if t is None or list(t.shape) != list(p["sizes"]):
+            raise CorruptCheckpoint(self._sid,
+                                    f"piece {key} of {rel!r} missing or "
+                                    "of the wrong shape")
+        self.bytes += t.numel() * t.element_size()
+        if p.get("sha256") and _digest(t) != p["sha256"]:
+            raise CorruptCheckpoint(self._sid,
+                                    f"checksum mismatch for piece {key} "
+                                    f"of {rel!r}")
+        self._fetched[(rel, key)] = t
+        return t
+
+    def read(self, src: _Source, offsets, sizes, layout, out: torch.Tensor
+             ) -> None:
+        """Write the region (offsets, sizes) of `src`, in `layout`, into
+        `out`."""
+        from determined_tpu_torch.parallel import sharding
+
+        layout = tuple(tuple(x) for x in layout)
+        if src.layout != layout:
+            # Stored in another tensor layout (another tensor width): the
+            # whole tensor, to the one-process layout, to `layout`.
+            full = torch.empty(src.shape, dtype=src.dtype)
+            self.read(src, (0,) * len(src.shape), src.shape, src.layout,
+                      full)
+            for dim, pieces, parts in reversed(src.layout):
+                full = sharding.from_split_layout(full, dim, pieces, parts)
+            for dim, pieces, parts in layout:
+                full = sharding.to_split_layout(full, dim, pieces, parts)
+            out.copy_(full[tuple(slice(o, o + n)
+                                 for o, n in zip(offsets, sizes))])
+            return
+        for p_off, p_size, fetch, _ in src.pieces:
+            lo = [max(a, b) for a, b in zip(p_off, offsets)]
+            hi = [min(a + m, b + n) for a, m, b, n
+                  in zip(p_off, p_size, offsets, sizes)]
+            if any(h <= low for low, h in zip(lo, hi)):
+                continue
+            piece = fetch()
+            src_sl = tuple(slice(a - o, b - o) for a, b, o in zip(lo, hi, p_off))
+            dst_sl = tuple(slice(a - o, b - o)
+                           for a, b, o in zip(lo, hi, offsets))
+            out[dst_sl].copy_(piece[src_sl])
+
+
+def _fill(template: Any, loaded: Any, reader: _Reader, into: bool) -> Any:
+    """`loaded` (a saved tree: tensors, or placeholders of sharded ones)
+    in the structure and layout of `template`: each template tensor's
+    region of its stored tensor, on its device, with its dtype and
+    requires_grad; a DTensor template gets its own piece. `into`: written
+    into the template's tensors, which are returned."""
+    from determined_tpu_torch.parallel import sharding
+
     if isinstance(template, torch.Tensor):
-        out = loaded.to(device=template.device, dtype=template.dtype)
-        return out.requires_grad_(template.requires_grad)
+        src = reader.source(loaded)
+        if tuple(template.shape) != src.shape:
+            raise ValueError(f"checkpoint tensor of shape {src.shape} for a "
+                             f"state tensor of {tuple(template.shape)}")
+        with torch.no_grad():
+            if _is_dtensor(template):
+                local = sharding.local_value(template)
+                mesh = template.device_mesh
+                offsets, sizes = sharding.region(
+                    template.shape, tuple(mesh.mesh.shape),
+                    template.placements, mesh.get_coordinate())
+                out = local if into else torch.empty(
+                    local.shape, dtype=local.dtype, device=local.device)
+                reader.read(src, offsets, sizes, sharding.layout_of(template),
+                            out)
+                if into:
+                    return template
+                from torch.distributed.tensor import DTensor
+
+                d = DTensor.from_local(out, mesh, template.placements,
+                                       run_check=False, shape=template.shape,
+                                       stride=template.stride())
+                d.fused_layout = sharding.layout_of(template)
+                return d.requires_grad_(template.requires_grad)
+            out = template if into else torch.empty(
+                template.shape, dtype=template.dtype, device=template.device)
+            reader.read(src, (0,) * template.dim(), tuple(template.shape), (),
+                        out)
+        return out if into else out.requires_grad_(template.requires_grad)
     if hasattr(template, "__dataclass_fields__"):
-        return type(template)(**{f: _like(getattr(template, f), loaded[f])
+        return type(template)(**{f: _fill(getattr(template, f), loaded[f],
+                                          reader, into)
                                  for f in template.__dataclass_fields__})
     if isinstance(template, dict):
-        if set(template) != set(loaded):
+        if set(template) != set(loaded) - {"__dataclass__"}:
             raise ValueError(
                 f"checkpoint keys {sorted(loaded)} do not match the state's "
                 f"{sorted(template)}")
-        return {k: _like(v, loaded[k]) for k, v in template.items()}
+        return {k: _fill(v, loaded[k], reader, into)
+                for k, v in template.items()}
     if isinstance(template, (list, tuple)):
         if len(template) != len(loaded):
             raise ValueError("checkpoint and state structures differ")
-        return type(template)(_like(t, v) for t, v in zip(template, loaded))
+        return type(template)(_fill(t, v, reader, into)
+                              for t, v in zip(template, loaded))
+    return loaded
+
+
+def _assemble(loaded: Any, reader: _Reader) -> Any:
+    """A saved tree with every sharded tensor whole, in the one-process
+    layout (CPU tensors): what a one-process checkpoint holds."""
+    if isinstance(loaded, dict) and _PIECE in loaded:
+        src = reader.source(loaded)
+        full = torch.empty(src.shape, dtype=src.dtype)
+        reader.read(src, (0,) * len(src.shape), src.shape, (), full)
+        return full
+    if isinstance(loaded, dict):
+        return {k: _assemble(v, reader) for k, v in loaded.items()}
+    if isinstance(loaded, (list, tuple)):
+        return type(loaded)(_assemble(v, reader) for v in loaded)
+    return loaded
+
+
+def _abstract(loaded: Any, leaves: Dict[str, Any]) -> Any:
+    """A saved tree with each tensor, or placeholder, as a meta tensor of
+    its global shape and dtype."""
+    if isinstance(loaded, torch.Tensor):
+        return torch.empty(loaded.shape, dtype=loaded.dtype, device="meta")
+    if isinstance(loaded, dict) and _PIECE in loaded:
+        entry = leaves[loaded[_PIECE]]
+        return torch.empty(entry["shape"], dtype=_dtype(entry["dtype"]),
+                           device="meta")
+    if isinstance(loaded, dict):
+        return {k: _abstract(v, leaves) for k, v in loaded.items()}
+    if isinstance(loaded, (list, tuple)):
+        return type(loaded)(_abstract(v, leaves) for v in loaded)
     return loaded
 
 
@@ -189,19 +470,25 @@ class _Snapshot:
 
 
 class _Write:
-    """One checkpoint's phase-1 write: the state file (written under a
-    temporary name, fsync'd, renamed) and its manifest, on a thread or
-    inline. Given a cloud `storage`, the staged directory is uploaded
-    instead of manifested, and removed."""
+    """One checkpoint's phase-1 write of one rank: its files (each written
+    under a temporary name, fsync'd, renamed), on a thread or inline, then
+    the manifest (`manifest`: the one-process format's, over the whole
+    directory), or this rank's manifest entries and the sha256 of the
+    pieces it wrote (`entries`, `digests`: a sharded checkpoint's, merged
+    by the chief). Given a cloud `storage`, the staged directory is
+    uploaded instead, and removed."""
 
-    def __init__(self, path: str, host: Any, event, background: bool,
-                 storage: Optional[StorageManager] = None,
-                 storage_id: str = ""):
+    def __init__(self, path: str, host: Dict[str, Any], event,
+                 background: bool, storage: Optional[StorageManager] = None,
+                 storage_id: str = "", sharded: bool = False):
         self.path = path
         self.manifest: Optional[Dict] = None
+        self.entries: Dict[str, Dict] = {}
+        self.digests: Dict[str, str] = {}
         self.error: Optional[BaseException] = None
         self._host, self._event = host, event
         self._storage, self._storage_id = storage, storage_id
+        self._sharded = sharded
         self._thread = None
         if background:
             self._thread = threading.Thread(
@@ -214,16 +501,23 @@ class _Write:
         try:
             if self._event is not None:
                 self._event.synchronize()  # the snapshot copies landed
-            target = os.path.join(self.path, _STATE_SUBDIR, _STATE_FILE)
-            with open(target + ".tmp", "wb") as f:
-                torch.save(self._host, f)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(target + ".tmp", target)
-            if self._storage is None:
-                self.manifest = _integrity.write_manifest(self.path)
-            else:
+            for rel, tree in self._host.items():
+                if self._sharded and "pieces" in tree:
+                    self.digests = {k: _digest(t)
+                                    for k, t in tree["pieces"].items()}
+                target = os.path.join(self.path, rel)
+                with open(target + ".tmp", "wb") as f:
+                    torch.save(tree, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(target + ".tmp", target)
+            if self._storage is not None:
                 self._storage.upload(self.path, self._storage_id)
+            elif self._sharded:
+                self.entries = _integrity.file_entries(self.path,
+                                                       list(self._host))
+            else:
+                self.manifest = _integrity.write_manifest(self.path)
         except BaseException as e:  # raised to the caller of wait()
             self.error = e
         finally:
@@ -264,6 +558,9 @@ class CheckpointContext:
         # overlap it underestimates a cold synchronous save; the budget's
         # safety factor covers that.
         self.last_save_ms: Optional[float] = None
+        # The stored bytes the newest restore read (`_read`): a sharded
+        # restore reads only the pieces its template's layout overlaps.
+        self.last_restore_bytes = 0
         self.local_reported: List[Dict[str, Any]] = []
         self.tracer = None  # set by core.init
 
@@ -290,40 +587,58 @@ class CheckpointContext:
         `trial{N}-step{steps_completed}`, reported PARTIAL; it is committed
         and reported COMPLETED at the next `wait()`, `save_state` or
         `close()` (before this returns when `async_save` is off). Returns
-        the storage id. Several processes: every rank calls it with the same
-        full state (a collective); the chief writes."""
+        the storage id. Several processes: every rank calls it (a
+        collective); a state of plain tensors is the chief's to write, a
+        state with sharded DTensors every rank's (the module docstring)."""
         self.wait()  # never two pending: the buffers are reused
         # Deterministic id so all ranks agree without a broadcast.
         storage_id = f"trial{self._trial_id}-step{steps_completed}"
-        if not self._is_chief():
-            self._pending = (storage_id, None, None)
+        sharded = self._shared() and _has_shards(state)
+        if not sharded:
+            state = _replicated(state)
+        if not sharded and not self._is_chief():
+            self._pending = (storage_id, None, None, None)
             if not self._async:
                 self.wait()
             return storage_id
         path = self._storage.path_for(storage_id)
+        if sharded and self._staged() and not self._is_chief():
+            path += f".rank{self._dist.rank}"  # a staging of its own
         if self._staged():  # never upload an older staging's leftovers
             shutil.rmtree(path, ignore_errors=True)
         os.makedirs(os.path.join(path, _STATE_SUBDIR), exist_ok=True)
-        md = dict(metadata or {})
-        md.update({"steps_completed": steps_completed,
-                   "trial_id": self._trial_id, "format": "torch",
-                   "time": time.time()})
-        with open(os.path.join(path, _METADATA_FILE), "w") as f:
-            json.dump(md, f)
-        # Reported before the write starts, so the report lists what the
-        # JAX package's lists: the metadata, never the manifest.
-        self._report(storage_id, md, state="PARTIAL")
+        md = None
+        if self._is_chief():
+            md = dict(metadata or {})
+            md.update({"steps_completed": steps_completed,
+                       "trial_id": self._trial_id,
+                       "format": "torch-sharded" if sharded else "torch",
+                       "time": time.time()})
+            with open(os.path.join(path, _METADATA_FILE), "w") as f:
+                json.dump(md, f)
+            # Reported before the write starts, so the report lists what
+            # the JAX package's lists: the metadata, never the manifest.
+            self._report(storage_id, md, state="PARTIAL")
+        index = None
+        if sharded:
+            skeleton, owned, index = _split(state, self._dist.rank)
+            files: Dict[str, Any] = {_rank_file(self._dist.rank):
+                                     {"pieces": owned}}
+            if self._is_chief():
+                files[_TREE_FILE] = skeleton
+        else:
+            files = {f"{_STATE_SUBDIR}/{_STATE_FILE}": state}
         t0 = time.monotonic()
         t0_us = trace_mod.now_us()
-        host, event = self._snapshot.take(state)
+        host, event = self._snapshot.take(files)
         write = _Write(path, host, event, background=self._async,
                        storage=self._storage if self._staged() else None,
-                       storage_id=storage_id)
+                       storage_id=storage_id, sharded=sharded)
         self._pending_sync_ms = (time.monotonic() - t0) * 1000.0
         # Phase 1 on the trace: the part of the save the loop paid for.
         self._span("harness.checkpoint.save", t0_us, storage_id=storage_id,
                    steps_completed=steps_completed)
-        self._pending = (storage_id, md, write)
+        self._pending = (storage_id, md, write, index)
         if not self._async:
             self.wait()
         return storage_id
@@ -331,11 +646,12 @@ class CheckpointContext:
     def wait(self) -> None:
         """Block until the pending save is written and committed (COMMIT
         marker stored, COMPLETED reported). Raises the write's error, if
-        it failed; the checkpoint then stays PARTIAL. Several processes:
-        every rank calls it, and it ends in a barrier."""
+        it failed (a sharded save: any rank's, on every rank); the
+        checkpoint then stays PARTIAL. Several processes: every rank calls
+        it, and it ends in a barrier."""
         if self._pending is None:
             return
-        storage_id, md, write = self._pending
+        storage_id, md, write, index = self._pending
         self._pending = None
         if write is None:  # a rank other than the chief
             self._dist.barrier("checkpoint.commit")
@@ -343,21 +659,62 @@ class CheckpointContext:
         t0 = time.monotonic()
         t0_us = trace_mod.now_us()
         write.join()
-        if write.error is not None:
+        if index is not None:
+            self._commit_sharded(storage_id, write, index)
+        elif write.error is not None:
             raise RuntimeError(
                 f"checkpoint {storage_id}: the state write failed") \
                 from write.error
-        if self._staged():
+        elif self._staged():
             self._commit_remote(storage_id)
         else:
             _integrity.commit(write.path, storage_id, write.manifest)
-        self._report(storage_id, md, state="COMPLETED")
-        self.last_save_ms = self._pending_sync_ms + \
-            (time.monotonic() - t0) * 1000.0
-        # Phase 2 on the trace: the wait for the write, COMMIT and report.
-        self._span("harness.checkpoint.commit", t0_us, storage_id=storage_id)
+        if self._is_chief():
+            self._report(storage_id, md, state="COMPLETED")
+            self.last_save_ms = self._pending_sync_ms + \
+                (time.monotonic() - t0) * 1000.0
+            # Phase 2 on the trace: the wait for the write, COMMIT and
+            # report.
+            self._span("harness.checkpoint.commit", t0_us,
+                       storage_id=storage_id)
         if self._shared():
             self._dist.barrier("checkpoint.commit")
+
+    def _commit_sharded(self, storage_id: str, write: _Write,
+                        index: Dict[str, Any]) -> None:
+        """Phase 2 of a sharded save, on every rank: each rank's outcome,
+        manifest entries and piece checksums to every rank (one
+        allgather); any failure raises everywhere. The chief writes
+        `shards.json`, the manifest over every rank's files and the
+        COMMIT."""
+        error = None if write.error is None else repr(write.error)
+        outcomes = self._dist.allgather((error, write.entries, write.digests))
+        failed = [r for r, (e, _, _) in enumerate(outcomes) if e]
+        if failed:
+            raise RuntimeError(
+                f"checkpoint {storage_id}: the state write of rank(s) "
+                f"{failed} failed: {outcomes[failed[0]][0]}") from write.error
+        if not self._is_chief():
+            return
+        for key, leaf in index.items():
+            for piece in leaf["pieces"]:
+                piece["sha256"] = outcomes[piece["rank"]][2][key]
+        shards = json.dumps({"version": 1, "world": self._dist.size,
+                             "leaves": index}, sort_keys=True)
+        if self._staged():
+            self._upload_small_files(storage_id, {_SHARDS_FILE: shards})
+            self._commit_remote(storage_id)
+            return
+        path = self._storage.path_for(storage_id)
+        _integrity._atomic_write(os.path.join(path, _SHARDS_FILE),
+                                 shards.encode())
+        files: Dict[str, Dict] = {}
+        for _, entries, _ in outcomes:
+            files.update(entries)
+        files.update(_integrity.file_entries(
+            path, [_METADATA_FILE, _SHARDS_FILE]))
+        _integrity.commit(path, storage_id,
+                          _integrity.write_manifest(path, files))
 
     def _commit_remote(self, storage_id: str) -> None:
         """Phase 2 on a cloud backend: the manifest (each stored file's
@@ -391,11 +748,13 @@ class CheckpointContext:
         self.wait()
 
     def _state_file(self, path: str, storage_id: str) -> str:
-        state_file = os.path.join(path, _STATE_SUBDIR, _STATE_FILE)
-        if not os.path.exists(state_file):
-            raise FileNotFoundError(
-                f"checkpoint {storage_id} not found at {path}")
-        return state_file
+        """The checkpoint's state entry: `shards.json` of a sharded one,
+        else `state/state.pt`. FileNotFoundError without either."""
+        for rel in (_SHARDS_FILE, os.path.join(_STATE_SUBDIR, _STATE_FILE)):
+            state_file = os.path.join(path, rel)
+            if os.path.exists(state_file):
+                return state_file
+        raise FileNotFoundError(f"checkpoint {storage_id} not found at {path}")
 
     def verify(self, storage_id: str) -> bool:
         """Verify checkpoint `storage_id` without reading its state: True
@@ -427,28 +786,87 @@ class CheckpointContext:
                     manifest = None
         return _integrity.verify_listing(listing, manifest, storage_id)
 
-    def _load(self, storage_id: str) -> Any:
-        """The saved tree of checkpoint `storage_id` (CPU tensors), read
-        after the checkpoint verified (a cloud one once downloaded)."""
+    def _read(self, storage_id: str, fn) -> Any:
+        """fn(saved tree, reader) on checkpoint `storage_id`, verified (a
+        cloud one once downloaded): the one-process format's tree as
+        loaded (mmap), or a sharded one's `tree.pt` with a reader over its
+        pieces. Sets `last_restore_bytes`."""
         with self._storage.restore_path(storage_id) as path:
             state_file = self._state_file(path, storage_id)
-            _integrity.verify(path, storage_id)
-            return torch.load(state_file, map_location="cpu",
-                              weights_only=False)
+            if not state_file.endswith(_SHARDS_FILE):
+                _integrity.verify(path, storage_id)
+                reader = _Reader(storage_id)
+                loaded = torch.load(state_file, map_location="cpu",
+                                    mmap=True, weights_only=False)
+                reader.bytes = os.path.getsize(state_file)
+            else:
+                # The small files whole; the rank files' pieces are
+                # checked as they are read.
+                small = [_METADATA_FILE, _SHARDS_FILE, _TREE_FILE]
+                _integrity.verify(path, storage_id, checksummed=small)
+                try:
+                    with open(state_file) as f:
+                        shards = json.load(f)
+                    loaded = torch.load(os.path.join(path, _TREE_FILE),
+                                        map_location="cpu",
+                                        weights_only=False)
+                except Exception as e:
+                    raise CorruptCheckpoint(storage_id, f"unreadable state: "
+                                            f"{e}") from e
+                reader = _Reader(storage_id, path, shards)
+                reader.bytes = sum(os.path.getsize(os.path.join(path, rel))
+                                   for rel in small
+                                   if os.path.exists(os.path.join(path, rel)))
+            out = fn(loaded, reader)
+            self.last_restore_bytes = reader.bytes
+            return out
 
-    def restore_state(self, storage_id: str, template: Any) -> Any:
-        """Read checkpoint `storage_id` back in the structure, devices and
-        dtypes of `template` (e.g. a freshly initialised TrainState).
-        Raises as `verify` does."""
-        return _like(template, self._load(storage_id))
+    def restore_state(self, storage_id: str, template: Any,
+                      into: bool = False) -> Any:
+        """Read checkpoint `storage_id` back in the structure, devices,
+        dtypes and layout of `template` (e.g. a freshly initialised
+        TrainState, or its `checkpoint_view`): a DTensor leaf of the
+        template gets this rank's piece, read from the pieces that overlap
+        it. `into`: written into the template's own tensors (a template
+        made with `torch.empty` for the purpose). Raises as `verify` does."""
+        return self._read(storage_id,
+                          lambda loaded, reader: _fill(template, loaded,
+                                                       reader, into))
+
+    def abstract_state(self, storage_id: str) -> Any:
+        """The saved tree of checkpoint `storage_id` with each tensor as a
+        meta tensor of its global shape and dtype, read from its structure
+        alone (no tensor data): what a template for it is built from.
+        Raises FileNotFoundError, or CorruptCheckpoint for a state that
+        does not load."""
+        with self._storage.restore_path(storage_id) as path:
+            state_file = self._state_file(path, storage_id)
+            try:
+                if not state_file.endswith(_SHARDS_FILE):
+                    return _abstract(torch.load(
+                        state_file, map_location="cpu", mmap=True,
+                        weights_only=False), {})
+                with open(state_file) as f:
+                    leaves = json.load(f)["leaves"]
+                return _abstract(torch.load(
+                    os.path.join(path, _TREE_FILE), map_location="cpu",
+                    mmap=True, weights_only=False), leaves)
+            except Exception as e:
+                raise CorruptCheckpoint(storage_id, f"unreadable state: {e}"
+                                        ) from e
 
     def restore_params(self, storage_id: str) -> Any:
-        """The `params` subtree of checkpoint `storage_id` as saved (CPU
-        tensors), without a template: what a serve replica restores, having
-        no optimizer to build a TrainState from. Raises as `verify` does,
-        and ValueError for a checkpoint without params."""
-        loaded = self._load(storage_id)
-        params = loaded.get("params") if isinstance(loaded, dict) else None
+        """The `params` subtree of checkpoint `storage_id` (CPU tensors,
+        whole and in the one-process layout, whichever format it was
+        written in), without a template: what a serve replica restores,
+        having no optimizer to build a TrainState from. Raises as `verify`
+        does, and ValueError for a checkpoint without params."""
+        def params_of(loaded, reader):
+            params = loaded.get("params") if isinstance(loaded, dict) \
+                else None
+            return None if params is None else _assemble(params, reader)
+
+        params = self._read(storage_id, params_of)
         if params is None:
             raise ValueError(
                 f"checkpoint {storage_id} has no 'params' subtree — not a "

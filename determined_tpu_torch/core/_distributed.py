@@ -19,8 +19,15 @@ Transports:
 Topology: PyTorch on GPUs runs one process per device (JAX one per host,
 owning every local chip), so `rank` and `size` count devices here:
   rank        — this process's index in the run (torch.distributed rank)
-  size        — number of processes (the world size)
+  size        — number of processes that train: the world size, or the
+                prefix of it an elastic run trains over (`resize`)
   local_rank  — this process's index on its host (selects its device)
+
+`resize(n)` narrows or widens the context in place to the ranks 0..n-1:
+every holder (the checkpoint, preemption, searcher and train contexts,
+`TrialContext.distributed`) sees the new `size`, and the control plane
+moves to a gloo group over those ranks. A rank at or past `size` stands
+by (`active` False) and takes part in no collective of the context.
 """
 
 from __future__ import annotations
@@ -141,10 +148,49 @@ class DistributedContext:
     backend: Optional[str] = None  # the data plane's: nccl | gloo
     initialized_process_group: bool = False
     transport: Optional[Any] = None  # byte-level collectives (size>1 only)
+    # The world's control plane, kept while `resize` narrows the context.
+    _world_transport: Optional[Any] = dataclasses.field(default=None,
+                                                        repr=False)
 
     @property
     def is_chief(self) -> bool:
         return self.rank == 0
+
+    @property
+    def active(self) -> bool:
+        """False on a rank an elastic run keeps standing by (`resize`)."""
+        return self.rank < self.size
+
+    def resize(self, size: int) -> None:
+        """Narrow or widen this context, in place, to the ranks 0..size-1
+        of the process group's world: `size` becomes `size`, and the
+        control plane a gloo group over those ranks (the world's own,
+        kept from bring-up, when `size` is the whole world). The group is
+        made with `new_group`, collective over the whole world: every
+        rank, standing by or not, calls this with the same `size` in the
+        same order. The narrowed group it leaves is destroyed."""
+        import torch.distributed as dist
+
+        if not self.initialized_process_group:
+            raise RuntimeError("resize needs the process group this context "
+                               "formed (from_allocation / from_env)")
+        world = dist.get_world_size()
+        if not 1 <= size <= world:
+            raise ValueError(f"resize to {size} ranks in a world of {world}")
+        if size == self.size:
+            return
+        if self._world_transport is None:
+            self._world_transport = self.transport
+        old = self.transport
+        if size == world:
+            self.transport = self._world_transport
+        else:
+            group = dist.new_group(ranks=list(range(size)), backend="gloo")
+            self.transport = _GlooTransport(group) if self.rank < size \
+                else None
+        if old is not None and old is not self._world_transport:
+            dist.destroy_process_group(old._group)
+        self.size = size
 
     # -- constructors -------------------------------------------------
 

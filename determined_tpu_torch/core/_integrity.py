@@ -119,10 +119,25 @@ def build_manifest(path: str, checksums: bool = True) -> Dict:
     return {"version": 1, "files": files}
 
 
-def write_manifest(path: str) -> Dict:
+def file_entries(path: str, rels) -> Dict[str, Dict]:
+    """rel -> {size, sha256} for the files `rels` under `path`: a rank's
+    own share of a manifest that the chief merges (a sharded
+    checkpoint's rank files)."""
+    out: Dict[str, Dict] = {}
+    for rel in rels:
+        full = os.path.join(path, rel)
+        out[rel] = {"size": os.path.getsize(full), "sha256": _sha256(full)}
+    return out
+
+
+def write_manifest(path: str, files: Optional[Dict[str, Dict]] = None
+                   ) -> Dict:
     """Checksum every file under `path` into manifest.json (atomic) and
-    return the manifest. A manifest without a COMMIT is still PARTIAL."""
-    manifest = build_manifest(path)
+    return the manifest; or, given `files` (rel -> entry, as
+    `file_entries` makes them), record those. A manifest without a COMMIT
+    is still PARTIAL."""
+    manifest = build_manifest(path) if files is None else \
+        {"version": 1, "files": dict(sorted(files.items()))}
     _atomic_write(
         os.path.join(path, MANIFEST_FILE),
         json.dumps(manifest, sort_keys=True).encode(),
@@ -163,12 +178,15 @@ def commit(path: str, storage_id: str, manifest: Dict) -> None:
     )
 
 
-def verify(path: str, storage_id: str) -> bool:
+def verify(path: str, storage_id: str, checksummed=None) -> bool:
     """Verify a local checkpoint directory against its manifest.
 
     Returns True when verified, False for legacy checkpoints (written
     before the protocol existed — no manifest AND no COMMIT). Raises
-    CorruptCheckpoint on any integrity failure.
+    CorruptCheckpoint on any integrity failure. `checksummed`: the files
+    whose sha256 is checked (every file by default); the others are held
+    to their presence and size (a sharded checkpoint's rank files, whose
+    pieces the reader checks one by one).
     """
     manifest_path = os.path.join(path, MANIFEST_FILE)
     commit_path = os.path.join(path, COMMIT_FILE)
@@ -191,13 +209,14 @@ def verify(path: str, storage_id: str) -> bool:
             manifest = json.load(f)
     except (OSError, ValueError) as e:
         raise CorruptCheckpoint(storage_id, f"unreadable manifest: {e}")
-    verify_against_manifest(path, manifest, storage_id)
+    verify_against_manifest(path, manifest, storage_id, checksummed)
     return True
 
 
-def verify_against_manifest(path: str, manifest: Dict,
-                            storage_id: str) -> None:
-    """Check every manifest entry: present, right size, right sha256."""
+def verify_against_manifest(path: str, manifest: Dict, storage_id: str,
+                            checksummed=None) -> None:
+    """Check every manifest entry: present, right size, and right sha256
+    (of the entries in `checksummed`, or all of them)."""
     files = manifest.get("files")
     if not isinstance(files, dict):
         raise CorruptCheckpoint(storage_id, "manifest has no file table")
@@ -211,6 +230,8 @@ def verify_against_manifest(path: str, manifest: Dict,
                 storage_id, f"size mismatch for {rel!r}: manifest says "
                 f"{entry.get('size')}, found {size}")
         want = entry.get("sha256")
+        if checksummed is not None and rel not in checksummed:
+            continue
         if want and _sha256(full) != want:
             raise CorruptCheckpoint(storage_id,
                                     f"checksum mismatch for {rel!r}")

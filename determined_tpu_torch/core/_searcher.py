@@ -81,20 +81,24 @@ class SearcherContext:
             body={"length": op.length, "searcher_metric": float(metric)},
             idempotent=True)
 
-    def operations(self, auto_ack: bool = True
+    def operations(self, auto_ack: bool = True, after: int = 0
                    ) -> Iterator[SearcherOperation]:
         """Yield ops until the searcher closes the trial (`done`) or has
         none for it (`idle`). Several processes: the chief asks the master
-        and broadcasts each length (-1: stop) to the others."""
+        and broadcasts each length (-1: stop) to the others. `after`: the
+        length of an op the caller already holds (a rank an elastic
+        resize takes in mid-op, handed the op by the chief): only the ops
+        after it."""
         if self._session is None:
             length = self._local_max_length
             if length is None:
                 raise RuntimeError(
                     "local mode needs local_max_length (pass max_length to "
                     "init())")
-            yield SearcherOperation(self, length)
+            if length > after:
+                yield SearcherOperation(self, length)
             return
-        last_length = 0
+        last_length = after
         while True:
             length = -1
             if self._dist is None or self._dist.is_chief:

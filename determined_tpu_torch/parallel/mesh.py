@@ -158,23 +158,58 @@ def axis_group(mesh, axis: str) -> Optional[AxisGroup]:
     return AxisGroup(mesh.get_group(i), mesh.size(i), mesh.get_local_rank(i))
 
 
+# The meshes made over the current default process group, by (ranks,
+# shape, device type), each beside the group it was made over.
+_MESHES: dict = {}
+
+
 def create_mesh(config: Optional[MeshConfig] = None,
-                device_type: str = "cuda"):
-    """A `DeviceMesh` over every rank of the default process group, with
-    the axis names and order of `AXIS_ORDER` and the sizes `config`
-    resolves to over the world size. The process group must exist
-    (`core.init()` makes it from the launcher's environment); each rank
-    must have selected its device before this call."""
+                device_type: str = "cuda", ranks: Optional[int] = None):
+    """A `DeviceMesh` with the axis names and order of `AXIS_ORDER` and
+    the sizes `config` resolves to, over the first `ranks` ranks of the
+    default process group (all of them by default). The process group
+    must exist (`core.init()` makes it from the launcher's environment);
+    each rank must have selected its device before this call.
+
+    A mesh over a prefix is how an elastic run shrinks or grows in
+    process (train/trainer.py): the ranks past the prefix stand by. A
+    mesh's groups are made with `new_group`, which is collective over the
+    whole default group, so EVERY rank of the world, in the mesh or not,
+    must call this with the same arguments, in the same order; a rank
+    outside the prefix gets a mesh whose `get_coordinate()` is None.
+
+    The mesh of a given prefix and shape is made once per default group
+    and handed out again after: a run that shrinks and grows back reuses
+    its groups, so no resize adds communicators. None is destroyed while
+    the group lives: DTensor's sharding cache compares meshes by their
+    ranks, shape and names, and may hand an op the equal mesh of an
+    earlier generation."""
+    import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError(
             "create_mesh needs the default process group; core.init() "
             "makes it from RANK/WORLD_SIZE/MASTER_ADDR (the launcher's "
             "environment) or a multi-host rendezvous")
-    shape = mesh_shape_for_devices(dist.get_world_size(), config)
-    return init_device_mesh(device_type, shape, mesh_dim_names=AXIS_ORDER)
+    world = dist.get_world_size()
+    n = world if ranks is None else int(ranks)
+    if not 1 <= n <= world:
+        raise ValueError(f"a mesh over {n} ranks in a world of {world}")
+    shape = mesh_shape_for_devices(n, config)
+    default = dist.distributed_c10d._get_default_group()
+    key = (n, shape, device_type)
+    made = _MESHES.get(key)
+    if made is not None and made[0] is default:
+        return made[1]
+    if n == world:
+        mesh = init_device_mesh(device_type, shape, mesh_dim_names=AXIS_ORDER)
+    else:
+        mesh = DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                          mesh_dim_names=AXIS_ORDER)
+    _MESHES[key] = (default, mesh)
+    return mesh
 
 
 def single_device_mesh(device_type: str = "cuda"):

@@ -345,3 +345,34 @@ def shard_mesh_dims(p) -> Tuple[int, ...]:
     mesh = p.device_mesh
     return tuple(i for i, pl in enumerate(p.placements)
                  if pl.is_shard() and mesh.size(i) > 1)
+
+
+def region(shape: Sequence[int], mesh_shape: Sequence[int], placements,
+           coord: Sequence[int]) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(offsets, sizes) of the piece of a tensor of `shape` that the mesh
+    coordinate `coord` holds under `placements`, cut as `distribute_full`
+    cuts it: `torch.chunk` per sharded mesh dim, in mesh-dim order."""
+    offsets, sizes = [0] * len(shape), list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard() and mesh_shape[i] > 1:
+            d, n = p.dim, sizes[p.dim]
+            step = -(-n // mesh_shape[i])
+            start = min(coord[i] * step, n)
+            offsets[d] += start
+            sizes[d] = min(step, n - start)
+    return tuple(offsets), tuple(sizes)
+
+
+def regions(p) -> list:
+    """[(rank, offsets, sizes)] of every rank of a DTensor leaf's mesh, in
+    the order of its ranks: which piece of the leaf (in the layout it is
+    kept in) each rank holds."""
+    import numpy as np
+
+    mesh = p.device_mesh
+    ranks = mesh.mesh.cpu().numpy()
+    out = []
+    for coord in np.ndindex(ranks.shape):
+        offsets, sizes = region(p.shape, ranks.shape, p.placements, coord)
+        out.append((int(ranks[coord]), offsets, sizes))
+    return sorted(out)

@@ -157,7 +157,9 @@ def _trial_id_for(serving: Dict[str, Any]) -> int:
 def _restore(ckpt: str, storage, trial_id: int) -> Dict[str, Any]:
     """Params from a `.npz` file, or from checkpoint `ckpt` (an id or
     "latest") of trial `trial_id`'s lineage in `storage` (a storage
-    manager). An id names its own trial."""
+    manager): a one-process checkpoint's, or a per-rank one's assembled
+    whole (`CheckpointContext.restore_params`). An id names its own
+    trial."""
     from determined_tpu_torch.core._checkpoint import (
         _STATE_ID_RE, CheckpointContext)
     from determined_tpu_torch.models.gpt2 import load_params_npz

@@ -59,13 +59,15 @@ class CloudStorageManager(StorageManager):
 
     @contextlib.contextmanager
     def restore_path(self, storage_id: str) -> Iterator[str]:
-        """Download into a FRESH staging dir (stale/partial staging from an
-        earlier save on this host must never shadow the bucket), raise
-        FileNotFoundError like the base class when the id doesn't exist, and
-        clean staging up afterwards."""
-        path = self.path_for(storage_id)
-        shutil.rmtree(path, ignore_errors=True)
-        os.makedirs(path, exist_ok=True)
+        """Download into a FRESH staging dir of this call's own (stale or
+        partial staging from an earlier save on this host must never
+        shadow the bucket, and the ranks of a run on one host restore the
+        same checkpoint side by side), raise FileNotFoundError like the
+        base class when the id doesn't exist, and clean staging up
+        afterwards."""
+        os.makedirs(self.base_path, exist_ok=True)
+        path = tempfile.mkdtemp(prefix=f"{storage_id}.restore.",
+                                dir=self.base_path)
         try:
             self.download(storage_id, path)
             if not os.listdir(path):

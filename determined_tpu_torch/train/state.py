@@ -15,18 +15,30 @@ on the fsdp axis and replicated over data (and over expert, but for an
 MoE model's expert leaves, `Shard` along their expert dim there). The optimizer works on the
 local tensors (`LocalShards`), so its moments are local shards that
 mirror their leaves (`_mirrors` says which leaf each mirrors).
-Checkpoints hold the full state (`unshard_state`, a collective): a run
-with fsdp=2 writes what a one-process run writes, and either restores
-the other's (`reshard_state`, no collective).
+`unshard_state` gathers the full state (a collective), as a one-process
+run holds it.
+
+Checkpoints are per rank (core/_checkpoint.py): `checkpoint_view` shows
+each moment that mirrors a sharded leaf as a DTensor laid out as its leaf
+(the same memory), so each rank writes its pieces of the params and of
+the moments, and a restore into a view of a state of any width reads the
+pieces its own layout overlaps; `from_checkpoint_view` takes the moments
+back to local tensors. An elastic resize restores into
+`empty_train_state`: built from the checkpoint's structure
+(`CheckpointContext.abstract_state`, meta tensors) with `torch.empty` for
+each local shard of the new mesh and the optimizer's `init` over them,
+without calling the trial's `init_params` (the JAX package's
+`abstract_train_state`).
 
 Over a `tensor` axis a leaf whose logical axes name a `Fused` dim (GPT-2's
 qkv kernel and bias: q, k and v side by side) is kept in the tensor
 layout (`parallel/sharding.fused_layout`): the DTensor's value has that
 dim's pieces interleaved by split, so each rank's contiguous slice holds
 the q, k and v of its own heads, and so do the moments that mirror it.
-The leaf records its layout; `unshard_state` and `reshard_state` convert
-to and from the one-process layout through `sharding.full_value` and
-`sharding.distribute_full`, so checkpoints keep it.
+The leaf records its layout; `unshard_state` converts to the one-process
+layout through `sharding.full_value`, and a checkpoint records the layout
+its pieces were written in, so a restore at another tensor width converts
+them.
 """
 
 from __future__ import annotations
@@ -258,69 +270,97 @@ def gathered(params: Any) -> Any:
     return sharding.full_value(params)
 
 
-def reshard_state(full: TrainState, like: TrainState) -> TrainState:
-    """`full` (plain tensors, the same on every rank: a checkpoint read)
-    laid out as `like`: each leaf of a sharded `like` becomes this rank's
-    piece of the full leaf, each moment that mirrors it likewise. No
-    collective. Leaves of `like` that are plain tensors are taken as they
-    are."""
-    from torch.distributed.tensor import DTensor
-
-    like_leaves = like.leaves()
-    full_leaves = full.leaves()
-    like_locals = [sharding.local_value(p) for p in like_leaves]
-    full_locals = [p.detach() for p in full_leaves]
-    params = []
-    for p, f in zip(like_leaves, full_leaves):
-        if isinstance(p, DTensor):
-            d = sharding.distribute_full(f.detach(), p.device_mesh,
-                                         p.placements, sharding.layout_of(p))
-            params.append(d.requires_grad_(p.requires_grad))
-        else:
-            params.append(f)
-    opt_like = list(_mirrors(like.opt_state, like_locals))
-    full_idx = {id(t): i for t, i in _mirrors(full.opt_state, full_locals)}
-
-    def moment(t, i):
-        if i is None:
-            return t
-        p = like_leaves[i]
-        if not isinstance(p, DTensor):
-            return t
-        return sharding.distribute_full(t, p.device_mesh, p.placements,
-                                        sharding.layout_of(p))._local_tensor
-
-    if len(opt_like) != len(full_idx):
-        raise ValueError("checkpoint and state optimizer structures differ")
-    return TrainState(step=full.step, params=_rebuild(like.params, params),
-                      opt_state=_map_opt(full.opt_state, full_locals, moment),
-                      extra=full.extra)
-
-
-def full_template(state: TrainState) -> TrainState:
-    """A state with `state`'s structure, devices, dtypes and requires_grad,
-    whose tensors have the full shapes of the leaves (uninitialised): the
-    template a sharded state restores a checkpoint into."""
+def checkpoint_view(state: TrainState) -> TrainState:
+    """`state` as a checkpoint writes and a restore reads it: each moment
+    that mirrors a DTensor leaf shown as a DTensor with the leaf's mesh,
+    placements and fused layout over the same memory (no copy, no
+    collective), so the moments are written and read per rank as their
+    leaves are. A state without DTensor leaves is returned as it is."""
     from torch.distributed.tensor import DTensor
 
     leaves = state.leaves()
+    if not any(isinstance(p, DTensor) for p in leaves):
+        return state
     locals_ = [sharding.local_value(p) for p in leaves]
-
-    def empty(t, shape):
-        return torch.empty(shape, dtype=t.dtype, device=t.device
-                           ).requires_grad_(t.requires_grad)
-
-    params = _rebuild(state.params, [
-        empty(sharding.local_value(p), p.shape).requires_grad_(
-            p.requires_grad) for p in leaves])
 
     def moment(t, i):
         p = leaves[i] if i is not None else None
-        return empty(t, p.shape) if isinstance(p, DTensor) else t
+        if not isinstance(p, DTensor):
+            return t
+        d = DTensor.from_local(t, p.device_mesh, p.placements,
+                               run_check=False, shape=p.shape,
+                               stride=p.stride())
+        d.fused_layout = sharding.layout_of(p)
+        return d
 
-    return TrainState(step=state.step, params=params,
+    return TrainState(step=state.step, params=state.params,
                       opt_state=_map_opt(state.opt_state, locals_, moment),
                       extra=state.extra)
+
+
+def from_checkpoint_view(state: TrainState) -> TrainState:
+    """The inverse of `checkpoint_view`: the moments as local tensors."""
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return sharding.local_value(node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return TrainState(step=state.step, params=state.params,
+                      opt_state=walk(state.opt_state), extra=state.extra)
+
+
+def empty_train_state(abstract: Any, tx: optim.GradientTransformation,
+                      device: Any, mesh: Any = None,
+                      param_logical_axes: Optional[Any] = None,
+                      rules: Optional[LogicalRules] = None) -> TrainState:
+    """A template to restore into, built from a checkpoint's structure
+    (`abstract`: `CheckpointContext.abstract_state`, the saved tree of
+    meta tensors) without the trial's `init_params`: each param leaf laid
+    out over `mesh` as `create_train_state` lays it (the placements of
+    `aligned_param_specs`, a `Fused` dim in the tensor layout), with
+    `torch.empty` for this rank's shard on `device`; the optimizer state
+    `tx.init` builds over the shards; `extra` empty likewise."""
+    from torch.distributed.tensor import DTensor
+
+    device = torch.device(device)
+    params = abstract["params"]
+    leaves = param_leaves(params)
+    if mesh is not None and mesh.size() > 1:
+        specs = aligned_param_specs(params, param_logical_axes or {}, rules)
+        flat_specs = _flatten(specs) if isinstance(specs, dict) else \
+            {"0": specs}
+        coord = mesh.get_coordinate()
+        shards = []
+        for path, p in zip(flat_specs, leaves):
+            placements = sharding.mesh_placements(flat_specs[path], mesh)
+            axes = _lookup_axes(param_logical_axes or {}, path) \
+                if isinstance(params, dict) else None
+            _, sizes = sharding.region(p.shape, tuple(mesh.mesh.shape),
+                                       placements, coord)
+            d = DTensor.from_local(
+                torch.empty(sizes, dtype=p.dtype, device=device), mesh,
+                placements, run_check=False, shape=p.shape,
+                stride=p.stride())
+            d.fused_layout = sharding.fused_layout(axes, placements, mesh)
+            shards.append(d)
+    else:
+        shards = [torch.empty(p.shape, dtype=p.dtype, device=device)
+                  for p in leaves]
+    params = _rebuild(params, shards)
+    for p in shards:
+        p.requires_grad_(True)
+    extra = abstract.get("extra")
+    if extra is not None:
+        extra = _map_tensors(extra, lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device=device))
+    return TrainState(step=0, params=params,
+                      opt_state=tx.init([sharding.local_value(p)
+                                         for p in shards]),
+                      extra=extra)
 
 
 def _rebuild(params: Any, leaves: List[torch.Tensor]) -> Any:

@@ -81,14 +81,22 @@ def _sharded_sq_sum(leaves: List[Any]):
     return sq_sum
 
 
-def global_mean(values: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The mean over every rank of each fp32 scalar (one all-reduce over
-    the default group)."""
+def global_mean(values: List[torch.Tensor], mesh=None) -> List[torch.Tensor]:
+    """The mean over every rank of `mesh` of each fp32 scalar: one
+    all-reduce over each of its dims above 1 (the mesh may span a prefix
+    of the world, an elastic run's, whose other ranks stand by); without
+    a mesh, one over the default group."""
     import torch.distributed as dist
 
     t = torch.stack([v.detach().float().reshape(()) for v in values])
-    dist.all_reduce(t)
-    t /= dist.get_world_size()
+    if mesh is None:
+        dist.all_reduce(t)
+        t /= dist.get_world_size()
+        return list(t.unbind(0))
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(t, group=mesh.get_group(i))
+    t /= mesh.size()
     return list(t.unbind(0))
 
 
@@ -116,7 +124,8 @@ def _step_fn(loss_fn: LossFn, tx: optim.GradientTransformation,
                     _sharded_sq_sum(params))
                 keys = [k for k, v in aux.items()
                         if isinstance(v, torch.Tensor)]
-                loss, *vals = global_mean([loss] + [aux[k] for k in keys])
+                loss, *vals = global_mean([loss] + [aux[k] for k in keys],
+                                           mesh)
                 aux.update(zip(keys, vals))
             gnorm = optim.global_norm(grads)
             # Divergence sentinel (train/health.py): grad_norm reduces over

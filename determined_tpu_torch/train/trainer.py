@@ -28,9 +28,9 @@ context or tensor group hold the same rows; the model splits a row's
 sequence over `context` and its heads, FFN and vocab over `tensor`,
 models/gpt2.py), the params are sharded by their logical axes
 (train/state.py; an MoE model's experts over `expert`, ops/moe.py), the
-step's metrics are the global means, and a checkpoint holds the full
-state (the chief gathers it) in the one-process format, so a run of any
-width restores it. `expert` above 1 is refused for a trial that does not
+step's metrics are the global means over the mesh, and each rank writes
+its own pieces of a checkpoint (core/_checkpoint.py), which a run of any
+width restores, reading only the pieces its own overlap. `expert` above 1 is refused for a trial that does not
 declare `supports_expert_parallel()` (it would replicate the FFN's work
 across the group). `pipeline` above 1 selects the trial's
 `loss_pipelined` (GPipe, parallel/pipeline.py: the ranks of a pipeline
@@ -44,19 +44,39 @@ Trainer's "first executable acquisition": here, the hand-written kernels
 built with nvcc at their first launch (or loaded from build/kernels) and
 the step's first eager run on the host.
 
+Elastic resize (docs/elasticity-torch.md): `slots` is the counterpart
+of the JAX Trainer's `devices`, the number of the world's ranks the mesh
+starts over. The others stand by inside `fit`, outside the mesh, until a
+resize takes them in or the run ends (`fit` then returns None on them).
+A preemption that carries a resize target this world can serve
+(`_can_resize_in_process`: local mode, another size, within the world,
+a size the mesh config resolves over) is served in process: a
+deadline-budgeted COMPLETED checkpoint (or the newest in the lineage),
+then on every rank of the world the distributed context and the mesh
+narrowed or widened to the first `target` ranks, the steps rebuilt, the
+state restored into a template built from the checkpoint (no
+`init_params`), the training stream rebuilt from the trial for the new
+width and advanced past the batches already consumed, the preemption
+watcher re-armed; `harness.resize.downtime` wraps it all,
+`harness.reshard` the re-mesh and restore (`harness.restore` nests in
+it), and the chief reports `resize_from_slots`, `resize_target_slots`
+and `resize_downtime_ms`. A resize it cannot serve takes the
+preemption checkpoint path and exits, as in cluster mode.
+
 Not ported (ROADMAP.md): the compile farm and batch-size bucketing
 (`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
-nothing here) and elastic resize in process (item 8): a resize signal
-takes the preemption checkpoint path, as the JAX Trainer does in cluster
-mode.
+nothing here).
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import logging
+import math
 import os
 import time
-from typing import Any, Dict, Iterator, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -65,6 +85,7 @@ from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.common import faultpoint, trace
 from determined_tpu_torch.data.prefetch import DevicePrefetcher, PrefetchConfig
+from determined_tpu_torch.core._searcher import SearcherOperation
 from determined_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 from determined_tpu_torch.train import state as state_mod
 from determined_tpu_torch.train.health import (
@@ -126,13 +147,23 @@ def _to_host(metrics: Dict[str, Any]) -> Dict[str, Any]:
     return host
 
 
+# Each rank counts its fits: the ranks of a world call `fit` alike, so a
+# count names one fit's elastic generations on the shared store.
+_FITS = itertools.count()
+
+
 class Trainer:
     def __init__(self, trial: TorchTrial,
                  core_context: Optional[core_mod.Context] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 slots: Optional[int] = None):
         self.trial = trial
         self.core = core_context
         self.device = resolve_device(device)
+        # The counterpart of the JAX Trainer's `devices`: how many of the
+        # world's ranks the mesh starts over (all of them by default). The
+        # others stand by inside `fit` until a resize takes them in.
+        self._slots = slots
         self.mesh_config = self._check_mesh_support()
         self.mesh = None  # the DeviceMesh, built with the state (_build)
         self.state: Optional[TrainState] = None
@@ -145,6 +176,20 @@ class Trainer:
         self._preempt_period = 0
         self._watchdog: Optional[StepWatchdog] = None
         self._rollbacks = 0
+        self._seed = 0
+        self._profile = False
+        # Batches the loop has taken from the training stream, rollback
+        # skips included: where a stream rebuilt at a resize resumes.
+        self._consumed = 0
+        self._fit_id = 0
+        self._generation = 0
+        # What each resize cost this rank, by part, in ms (checkpoint,
+        # groups, template, restore, stream, and first_step: to the first
+        # metrics flush after it), with the bytes its restore read: the
+        # measurement of `resize_downtime_ms`'s parts. `_parts` is the
+        # newest one's while it is being filled.
+        self.resize_parts: List[Dict[str, float]] = []
+        self._parts: Optional[Dict[str, float]] = None
 
     # -- setup ---------------------------------------------------------
 
@@ -168,25 +213,30 @@ class Trainer:
                 "environment; DistributedContext.for_test has none)")
         return 1
 
-    def _check_mesh_support(self) -> MeshConfig:
+    def _check_mesh_support(self, size: Optional[int] = None) -> MeshConfig:
         """Config checks before any state exists (a misconfigured mesh
         fails in milliseconds, not after sharding a large model): the mesh
-        must resolve over the world size; `pipeline` above 1 only for a
-        stateless trial with `loss_pipelined` (the JAX Trainer's checks);
-        `expert` only for a trial whose model routes over it (the others
-        are refused, not run replicated); and none of `tensor`, `context`
-        and `expert` for a trial whose model computes over the batch axes
-        only (`supports_model_parallel()` False; refused as asked, before
-        the mesh resolves, and again after)."""
+        must resolve over `size` ranks (the slots asked for, by default
+        the world); `pipeline` above 1 only for a stateless trial with
+        `loss_pipelined` (the JAX Trainer's checks); `expert` only for a
+        trial whose model routes over it (the others are refused, not run
+        replicated); and none of `tensor`, `context` and `expert` for a
+        trial whose model computes over the batch axes only
+        (`supports_model_parallel()` False; refused as asked, before the
+        mesh resolves, and again after)."""
         cfg = self.trial.mesh_config()
         if not self.trial.supports_model_parallel():
             self._refuse_model_axes(cfg)
         world = self._world_size()
+        if size is None:
+            size = world if self._slots is None else int(self._slots)
+        if not 1 <= size <= world:
+            raise ValueError(f"slots={size} in a world of {world} processes")
         try:
-            cfg = cfg.resolve(world)
+            cfg = cfg.resolve(size)
         except ValueError as e:
-            where = "one device (one process)" if world == 1 else \
-                f"{world} processes, one device each"
+            where = "one device (one process)" if size == 1 else \
+                f"{size} processes, one device each"
             raise ValueError(
                 f"{type(self.trial).__name__}: {e}; this run has {where}; "
                 "the launcher starts one process per device "
@@ -236,6 +286,10 @@ class Trainer:
             self.core.searcher._local_max_length = max_length
         return self.core
 
+    def _active(self) -> bool:
+        """False on a rank standing by outside the mesh."""
+        return self.core is None or self.core.distributed.active
+
     def _build(self, seed: int) -> None:
         import torch.distributed as dist
 
@@ -244,14 +298,27 @@ class Trainer:
         # since __init__ checked.
         self.mesh_config = self._check_mesh_support()
         if dist.is_initialized() and self.mesh is None:
-            self.mesh = create_mesh(self.mesh_config, self.device.type)
-        tx = self._tx = trial.optimizer()
+            size = math.prod(self.mesh_config.sizes())
+            if size != self.core.distributed.size:
+                # Every rank of the world, standing by or not.
+                self.core.distributed.resize(size)
+            self.mesh = create_mesh(self.mesh_config, self.device.type,
+                                    ranks=size)
+        self._tx = trial.optimizer()
+        if not self._active():
+            return
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.state = create_train_state(
-            trial.init_params, tx, gen, device=self.device,
+            trial.init_params, self._tx, gen, device=self.device,
             extra=trial.init_extra(), mesh=self.mesh,
             param_logical_axes=trial.param_logical_axes(),
             rules=trial.sharding_rules())
+        self._build_steps()
+
+    def _build_steps(self) -> None:
+        """The train and eval steps over the current mesh (the pipelined
+        loss and eval close over it): built again at a resize."""
+        trial, tx = self.trial, self._tx
         loss, evaluate = trial.loss, trial.evaluate
         has_eval = type(trial).evaluate is not TorchTrial.evaluate
         if self.mesh_config.pipeline > 1:
@@ -279,6 +346,21 @@ class Trainer:
         self._eval_step = (make_eval_step(evaluate, stateful=trial.stateful)
                            if has_eval else None)
 
+    def _stream(self):
+        """(batches on the device, the prefetcher or None): the trial's
+        training data from its start, advanced past the batches the loop
+        has consumed (the loader must be deterministic from its start), so
+        a stream rebuilt at a resize, for a width whose rows differ, goes
+        on at the same global batch."""
+        data_iter: Iterator[Any] = _repeat(self.trial.build_training_data)
+        for _ in range(self._consumed):
+            next(data_iter)
+        if not self._pf_cfg.enabled:
+            return (_to_device(b, self.device) for b in data_iter), None
+        prefetcher = DevicePrefetcher(data_iter, self.device,
+                                      depth=self._pf_cfg.depth, name="train")
+        return prefetcher, prefetcher
+
     # -- the loop --------------------------------------------------------
 
     def fit(
@@ -291,8 +373,10 @@ class Trainer:
         seed: int = 0,
         profile: bool = False,
         resume_from: Optional[str] = None,
-    ) -> TrainState:
-        """Train through all searcher operations; returns the final state.
+    ) -> Optional[TrainState]:
+        """Train through all searcher operations; returns the final state,
+        or None on a rank that ends the run standing by (`slots`, or a
+        shrink: it holds no state).
 
         Lengths are in steps (batches). validation/checkpoint_period of 0 =
         only at op boundaries. `preempt_period` is the preemption-poll
@@ -300,37 +384,62 @@ class Trainer:
         first (falling back through the lineage when it is missing or
         corrupt).
         """
+        import torch.distributed as dist
+
         core = self._ensure_core(max_length)
-        seed = core.trial_seed or seed
+        seed = self._seed = core.trial_seed or seed
+        self._fit_id, self._generation, self._consumed = next(_FITS), 0, 0
+        self._profile = profile
         self._build(seed)
-        assert self.state is not None
-
-        resume_from = resume_from or core.latest_checkpoint
-        if resume_from:
-            self._restore(resume_from)
-        if profile:
-            core.profiler.set_flops_per_step(
-                self.trial.flops_per_step(),
-                n_devices=self.mesh.size() if self.mesh is not None else 1)
-            core.profiler.on()
-
         expconf = _expconf(core)
         self._pf_cfg = PrefetchConfig.resolve(self.trial, expconf)
-        health = self._health_cfg = HealthConfig.resolve(self.trial, expconf)
+        self._health_cfg = HealthConfig.resolve(self.trial, expconf)
         self._preempt_cfg = PreemptionConfig.resolve(self.trial, expconf)
         self._rollbacks = 0
-        data_iter: Iterator[Any] = _repeat(self.trial.build_training_data)
-        prefetcher: Optional[DevicePrefetcher] = None
-        if self._pf_cfg.enabled:
-            prefetcher = DevicePrefetcher(data_iter, self.device,
-                                          depth=self._pf_cfg.depth,
-                                          name="train")
-            data_iter = prefetcher
-        else:
-            data_iter = (_to_device(b, self.device) for b in data_iter)
+        self._preempt_period = max(1, preempt_period)
+        periods = (validation_period, checkpoint_period, report_period)
+        try:
+            if self._active():
+                resume_from = resume_from or core.latest_checkpoint
+                if resume_from:
+                    self._restore(resume_from)
+                ops = core.searcher.operations()
+            else:
+                ops = self._stand_by(core)
+            if profile and ops is not None:
+                self._set_profiler_devices(core)
+                core.profiler.on()
+            while ops is not None and not self._train(core, ops, *periods):
+                ops = self._stand_by(core)  # a resize left this rank out
+            if ops is None:
+                return None
+        finally:
+            if dist.is_initialized() and core.distributed.is_chief:
+                # Wakes the ranks standing by: the run is over.
+                self._publish(core, {"end": True})
+        core.checkpoint.wait()
+        if profile:
+            core.profiler.off()
+        return self.state
+
+    def _set_profiler_devices(self, core) -> None:
+        core.profiler.set_flops_per_step(
+            self.trial.flops_per_step(),
+            n_devices=self.mesh.size() if self.mesh is not None else 1)
+
+    def _train(self, core, ops, validation_period: int,
+               checkpoint_period: int, report_period: int) -> bool:
+        """The loop over `ops` from the state's step. True when the run
+        ended (all ops, or a preemption); False when a resize left this
+        rank standing by."""
+        health = self._health_cfg
+        seed = self._seed
+        t0 = time.monotonic()
+        data_iter, prefetcher = self._stream()
+        t_resumed = self._note("stream", t0)
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         step = self.state.step
-        preempt_period = self._preempt_period = max(1, preempt_period)
+        preempt_period = self._preempt_period
         preempted = False
         last = None  # (step, device metrics) of the newest step
         last_validated = last_checkpointed = step
@@ -353,6 +462,10 @@ class Trainer:
                                            prefetcher)
             last, t_report, n_report = None, time.time(), 0
             watchdog.beat()
+            if self._parts is not None and host is not None:
+                self._note("first_step", t_resumed)
+                self.resize_parts.append(self._parts)
+                self._parts = None
             return host
 
         def diverged(host: Optional[Dict[str, Any]]) -> bool:
@@ -387,6 +500,7 @@ class Trainer:
             step = self.state.step
             for _ in range(health.rollback_window):
                 next(data_iter)
+                self._consumed += 1
             rng.manual_seed(seed + 1 + 1_000_003 * self._rollbacks)
             last_validated = last_checkpointed = step
             logger.warning(
@@ -400,7 +514,7 @@ class Trainer:
         first_call = True
         try:
             watchdog.start()
-            for op in core.searcher.operations():
+            for op in ops:
                 while True:
                     while step < op.length and not preempted:
                         # Chaos (docs/chaos.md): a delay-mode arm here
@@ -408,6 +522,7 @@ class Trainer:
                         # to catch.
                         faultpoint.fire("step.hang")
                         batch = next(data_iter)
+                        self._consumed += 1
                         t0_us = trace.now_us() if first_call else 0
                         self.state, metrics = self._train_step(
                             self.state, batch, rng)
@@ -447,6 +562,31 @@ class Trainer:
                     if diverged(host) and not preempted \
                             and handle_divergence():
                         continue  # step rewound below op.length
+                    if preempted:
+                        # Elastic resize (docs/elasticity-torch.md):
+                        # reshard in process and keep training instead of
+                        # checkpoint-and-exit, when this world can host
+                        # the target size itself.
+                        target = core.preempt.resize_target()
+                        if target is not None and \
+                                self._can_resize_in_process(target):
+                            if prefetcher is not None:
+                                # Its producer reads the loader, whose rows
+                                # follow the width about to change.
+                                prefetcher.close()
+                            if not self._resize_in_process(
+                                    core, target, step, last_checkpointed,
+                                    op):
+                                return False  # standing by
+                            t0 = time.monotonic()
+                            data_iter, prefetcher = self._stream()
+                            t_resumed = self._note("stream", t0)
+                            rng.manual_seed(seed + 1)
+                            step = last_validated = last_checkpointed = \
+                                self.state.step
+                            preempted, first_call = False, True
+                            watchdog.beat()
+                            continue  # resharded: keep training
                     break
 
                 if preempted:
@@ -470,16 +610,186 @@ class Trainer:
                               else float(self.state.step))
                     op.report_completed(metric)
         finally:
-            # Preemption, op ends and errors all pass here: the watchdog
-            # and the prefetch thread are joined, not orphaned.
+            # Preemption, op ends, resizes and errors all pass here: the
+            # watchdog and the prefetch thread are joined, not orphaned.
             watchdog.stop()
             if prefetcher is not None:
                 prefetcher.close()
+        return True
 
+    # -- elastic resize (docs/elasticity-torch.md) -----------------------
+
+    def _can_resize_in_process(self, target: int) -> bool:
+        """Whether this world can serve the resize by resharding in place
+        (the JAX Trainer's test). Cluster mode says no: the signal usually
+        means this node is going away, so the transition is master-side —
+        budgeted checkpoint, clean exit, re-placement at the new size.
+        Local mode reshards over a prefix of the world's ranks."""
+        if self.core is not None and self.core.info is not None:
+            return False
+        if target == self.core.distributed.size:
+            return False  # nothing to reshard
+        if target > self._world_size():
+            return False
+        return self.trial.mesh_config().resolvable(target)
+
+    def _resize_in_process(self, core, target: int, step: int,
+                           last_checkpointed: int, op) -> bool:
+        """The resize pipeline on the ranks that train: a
+        deadline-budgeted COMPLETED checkpoint (or the newest in the
+        lineage), then the transition every rank of the world makes
+        (`_transition`), then the `resize_*` metrics. True when this rank
+        trains on; False when it stands by."""
+        with core.tracer.span("harness.resize.downtime",
+                              from_slots=core.distributed.size,
+                              target=target):
+            t0 = time.monotonic()
+            from_slots = core.distributed.size
+            reason = core.preempt.preemption_reason() or "resize"
+            self._parts = {}
+            restore_id = self._resize_checkpoint(core, step,
+                                                 last_checkpointed)
+            self._note("checkpoint", t0)
+            if core.distributed.is_chief:
+                self._publish(core, {
+                    "target": target, "restore": restore_id,
+                    "op": op.length, "consumed": self._consumed})
+            active = self._transition(core, self._next_generation(core))
+            if not active:
+                return False
+        downtime_ms = (time.monotonic() - t0) * 1000.0
+        step = self.state.step
+        logger.info(
+            "elastic resize (%s): %d -> %d slots at step %d, restored %s, "
+            "downtime %.0fms (no requeue, restarts unchanged)",
+            reason, from_slots, target, step, restore_id, downtime_ms)
+        core.train.report_training_metrics(step, {
+            "resize_from_slots": float(from_slots),
+            "resize_target_slots": float(target),
+            "resize_downtime_ms": downtime_ms,
+        })
+        return True
+
+    def _resize_checkpoint(self, core, step: int,
+                           last_checkpointed: int) -> str:
+        """A COMPLETED checkpoint at the current step, committed before any
+        device state is dropped, when the deadline leaves room for it;
+        else the newest in the lineage. The chief's choice, every rank's."""
         core.checkpoint.wait()
-        if profile:
-            core.profiler.off()
-        return self.state
+        restore_id = f"trial{core.checkpoint._trial_id}-step{step}"
+        if last_checkpointed != step:
+            deadline = core.preempt.preemption_deadline()
+            cfg = self._preempt_cfg or PreemptionConfig()
+            attempt = bool(core.distributed.broadcast(
+                cfg.should_attempt_save(deadline,
+                                        core.checkpoint.last_save_ms)))
+            if attempt:
+                self._checkpoint(core, step)
+                core.checkpoint.wait()  # COMMIT inside the grace window
+            else:
+                lineage = core.checkpoint.lineage()
+                restore_id = lineage[0] if lineage else ""
+                logger.warning(
+                    "resize budget cannot cover a fresh save (deadline "
+                    "%.1fs, last save %s ms); resharding from %s instead",
+                    deadline or -1.0, core.checkpoint.last_save_ms,
+                    restore_id)
+            restore_id = core.distributed.broadcast(restore_id)
+        if not restore_id:
+            raise RuntimeError(
+                "resize offered but no COMPLETED checkpoint exists and the "
+                "deadline cannot cover one; cannot reshard")
+        self._watchdog.beat()
+        return restore_id
+
+    def _transition(self, core, info: Dict[str, Any]) -> bool:
+        """What every rank of the world does at a resize, in the same
+        order: the distributed context and the mesh narrowed or widened to
+        the first `target` ranks (collective over the whole world; a
+        width's mesh is made once and reused, parallel/mesh.py). A rank inside the prefix then rebuilds the steps
+        and restores `info["restore"]` (falling back through the lineage)
+        into a template built from the checkpoint, without the trial's
+        `init_params`; one outside drops its state and stands by. True
+        when this rank trains."""
+        target = int(info["target"])
+        if self._parts is None:
+            self._parts = {}  # a rank standing by
+        with core.tracer.span("harness.reshard", target=target):
+            self.state = None  # before the new one is allocated
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.monotonic()
+            core.distributed.resize(target)
+            self.mesh_config = self._check_mesh_support(target)
+            self.mesh = create_mesh(self.mesh_config, self.device.type,
+                                    ranks=target)
+            self._note("groups", t0)
+            if not core.distributed.active:
+                self._train_step = self._eval_step = None
+                self.resize_parts.append(self._parts)
+                self._parts = None
+                return False
+            self._build_steps()
+            if self._profile:
+                self._set_profiler_devices(core)
+            restored = self._restore_chain([info["restore"]], fresh=True)
+            if restored is None:
+                raise RuntimeError(
+                    f"resize to {target} slots failed: no restorable "
+                    f"checkpoint in the lineage of {info['restore']}")
+        self._parts["restore_bytes"] = core.checkpoint.last_restore_bytes
+        self._consumed = int(info["consumed"])
+        # Re-arm the preemption watcher: this signal is consumed.
+        core.preempt.reset()
+        return True
+
+    def _stand_by(self, core):
+        """Wait outside the mesh for a transition that takes this rank in
+        (-> the searcher ops from the chief's current one on, this rank's
+        state restored) or for the end of the run (-> None). The ranks
+        that train pay nothing for it: the chief sets a generation key on
+        the default group's store at each transition and at the end, and
+        a rank standing by polls for the next one."""
+        self.state = None
+        while True:
+            info = self._next_generation(core)
+            if info is None:
+                return None
+            if self._transition(core, info):
+                length = int(info["op"])
+                return itertools.chain(
+                    [SearcherOperation(core.searcher, length)],
+                    core.searcher.operations(after=length))
+
+    def _note(self, part: str, t0: float) -> float:
+        """Record `part` of the resize in progress as the ms since `t0`;
+        -> now."""
+        now = time.monotonic()
+        if self._parts is not None:
+            self._parts[f"{part}_ms"] = (now - t0) * 1e3
+        return now
+
+    def _generation_key(self, generation: int) -> str:
+        return f"det.elastic.fit{self._fit_id}.gen{generation}"
+
+    def _publish(self, core, info: Dict[str, Any]) -> None:
+        import torch.distributed as dist
+
+        store = dist.distributed_c10d._get_default_store()
+        store.set(self._generation_key(self._generation + 1),
+                  json.dumps(info))
+
+    def _next_generation(self, core) -> Optional[Dict[str, Any]]:
+        """The next generation's transition, or None for the end."""
+        import torch.distributed as dist
+
+        store = dist.distributed_c10d._get_default_store()
+        key = self._generation_key(self._generation + 1)
+        while not store.check([key]):
+            time.sleep(0.02)
+        self._generation += 1
+        info = json.loads(store.get(key))
+        return None if info.get("end") else info
 
     # -- helpers ---------------------------------------------------------
 
@@ -553,7 +863,8 @@ class Trainer:
             # Each rank summed the metrics of its own rows: the global
             # mean of those sums (every rank ran `count` batches).
             keys = [k for k, v in sums.items() if isinstance(v, torch.Tensor)]
-            sums.update(zip(keys, global_mean([sums[k] for k in keys])))
+            sums.update(zip(keys, global_mean([sums[k] for k in keys],
+                                              self.mesh)))
         sums = _to_host(sums)
         avg = {k if k.startswith("validation_") else f"validation_{k}":
                float(v) / count for k, v in sums.items()}
@@ -564,12 +875,10 @@ class Trainer:
         return self.mesh is not None and self.mesh.size() > 1
 
     def _checkpoint(self, core, step: int) -> None:
-        state = self.state
-        if state_mod.is_sharded(state):
-            # The full state, gathered on every rank (a collective), in the
-            # one-process format; the chief writes it.
-            state = state_mod.unshard_state(state)
-        core.checkpoint.save_state(state, step)
+        # A sharded state: each rank writes its pieces of the params and
+        # of the moments that mirror them; nothing is gathered.
+        core.checkpoint.save_state(state_mod.checkpoint_view(self.state),
+                                   step)
 
     def _preempt_checkpoint(self, core, step: int,
                             last_checkpointed: int) -> None:
@@ -577,9 +886,11 @@ class Trainer:
         step (fit's epilogue commits it). With a termination deadline: save
         and commit inside the window only if the last observed save cost
         fits the grace left, else commit what is pending and leave the
-        previous COMPLETED checkpoint to restore from. A resize offer takes
-        this path too: the port cannot reshard in process, so the master
-        re-places the trial at its new size from this checkpoint."""
+        previous COMPLETED checkpoint to restore from. A resize offer that
+        cannot be served in process (`_can_resize_in_process`: cluster
+        mode, or a size the mesh does not resolve) takes this path too:
+        the master re-places the trial at its new size from this
+        checkpoint."""
         deadline = core.preempt.preemption_deadline()
         resize_target = core.preempt.resize_target()
         if deadline is None:
@@ -635,30 +946,45 @@ class Trainer:
                 "starting fresh", storage_id)
         return restored
 
-    def _restore_chain(self, candidates) -> Optional[str]:
+    def _restore_chain(self, candidates, fresh: bool = False
+                       ) -> Optional[str]:
         """Try each candidate in order, extending with the lineage after the
         first failure. Missing (FileNotFoundError) and corrupt
         (CorruptCheckpoint) checkpoints fall through to the next
-        candidate; anything else re-raises."""
-        assert self.state is not None
+        candidate; anything else re-raises. `fresh`: restore into a
+        template built from the candidate (a resize has no live state)."""
+        assert self.state is not None or fresh
         with self.core.tracer.span(
                 "harness.restore",
                 requested=candidates[0] if candidates else "") as sp:
-            restored = self._restore_chain_inner(candidates)
+            restored = self._restore_chain_inner(candidates, fresh)
             if sp is not None:
                 sp.attrs["restored"] = restored or ""
             return restored
 
-    def _read_checkpoint(self, storage_id: str) -> TrainState:
-        """Checkpoint `storage_id` as the current state's layout: a sharded
-        state reads the full state and keeps its shards (no collective)."""
-        if not state_mod.is_sharded(self.state):
-            return self.core.checkpoint.restore_state(storage_id, self.state)
-        full = self.core.checkpoint.restore_state(
-            storage_id, state_mod.full_template(self.state))
-        return state_mod.reshard_state(full, self.state)
+    def _read_checkpoint(self, storage_id: str, fresh: bool) -> TrainState:
+        """Checkpoint `storage_id` in the current layout: a sharded state
+        reads only the pieces its shards overlap (no collective). At a
+        resize the template is built from the checkpoint's own structure
+        for the new mesh, and the restore writes into it."""
+        ckpt = self.core.checkpoint
+        if not fresh:
+            return state_mod.from_checkpoint_view(ckpt.restore_state(
+                storage_id, state_mod.checkpoint_view(self.state)))
+        t0 = time.monotonic()
+        template = state_mod.empty_train_state(
+            ckpt.abstract_state(storage_id), self._tx, self.device,
+            self.mesh, self.trial.param_logical_axes(),
+            self.trial.sharding_rules())
+        t1 = self._note("template", t0)
+        restored = ckpt.restore_state(
+            storage_id, state_mod.checkpoint_view(template), into=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._note("restore", t1)
+        return state_mod.from_checkpoint_view(restored)
 
-    def _restore_chain_inner(self, candidates) -> Optional[str]:
+    def _restore_chain_inner(self, candidates, fresh: bool) -> Optional[str]:
         queue = list(candidates)
         tried = set()
         extended = not queue
@@ -667,18 +993,25 @@ class Trainer:
             if sid in tried:
                 continue
             tried.add(sid)
+            failure = None
             try:
-                self.state = self._read_checkpoint(sid)
+                state = self._read_checkpoint(sid, fresh)
+            except FileNotFoundError:
+                failure = "missing"
+            except core_mod.CorruptCheckpoint as e:
+                failure = f"failed integrity verification ({e.reason})"
+            if self._multi_process():
+                # Each rank read its own pieces: a checkpoint is restored
+                # only when every rank's read was sound.
+                failure = next((f for f in self.core.distributed.allgather(
+                    failure) if f), None)
+            if failure is None:
+                self.state = state
                 logger.info("restored from checkpoint %s at step %d", sid,
                             self.state.step)
                 return sid
-            except FileNotFoundError:
-                logger.warning(
-                    "checkpoint %s missing; walking lineage back", sid)
-            except core_mod.CorruptCheckpoint as e:
-                logger.warning(
-                    "checkpoint %s failed integrity verification (%s); "
-                    "walking lineage back", sid, e.reason)
+            logger.warning("checkpoint %s %s; walking lineage back", sid,
+                           failure)
             if not extended:
                 extended = True
                 # Fallback only walks BACKWARD: a checkpoint newer than the

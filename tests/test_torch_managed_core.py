@@ -196,7 +196,23 @@ def _searcher_script(ops):
     return next_op
 
 
-def _drive_trial(core_mod, state, master, preempt_signal):
+class StillClock:
+    """`time` for both packages' preemption modules: `monotonic()` stands
+    still until the test moves it (`now`), so the grace a deadline read
+    reports does not depend on how long a loaded host took to get there;
+    everything else is the real module's."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def monotonic(self):
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def _drive_trial(core_mod, state, master, preempt_signal, clock):
     """The managed calls of one trial process, as a Trainer makes them."""
     ctx = core_mod.init(max_length=None)
     assert ctx.hparams == {"lr": 0.1} and ctx.latest_checkpoint is None
@@ -221,13 +237,18 @@ def _drive_trial(core_mod, state, master, preempt_signal):
         assert time.monotonic() < deadline, "no preemption signal"
         time.sleep(0.01)
     ctx.preempt.should_preempt()  # acks
+    clock.now += 2.0  # two seconds of the grace pass
     seen = (ctx.preempt.preemption_deadline(),
             ctx.preempt.preemption_reason(), ctx.preempt.resize_target())
     ctx.close()
     return ops, lineage, seen
 
 
-def test_a_trial_sends_what_the_jax_core_sends(cluster_env, tmp_path):
+def test_a_trial_sends_what_the_jax_core_sends(cluster_env, tmp_path,
+                                              monkeypatch):
+    from determined_tpu.core import _preempt as jpreempt
+    from determined_tpu_torch.core import _preempt as tpreempt
+
     signal = {"preempt": True, "deadline_seconds": 60, "reason": "spot",
               "resize": True, "target_slots": 4}
     runs = {}
@@ -242,8 +263,11 @@ def test_a_trial_sends_what_the_jax_core_sends(cluster_env, tmp_path):
         cluster_env(master, DET_EXPERIMENT_CONFIG=json.dumps(
             {"checkpoint_storage": {"type": "shared_fs",
                                     "host_path": str(tmp_path / name)}}))
+        clock = StillClock()
+        monkeypatch.setattr(jpreempt, "time", clock)
+        monkeypatch.setattr(tpreempt, "time", clock)
         try:
-            runs[name] = _drive_trial(core_mod, state, master, signal)
+            runs[name] = _drive_trial(core_mod, state, master, signal, clock)
         finally:
             master.close()
         with open(tmp_path / name / "tensorboard" / "2" / "3" /
@@ -259,7 +283,7 @@ def test_a_trial_sends_what_the_jax_core_sends(cluster_env, tmp_path):
     assert t_ops == j_ops == [2, 4]
     assert t_lin == j_lin == ["trial3-step4", "trial3-step2"]
     assert t_seen[1:] == j_seen[1:] == ("spot", 4)
-    assert 55 < t_seen[0] <= 60 and 55 < j_seen[0] <= 60
+    assert t_seen[0] == j_seen[0] == 58.0  # 60 s of grace, 2 s gone
     assert t_req == j_req
     assert t_polls == j_polls == {
         ("GET", "/api/v1/allocations/alloc-1/signals/preemption",

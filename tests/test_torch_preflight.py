@@ -701,21 +701,38 @@ def test_metric_lint_sees_the_harness_compile_drift(tmp_path):
 
 
 def test_metric_lint_unported_spans_cannot_go_stale(tmp_path):
-    """The resize spans (Queue 1 item 8) are listed as unported; the day an
-    emitter of the port publishes one, the lint asks for the row to go."""
+    """The resize spans (Queue 1 item 8) were the port's last unported
+    ones: its Trainer now emits both, with the JAX Trainer's attributes,
+    the lint finds no drift, and with the reshard's emission taken out
+    of a copy it reports the stale row again."""
+    import re
+
     from determined_tpu_torch.analysis import metric_lint
 
-    assert set(metric_lint.UNPORTED_SPANS) == {"harness.reshard",
-                                               "harness.resize.downtime"}
+    def span_attrs(text, name):
+        m = re.search(r'span\(\s*"' + re.escape(name) + r'",(.*?)\)', text,
+                      re.S)
+        assert m, name
+        return set(re.findall(r"(\w+)=", m.group(1)))
+
+    port = open(os.path.join(REPO, "determined_tpu_torch", "train",
+                             "trainer.py")).read()
+    jax_trainer = open(os.path.join(REPO, "determined_tpu", "train",
+                                    "trainer.py")).read()
+    for name, attrs in (("harness.resize.downtime", {"from_slots", "target"}),
+                        ("harness.reshard", {"target"})):
+        assert span_attrs(port, name) == span_attrs(jax_trainer, name) == \
+            attrs
+    assert not hasattr(metric_lint, "UNPORTED_SPANS")
     root = _copy_emitters(tmp_path)
+    assert not [p for p in metric_lint.lint_registry(str(root))
+                if "resize" in p or "reshard" in p]
     trainer = root / "determined_tpu_torch/train/trainer.py"
-    trainer.write_text(trainer.read_text() + (
-        '\n\ndef _resize(core):\n'
-        '    with core.tracer.span("harness.reshard"):\n'
-        '        pass\n'))
+    trainer.write_text(trainer.read_text().replace('"harness.reshard"',
+                                                   '"harness.other"'))
     problems = metric_lint.lint_registry(str(root))
-    assert any("'harness.reshard' is emitted but listed in UNPORTED_SPANS"
-               in p for p in problems)
+    assert any("'harness.reshard' registered but emitted nowhere" in p
+               for p in problems)
 
 
 def test_every_rule_is_documented():
