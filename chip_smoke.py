@@ -406,6 +406,24 @@ fails:
      by rank (checkpoint, groups, template, restore, stream, the first
      step after), each rank's bytes read and peak memory. With one card,
      `[17b] not run: 1 card`.
+ 18a. the conv models over `tensor`, one card: finetune_asha.yaml's UNet
+     (base, B 64: conv_in, the level-0 down conv, the lowest up conv,
+     the level-1 resblock, the mid attention), ResNet-50's head and loss
+     (B 256, 2048 x 1000) and MNIST's fc pair (config.yaml: hidden 128,
+     B 64), each computed as 2 and 4 pieces in one process and combined
+     as the collectives combine them (column pieces concatenated, row
+     pieces summed with the bias once, the attention's partial logits
+     summed), against the whole layer in float64 (1e-10), fp32 (1e-5;
+     past it no farther from float64 than twice the whole) and bf16
+     (2e-2), outputs and every gradient, as max |diff| / max |whole|.
+     Planted faults that must be refused: a gather whose backward sums
+     (a reduce-scatter) in the resblock, fc2's bias added t times. Each
+     piece's forward device time against the whole layer's, no limit.
+ 18b. with two cards or more, the diffusion example's trial at `tensor:
+     2` and at `context: 2`, and 13c's CIFAR trial at `tensor: 2`, each
+     at world 2 against world 1 under 12d's limits, each world's step
+     and each rank's peak memory. With one card, `[18b] not run: 1
+     card`.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
@@ -2402,21 +2420,32 @@ def phase_remat_policies(card, depth=2):
 
 LAUNCHED_TRIAL = 3
 LAUNCHED_STEPS = 10
-# One rank of 8c's launched trial: the example's GPT2Trial under
-# core.init() from the launcher's and the agent's environment. Written
-# into build/smoke at run time and started by the port's launcher.
+# One rank of a launched trial (8c's, 12d's, 16b/d's: the example's
+# GPT2Trial; 18b's: a conv model's trial) under core.init() from the
+# launcher's and the agent's environment, as `python worker.py ROOT
+# ENTRY`. Written into build/smoke at run time and started by the port's
+# launcher.
 LAUNCHED_WORKER = r'''
-import json, os, sys
-ROOT = sys.argv[1]
+import importlib.util, json, os, sys
+ROOT, ENTRY = sys.argv[1], sys.argv[2]
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "examples", "gpt2_cuda"))
 import torch
 import torch.distributed as dist
 from determined_tpu_torch import core
 from determined_tpu_torch.ops import flash_attention as fa
 from determined_tpu_torch.train import Trainer
 from determined_tpu_torch.train.trial import TrialContext
-from model_def import GPT2Trial
+
+# ENTRY: "path/in/the/repo.py:Name", or "...:name()" for a factory.
+path, name = ENTRY.split(":")
+sys.path.insert(0, os.path.dirname(os.path.join(ROOT, path)))
+spec = importlib.util.spec_from_file_location("entry", os.path.join(ROOT,
+                                                                    path))
+entry = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(entry)
+Trial = getattr(entry, name.rstrip("()"))
+if name.endswith("()"):
+    Trial = Trial()
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -2431,8 +2460,8 @@ out = {"rank": d.rank, "size": d.size, "backend": d.backend,
            f"rank{d.rank}".encode())],
        "broadcast": d.transport.broadcast_bytes(
            b"from the chief" if chief else b"", chief).decode()}
-trial = GPT2Trial(TrialContext(hparams=ctx.hparams, core_context=ctx,
-                               n_devices=d.size))
+trial = Trial(TrialContext(hparams=ctx.hparams, core_context=ctx,
+                           n_devices=d.size))
 trainer = Trainer(trial, core_context=ctx)
 for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
     fn.launches = 0
@@ -2460,9 +2489,13 @@ def free_port():
         return s.getsockname()[1]
 
 
+GPT2_ENTRY = "examples/gpt2_cuda/model_def.py:GPT2Trial"
+
+
 def launch_trial(workdir, hparams, storage, nproc, slots, backend=None,
-                 trial_id=LAUNCHED_TRIAL, timeout=900):
-    """The example trial through `python -m
+                 trial_id=LAUNCHED_TRIAL, timeout=900, entry=GPT2_ENTRY):
+    """The example trial (`entry`: a trial class, "file:Name", or a
+    factory of one, "file:name()") through `python -m
     determined_tpu_torch.launch.torch_distributed` against a fresh fake
     master with one op of LAUNCHED_STEPS: -> (each rank's RESULT, the
     master, the launcher's exit code, its output)."""
@@ -2490,7 +2523,7 @@ def launch_trial(workdir, hparams, storage, nproc, slots, backend=None,
             [sys.executable, "-m",
              "determined_tpu_torch.launch.torch_distributed",
              "--nproc-per-node", str(nproc), "--", sys.executable, script,
-             ROOT], env=env, cwd=ROOT, capture_output=True, text=True,
+             ROOT, entry], env=env, cwd=ROOT, capture_output=True, text=True,
             timeout=timeout)
     finally:
         master.release()
@@ -4071,8 +4104,12 @@ def phase_resnet50(card, batch=RESNET50_BATCH):
 def cifar_trial_class():
     """A ResNet-18 CIFAR stateful trial, defined here (the JAX package has
     no ResNet example): a learnable synthetic set, each class a color
-    shift of normal noise."""
+    shift of normal noise. bf16 activations, or fp32 with the hparam
+    `dtype: float32` (18b's reading of what bf16 rounding adds)."""
+    import dataclasses
+
     import numpy as np
+    import torch
 
     from determined_tpu_torch.models import resnet
     from determined_tpu_torch.train import TorchTrial, optim
@@ -4083,6 +4120,8 @@ def cifar_trial_class():
         def __init__(self, context):
             super().__init__(context)
             self.cfg = resnet.Config.resnet18_cifar()
+            if context.hparams.get("dtype") == "float32":
+                self.cfg = dataclasses.replace(self.cfg, dtype=torch.float32)
             rng = np.random.default_rng(SEED + 40)
             self.shift = rng.normal(size=(10, 1, 1, 3)).astype(np.float32)
 
@@ -4108,9 +4147,6 @@ def cifar_trial_class():
 
         def param_logical_axes(self):
             return resnet.param_logical_axes(self.cfg)
-
-        def supports_model_parallel(self):
-            return False
 
         def optimizer(self):
             return optim.sgd(0.1, momentum=0.9)
@@ -5564,35 +5600,53 @@ def phase_moe_chunks(card):
     _free_cuda()
 
 
-def world_against_one(workdir, hparams, tag, name, extra, card, trial_id):
-    """The example trial at world 2 over NCCL (the mesh `extra` names,
-    `name: 2`) through the GPU-slot launcher, against a world of one at
+def world_against_one(workdir, hparams, tag, name, extra, card, trial_id,
+                      entry=GPT2_ENTRY, repeat=False):
+    """The trial of `entry` (launch_trial's) at world 2 over NCCL (the
+    mesh `extra` names, `name: 2`) through the GPU-slot launcher, against
+    a world of one at
     the same hparams: the losses and grad norms of each report window
-    within SPLIT_LOSS_RTOL and SPLIT_NORM_RTOL. -> (the relative
-    differences, each world's step of the last report window, each rank's
-    peak memory in GiB)."""
+    within SPLIT_LOSS_RTOL and SPLIT_NORM_RTOL. `repeat` runs world 1 a
+    second time and prints its distance from the first (the run-to-run
+    spread the world 2 distance is read against; no limit). -> (the
+    relative differences, each world's step of the last report window,
+    each rank's peak memory in GiB)."""
     reports, step_ms, peaks = {}, {}, {}
-    for nproc, slots in ((1, "[0]"), (2, "[0,1]")):
+    runs = ((1, "[0]", 1), (2, "[0,1]", 2)) + (
+        ((1, "[0]", "again"),) if repeat else ())
+    for nproc, slots, key in runs:
         mesh = {**extra["mesh"], name: nproc}
-        storage = os.path.join(workdir, f"split_{tag}_{name}_{nproc}")
+        storage = os.path.join(workdir, f"split_{tag}_{name}_{key}")
         results, master, rc, log = launch_trial(
             workdir, {**hparams, **extra, "mesh": mesh}, storage, nproc,
-            slots, trial_id=trial_id + nproc, timeout=300)
+            slots, trial_id=trial_id + len(reports) + 1, timeout=300,
+            entry=entry)
         if rc != 0 or sorted(results) != list(range(nproc)):
             say(log[-3000:])
             fail(f"{tag} {name} at world {nproc} exited {rc}")
-        reports[nproc] = [
+        reports[key] = [
             b["metrics"] for b in master.posted("/metrics")
             if b["group"] == "training" and "loss" in b["metrics"]]
         # The last report window's step (the first holds the warm-up).
-        step_ms[nproc] = 1e3 / reports[nproc][-1]["steps_per_second"]
-        peaks[nproc] = [results[r].get("peak_gib") for r in sorted(results)]
-    if len(reports[2]) != len(reports[1]):
-        fail(f"{tag} {name}: {len(reports[2])} report windows at world 2, "
-             f"{len(reports[1])} at world 1")
-    rel = {key: max(abs(a[key] - b[key]) / abs(b[key])
-                    for a, b in zip(reports[2], reports[1]))
-           for key in ("loss", "grad_norm")}
+        step_ms[key] = 1e3 / reports[key][-1]["steps_per_second"]
+        peaks[key] = [results[r].get("peak_gib") for r in sorted(results)]
+    if len({len(r) for r in reports.values()}) != 1:
+        fail(f"{tag} {name}: report windows at world 2 and 1: "
+             f"{ {k: len(r) for k, r in reports.items()} }")
+
+    def distance(got, want):
+        return {key: max(abs(a[key] - b[key]) / abs(b[key])
+                         for a, b in zip(reports[got], reports[want]))
+                for key in ("loss", "grad_norm")}
+
+    rel = distance(2, 1)
+    if repeat:
+        again = distance("again", 1)
+        say(f"[{tag}] [{card}] {name}: world 1 again against world 1, each "
+            f"report window: loss {[r['loss'] for r in reports['again']]}"
+            f", max relative diff {again['loss']:.2e}; grad_norm max "
+            f"relative diff {again['grad_norm']:.2e}; step of the last "
+            f"report window {step_ms['again']:.2f} ms")
     say(f"[{tag}] [{card}] {name}: 2 against 1, each report window: "
         + "; ".join(
             f"{key} {[r[key] for r in reports[2]]} / "
@@ -5991,6 +6045,382 @@ def phase_elastic_world(workdir, hparams, card):
     return {"rows": rows, "ranks": ranks, "rel": worst}
 
 
+# ----------------------------------------------------------------- phase 18
+
+# 18a: the conv models' layers split over tensor, as t pieces in one
+# process. The UNet is finetune_asha.yaml's model (base, bf16 activations,
+# fp32 params) at its global batch; ResNet-50's head and loss at
+# bench_resnet.py's batch; MNIST's fc pair at config.yaml's width and
+# batch. The limits are 16c's: each split layer against the unsplit one.
+CONV_SPLITS = (2, 4)
+UNET_BATCH = 64
+# float64 holds the split to the same function up to rounding; fp32 and
+# bf16 are 16c's limits. An fp32 gradient that is a long reduction (a
+# conv's kernel over B x H x W) rounds differently in another algorithm
+# by about 1e-5 of its largest element, so past the limit the split is
+# held to float64 instead: no farther from it than twice the whole is
+# (13d's rule).
+CONV_SPLIT_TOL = {"float64": 1e-10, "float32": MOE_TENSOR_FP32_TOL,
+                  "bfloat16": MOE_TENSOR_BF16_TOL}
+
+
+def conv_split_layers(dtype, seed, device="cuda", rows=None):
+    """The layers of 18a in `dtype` (the UNet's activations; the head and
+    the fc pair compute in fp32 in their models whatever the activations'
+    dtype): {name: (params, inputs, whole, split, piece)}. `whole(P, I)`
+    is the model's own layer, unsplit; `split(P, I, t, cat, once)`
+    computes it from the model's own parts (`diffusion._res_part1`, ...,
+    the functions each tensor rank runs), each on its rank's pieces of the
+    params as the state cuts them (`sharding.tensor_piece`), combined as
+    the collectives combine them: a part's output channels by `cat`, the
+    gather; shares summed, Megatron's g, with a bias added `once`; a whole
+    input shared by the parts, Megatron's f, whose gradient autograd sums
+    as f's all-reduce does. `piece(P, I, t)` is rank 0's part alone, the
+    gathered or summed inputs it reads given whole. In float64 the params
+    are float64 too (the models' fp32 params would round every gradient to
+    fp32). `device`: the card; the CPU in the tests, which cut every
+    layer's batch to `rows`."""
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.models import _conv, diffusion, mnist, resnet
+    from determined_tpu_torch.parallel import sharding
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pdt = torch.float64 if dtype == torch.float64 else torch.float32
+    cfg = diffusion.Config(dtype=dtype)
+    unet = diffusion.init(gen, cfg)
+    unet_axes = diffusion.param_logical_axes(cfg)
+
+    def noisy(tree):
+        # init's zero biases and unit norms hide a bias added twice.
+        return {k: noisy(v) if isinstance(v, dict) else
+                (v + 0.1 * torch.randn(v.shape, generator=gen,
+                                       device=device)).to(pdt)
+                .requires_grad_()
+                for k, v in tree.items()}
+
+    def image(b, c, h):
+        x = torch.randn((b, h, h, c), generator=gen, device=device)
+        return _conv.nchw(x, dtype).detach().requires_grad_()
+
+    def piece_of(P, axes, r, t):
+        # Rank r's pieces of a tree of params, as the state cuts them.
+        return {k: piece_of(v, axes[k], r, t) if isinstance(v, dict) else
+                sharding.tensor_piece(v, axes[k], r, t)
+                for k, v in P.items()}
+
+    def layer(P, axes, inputs, whole, part):
+        # `part(p, I, t, pieces)`: rank-by-rank parts, combined.
+        def split(P, I, t, cat, once):
+            return part(I, [piece_of(P, axes, r, t) for r in range(t)],
+                        P, cat, once)
+
+        def piece(P, I, t):
+            return part(I, [piece_of(P, axes, 0, t)], P, None, None)
+
+        return P, inputs, whole, split, piece
+
+    def split_conv(name, P, axes, x, stride=1, up=False):
+        def whole(P, I):
+            x = diffusion._upsample(I["x"]) if up else I["x"]
+            return diffusion._conv2d(x, P, stride)
+
+        def part(I, ps, P, cat, once):
+            x = diffusion._upsample(I["x"]) if up else I["x"]
+            parts = [diffusion._conv_part(x, p, stride=stride) for p in ps]
+            return cat(parts) if cat else parts[0]
+
+        layers[name] = layer(P, axes, {"x": x}, whole, part)
+
+    B = rows or UNET_BATCH
+    layers = {}
+    # conv_in, the level-0 down conv, the up conv at the lowest level.
+    split_conv("unet conv_in", noisy(unet["conv_in"]), unet_axes["conv_in"],
+               image(B, 3, 32))
+    split_conv("unet down", noisy(unet["down"]["0"]["down"]),
+               unet_axes["down"]["0"]["down"], image(B, 64, 32), stride=2)
+    split_conv("unet up", noisy(unet["up"]["0"]["up"]),
+               unet_axes["up"]["0"]["up"], image(B, 256, 8), up=True)
+
+    # The level-1 resblock (64 -> 128 channels at 16x16, a skip conv).
+    def res_whole(P, I):
+        return diffusion._resblock(I["x"], I["temb"], P, cfg)
+
+    def res_part(I, ps, P, cat, once):
+        x, temb = I["x"], I["temb"]
+        h = [diffusion._res_part1(x, temb, p, cfg) for p in ps]
+        h = cat(h) if cat else I["h"]
+        out = [diffusion._res_part2(h, x, p, cfg) for p in ps]
+        return cat(out) if cat else out[0]
+
+    temb = torch.randn((B, cfg.time_dim), generator=gen,
+                       device=device).to(pdt).requires_grad_()
+    layers["unet resblock"] = layer(
+        noisy(unet["down"]["1"]["res"]), unet_axes["down"]["1"]["res"],
+        {"x": image(B, 64, 16), "temb": temb,
+         "h": image(B, 128, 16).detach()}, res_whole, res_part)
+
+    # The mid attention over c = 256 channels at 8x8.
+    def attn_whole(P, I):
+        return diffusion._self_attention(I["x"], P, cfg)
+
+    def attn_part(I, ps, P, cat, once):
+        parts = [diffusion._attn_part1(I["x"], p, cfg) for p in ps]
+        logits = sum(lg for lg, _ in parts) if cat else I["logits"]
+        o = [diffusion._attn_part2(logits, v, p)
+             for p, (_, v) in zip(ps, parts)]
+        return diffusion._attn_out(I["x"], sum(o), P) if cat else o[0]
+
+    P = noisy(unet["mid"]["attn"])
+    x = image(B, 256, 8)
+    with torch.no_grad():
+        logits = diffusion._attn_part1(x, P, cfg)[0]
+    layers["unet attention"] = layer(
+        P, unet_axes["mid"]["attn"], {"x": x, "logits": logits},
+        attn_whole, attn_part)
+
+    # ResNet-50's head and loss: pooled fp32 features [256, 2048] -> 1000.
+    rng = np.random.default_rng(seed)
+    rb, width, classes = rows or RESNET50_BATCH, 2048, 1000
+    head = {"head": {
+        "kernel": torch.from_numpy(0.02 * rng.normal(size=(
+            width, classes))).to(device, pdt).requires_grad_(),
+        "bias": torch.from_numpy(0.1 * rng.normal(size=classes)).to(
+            device, pdt).requires_grad_()}}
+    feats = torch.randn((rb, width), generator=gen, device=device) \
+        .to(pdt).requires_grad_()
+    labels = torch.from_numpy(rng.integers(0, classes, rb)).to(device)
+
+    def head_whole(P, I):
+        return resnet._nll(resnet._head_part(I["x"], P)
+                           + _conv.wide(P["head"]["bias"]), labels)[0]
+
+    def head_part(I, ps, P, cat, once):
+        parts = [resnet._head_part(I["x"], p) for p in ps]
+        logits = cat(parts) if cat else I["logits"]
+        return resnet._nll(logits + _conv.wide(P["head"]["bias"]),
+                           labels)[0]
+
+    with torch.no_grad():
+        logits = resnet._head_part(feats, head)
+    layers["resnet50 head+loss"] = layer(
+        head, {"head": resnet.param_logical_axes()["head"]},
+        {"x": feats, "logits": logits}, head_whole, head_part)
+
+    # MNIST's fc pair at config.yaml's hidden 128 and batch 64.
+    mcfg = mnist.Config(hidden=128)
+    fc = noisy({k: mnist.init(gen, mcfg)[k] for k in ("fc1", "fc2")})
+    flat = torch.randn((rows or 64, 7 * 7 * mcfg.c2), generator=gen,
+                       device=device).to(pdt).requires_grad_()
+
+    def fc_whole(P, I):
+        return mnist._fc_part(I["x"], P) + P["fc2"]["bias"]
+
+    def fc_part(I, ps, P, cat, once):
+        parts = [mnist._fc_part(I["x"], p) for p in ps]
+        return once(sum(parts), P["fc2"]["bias"], len(ps)) if cat \
+            else parts[0]
+
+    layers["mnist fc pair"] = layer(
+        fc, mnist.param_logical_axes(mcfg), {"x": flat}, fc_whole, fc_part)
+    return layers
+
+
+def _leaves(tree):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{j}": t for j, t in _leaves(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def _fresh(tree):
+    """A copy of a tree of leaves, each a new leaf that takes gradients."""
+    return {k: _fresh(v) if isinstance(v, dict) else
+            v.detach().clone().requires_grad_(v.requires_grad)
+            for k, v in tree.items()}
+
+
+def layer_run(layer, fn):
+    """(output, {leaf: gradient}) of `fn(P, I)` on fresh copies of one
+    layer's params and inputs, under a cotangent drawn from a seed."""
+    import torch
+
+    params, inputs = layer[:2]
+    P, I = _fresh(params), _fresh(inputs)
+    out = fn(P, I)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=out.device).manual_seed(SEED + 81), device=out.device).to(
+        out.dtype)
+    leaves = {**_leaves(P), **{k: v for k, v in I.items()
+                               if v.requires_grad}}
+    grads = torch.autograd.grad((out * g).sum(), list(leaves.values()),
+                                allow_unused=True)
+    return out.detach(), {k: v for k, v in zip(leaves, grads)
+                          if v is not None}
+
+
+def run_errors(got, want):
+    """{"output" or a leaf: max |got - want| / max |want|} of two
+    layer_runs, compared in the wider of their dtypes and fp32."""
+    import torch
+
+    def wide(t):
+        return t.to(torch.promote_types(t.dtype, torch.float32))
+
+    pairs = {"output": (got[0], want[0]), **{
+        k: (got[1][k], want[1][k]) for k in want[1]}}
+    return {k: _rel(wide(a).to(wide(b).dtype), wide(b))
+            for k, (a, b) in pairs.items()}
+
+
+def split_errors(layer, t, cat, once):
+    """run_errors of one layer split in t pieces against the whole."""
+    whole, split = layer[2], layer[3]
+    return run_errors(
+        layer_run(layer, lambda P, I: split(P, I, t, cat, once)),
+        layer_run(layer, whole))
+
+
+def phase_conv_split(card):
+    """18a: each conv model's split layers as t pieces for t = 2 and 4, in
+    float64, fp32 and bf16, against the unsplit layer: outputs and every
+    gradient within CONV_SPLIT_TOL of the largest element (every reading
+    printed before a breach fails the phase); a gather with a summing
+    backward and a bias added t times must be refused; each piece's
+    device time against the whole layer's (forward, no limit)."""
+    import torch
+
+    class SummingCat(torch.autograd.Function):
+        # The fault: a gather whose backward sums every rank's (equal)
+        # gradient, a reduce-scatter: t times the rank's slice.
+        @staticmethod
+        def forward(ctx, *pieces):
+            ctx.n = [p.shape[1] for p in pieces]
+            return torch.cat(pieces, dim=1)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return tuple(len(ctx.n) * g for g in grad.split(ctx.n, dim=1))
+
+    def cat(pieces):
+        return torch.cat(pieces, dim=1)
+
+    def once(x, bias, t):
+        return x + bias
+
+    def every(x, bias, t):
+        return x + t * bias
+
+    t0 = time.monotonic()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {"errors": {}, "ms": {}}
+    breaches = []
+    truth = {}  # the whole layers' float64 runs
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        tol = CONV_SPLIT_TOL[name]
+        layers = conv_split_layers(dtype, SEED + 80)
+        for layer_name, layer in layers.items():
+            whole = layer_run(layer, layer[2])
+            if dtype == torch.float64:
+                truth[layer_name] = whole
+            for t in CONV_SPLITS:
+                split = layer_run(layer, lambda P, I: layer[3](
+                    P, I, t, cat, once))
+                err = run_errors(split, whole)
+                over = {k: v for k, v in err.items() if v > tol}
+                if dtype == torch.float32 and over:
+                    # Beyond 1e-5 only as far as the whole's own fp32
+                    # rounding goes: the split no farther from float64.
+                    far = (run_errors(split, truth[layer_name]),
+                           run_errors(whole, truth[layer_name]))
+                    say(f"[18a] [{card}] {layer_name}, fp32, tensor {t}: "
+                        + "; ".join(f"{k} {v:.3e}: from float64 split "
+                                    f"{far[0][k]:.3e}, whole {far[1][k]:.3e}"
+                                    for k, v in over.items()))
+                    over = {k: v for k, v in over.items()
+                            if far[0][k] > 2 * far[1][k]}
+                worst = max(err, key=err.get)
+                out["errors"][(layer_name, name, t)] = err[worst]
+                say(f"[18a] [{card}] {layer_name}, {name}, tensor {t} "
+                    f"pieces against the whole: output {err['output']:.3e}, "
+                    f"worst of {len(err)} ({worst}) {err[worst]:.3e} "
+                    f"(limit {tol:g}); beyond it: {over or 'none'}")
+                breaches += [(layer_name, name, t, k, v)
+                             for k, v in over.items()]
+        # The planted faults, in fp32 at tensor 2.
+        if dtype == torch.float32:
+            faults = (("unet resblock", lambda ps: SummingCat.apply(*ps),
+                       once, "a gather whose backward sums"),
+                      ("mnist fc pair", cat, every, "fc2's bias added t "
+                       "times"))
+            for layer_name, fcat, fonce, what in faults:
+                err = split_errors(layers[layer_name], 2, fcat, fonce)
+                worst = max(err, key=err.get)
+                refused = err[worst] > tol
+                say(f"[18a] [{card}] planted fault ({what}) in "
+                    f"{layer_name} at tensor 2: worst {worst} "
+                    f"{err[worst]:.3e}, refused: {refused}")
+                if not refused:
+                    breaches.append((layer_name, "fault", 2, what, 0.0))
+        # Device times in the activations' dtype of the models (the
+        # UNet's bf16; the head and the fc pair compute in fp32 anyway).
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                for layer_name, (P, I, whole, _, piece) in layers.items():
+                    row = {"whole": time_cold(whole, (P, I), flush)}
+                    for t in CONV_SPLITS:
+                        row[t] = time_cold(piece, (P, I, t), flush)
+                    out["ms"][layer_name] = row
+                    say(f"[18a] [{card}] {layer_name} forward device ms: "
+                        f"whole {row['whole']:.4f}; one piece at tensor 2 "
+                        f"{row[2]:.4f} ({row[2] / row['whole']:.2f}x), at "
+                        f"tensor 4 {row[4]:.4f} "
+                        f"({row[4] / row['whole']:.2f}x)")
+        del layers
+    say(f"[18a] [{card}] {time.monotonic() - t0:.1f} s")
+    if breaches:
+        fail(f"18a: split layers beyond their limits, or a planted fault "
+             f"not refused: {breaches}")
+    del flush
+    _free_cuda()
+    return out
+
+
+def phase_conv_split_world(workdir, card):
+    """18b: with two cards, the diffusion example's trial at `tensor: 2`
+    and at `context: 2`, and 13c's CIFAR ResNet-18 trial at `tensor: 2`,
+    each at world 2 against world 1 (world_against_one); the CIFAR run
+    (bf16 activations, lr 0.1) repeats world 1, so its distance is read
+    against world 1's own spread, and runs again in fp32, so it is read
+    against what bf16 rounding adds. With one card: not run."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[18b] not run: {n} card")
+        return None
+    diff = {**yaml_hparams(os.path.join(
+        ROOT, "examples/diffusion_cuda/finetune_asha.yaml")),
+        **DIFFUSION_POINT}
+    unet = "examples/diffusion_cuda/model_def.py:DiffusionTrial"
+    runs = (("diffusion", "tensor", diff, unet, False),
+            ("diffusion", "context", diff, unet, False),
+            ("cifar", "tensor", {"global_batch_size": CIFAR_BATCH},
+             "chip_smoke.py:cifar_trial_class()", True),
+            ("cifar-fp32", "tensor", {"global_batch_size": CIFAR_BATCH,
+                                      "dtype": "float32"},
+             "chip_smoke.py:cifar_trial_class()", False))
+    return {f"{model} {axis}": world_against_one(
+        workdir, hp, f"18b-{model}", axis, {"mesh": {"data": 1}}, card,
+        LAUNCHED_TRIAL + 50 + 10 * i, entry=entry, repeat=repeat)
+        for i, (model, axis, hp, entry, repeat) in enumerate(runs)}
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -6036,6 +6466,8 @@ def main() -> int:
     elastic = phase_elastic_restore(workdir, hparams, card,
                                     trials["14c"]["shared_fs"]["restore_ms"])
     phase_elastic_world(workdir, hparams, card)
+    conv_split = phase_conv_split(card)
+    phase_conv_split_world(workdir, card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "

@@ -16,27 +16,33 @@ fast convolutions take on the card, so nothing is copied at the boundary.
     to the port's (tensors, OIHW kernels, dicts keyed by the list index,
     which `TrainState` flattens) and back; a tuple of logical axes names
     the dims of the JAX leaf, so it is permuted with the leaf.
-  - `batch_groups`: the process groups of the mesh axes a batch is split
-    over (`data`, `fsdp`), over which BatchNorm's statistics are summed;
-    it refuses `tensor`, `context` and `expert` above 1, which these
-    models do not compute over.
+  - `mesh_groups`: the groups a model computes over on the mesh its
+    leaves lie on: the batch axes (`data`, `fsdp`), over which BatchNorm
+    sums its statistics, and `tensor`, over which the leaves the JAX
+    model names "mlp" or "heads" are split (the default rules map both
+    to `tensor`). `context` is accepted and computes replicated: the JAX
+    rules map only "seq" to it, and no conv model names "seq", so the
+    ranks of a context group hold the same rows and compute the same
+    values. `expert` is refused, as the JAX Trainer refuses it for a
+    model that does not route.
+  - `copy_to` (Megatron's f before a part of a layer split over
+    `tensor`) and `gather_channels` (an NCHW activation split by channels
+    over `tensor` made whole: `collectives.gather_from` on its NHWC view,
+    so a channels_last tensor stays one); each is the identity without a
+    `tensor` group, so one process can run every rank's part of a layer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from determined_tpu_torch.parallel import sharding
-from determined_tpu_torch.parallel.mesh import axis_group
-
-# The ROADMAP item the conv models' refusal of the model axes names.
-MODEL_AXES_ITEM = "ROADMAP.md Queue 1 item 14"
-MODEL_AXES = ("tensor", "context", "expert")
+from determined_tpu_torch.parallel import collectives, sharding
+from determined_tpu_torch.parallel.mesh import AxisGroup, axis_group
 
 
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -142,19 +148,45 @@ def axes_from_jax(axes: Any) -> Any:
 # ------------------------------------------------------------- the mesh
 
 
-def batch_groups(leaf: torch.Tensor, model: str) -> List[Any]:
-    """The process groups of the batch axes (`data`, `fsdp`) of the mesh
-    `leaf` lies on, those above 1; [] for a plain tensor. Raises for
-    `tensor`, `context` or `expert` above 1: these models split no work
-    over them, so sharding their leaves there would give wrong gradients."""
+class Groups(NamedTuple):
+    """What a conv model computes over: the process groups of the batch
+    axes above 1, and the `tensor` axis (None when it is 1 or there is no
+    mesh)."""
+    batch: List[Any]
+    tensor: Optional[AxisGroup]
+
+
+def mesh_groups(leaf: torch.Tensor, model: str) -> Groups:
+    """The groups of the mesh `leaf` lies on (module docstring); no groups
+    for a plain tensor. Raises for `expert` above 1: these models route
+    nothing over it."""
     mesh = sharding.mesh_of(leaf)
     if mesh is None:
-        return []
-    split = {a: mesh.size(mesh.mesh_dim_names.index(a)) for a in MODEL_AXES
-             if axis_group(mesh, a) is not None}
-    if split:
+        return Groups([], None)
+    expert = axis_group(mesh, "expert")
+    if expert is not None:
         raise ValueError(
-            f"the {model} model computes over the data and fsdp mesh axes "
-            f"only; the mesh asks for {split} ({MODEL_AXES_ITEM})")
-    return [g.group for g in (axis_group(mesh, "data"),
-                              axis_group(mesh, "fsdp")) if g is not None]
+            f"the {model} model routes nothing over the expert mesh axis; "
+            f"the mesh asks for expert={expert.size}")
+    return Groups([g.group for g in (axis_group(mesh, "data"),
+                                     axis_group(mesh, "fsdp"))
+                   if g is not None], axis_group(mesh, "tensor"))
+
+
+def copy_to(x: torch.Tensor, tensor: Optional[AxisGroup]) -> torch.Tensor:
+    """Megatron's f (`collectives.copy_to`): `x`, whole on every rank of
+    `tensor`, enters a part of a layer split over it; `x` itself without
+    a group."""
+    return x if tensor is None else collectives.copy_to(x, tensor.group)
+
+
+def gather_channels(x: torch.Tensor, tensor: Optional[AxisGroup]
+                    ) -> torch.Tensor:
+    """x [B, C/t, H, W], this rank's channels, -> [B, C, H, W]: the
+    group's slices side by side in rank order; the backward keeps this
+    rank's slice of the gradient (`collectives.gather_from`). `x` itself
+    without a group."""
+    if tensor is None:
+        return x
+    return collectives.gather_from(nhwc(x), tensor.group, 3).permute(
+        0, 3, 1, 2)

@@ -22,6 +22,40 @@ drawn before the loop, and on CUDA one denoising step is captured as a
 CUDA graph and replayed `timesteps` times (the JAX package's `lax.scan`
 in one program); on the CPU, or with `graph=False`, the same step runs
 eagerly.
+
+Over a `tensor` axis each rank does the work the JAX model's logical axes
+give it (the default rules map "mlp" and "heads" to `tensor`):
+
+  - every conv whose kernel has "mlp" on its output channels (`conv_in`,
+    each resblock's `conv1`, `conv2` and `skip`, `down` and `up`)
+    computes this rank's output channels from the whole input, Megatron's
+    f (`collectives.copy_to`) before it; the time projection `temb` is
+    split as `conv1` is. `conv_out` (3 output channels) and the time MLP
+    are replicated, as in the JAX model.
+  - A split activation is gathered whole (`_conv.gather_channels`, whose
+    backward keeps the rank's slice) after each split conv: so every
+    GroupNorm (a resblock's `norm2` too), the down and up convs, the
+    concat of the up path and the next block take whole activations.
+  - The mid attention has one head, so "heads" splits its channels: the
+    `qkv` kernel's 3c columns are `Fused("heads", 3)`, so a rank's
+    contiguous slice holds c/t columns each of q, k and v (the state's
+    tensor layout, `parallel/sharding.py`); the partial logits q_r k_r^T
+    are computed and summed in fp32 over the axis (Megatron's g) before
+    the softmax, each rank multiplies the probabilities by its v_r, and
+    `out` is split by rows, summed over the axis, its bias added once.
+
+Each rank's part of a split layer is one function (`_conv_part`,
+`_res_part1`, `_res_part2`, `_attn_part1`, `_attn_part2`), from the
+whole input to the rank's output channels or its share of a sum, with f
+at its start; the layer gathers or sums the parts. With `tensor=None`
+and a rank's pieces of the params, the same function is that rank's part
+in one process, which is how `chip_smoke.py` (phase 18a) holds the parts
+against the whole layer on a card.
+
+`context` computes replicated (no leaf or activation is named "seq"), so
+a context group's ranks compute the same values. `sample` takes the
+params whole (`sharding.full_value`) and runs unsplit on every rank: a
+captured CUDA graph cannot hold the collectives.
 """
 
 from __future__ import annotations
@@ -35,7 +69,8 @@ import torch.nn.functional as F
 
 from determined_tpu_torch.models import _conv
 from determined_tpu_torch.models.gpt2 import map_params
-from determined_tpu_torch.parallel import sharding
+from determined_tpu_torch.parallel import collectives, sharding
+from determined_tpu_torch.parallel.mesh import AxisGroup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,9 +229,12 @@ def param_logical_axes(cfg: Config = Config()) -> Dict[str, Any]:
         cin = w
     mid = {"res1": _res_axes(False), "res2": _res_axes(False)}
     if cfg.attn_at_lowest:
+        # q, k and v side by side: a tensor rank's slice holds c/t
+        # columns of each (sharding.Fused).
+        heads = sharding.Fused("heads", 3)
         mid["attn"] = {"norm": {"scale": (None,), "bias": (None,)},
-                       "qkv": {"kernel": ("embed", "heads"),
-                               "bias": ("heads",)},
+                       "qkv": {"kernel": ("embed", heads),
+                               "bias": (heads,)},
                        "out": {"kernel": ("heads", "embed"),
                                "bias": ("embed",)}}
     up = []
@@ -253,30 +291,86 @@ def _conv2d(x, p, stride=1):
                              bias=p["bias"].to(x.dtype))
 
 
-def _resblock(x, temb, p, cfg: Config):
-    h = _group_norm(x, p["norm1"], cfg.groups)
-    h = _conv2d(F.silu(h), p["conv1"])
-    t = F.silu(temb) @ p["temb"]["kernel"].to(temb.dtype) + \
-        p["temb"]["bias"].to(temb.dtype)
-    h = h + t[:, :, None, None].to(h.dtype)
-    h = _group_norm(h, p["norm2"], cfg.groups)
-    h = _conv2d(F.silu(h), p["conv2"])
-    skip = _conv2d(x, p["skip"]) if "skip" in p else x
-    return h + skip
+def _conv_part(x, p, tensor: Optional[AxisGroup] = None, stride=1):
+    """A conv's output channels that `p` (the rank's pieces) holds, from
+    the whole `x`."""
+    return _conv2d(_conv.copy_to(x, tensor), p, stride)
 
 
-def _self_attention(x, p, cfg: Config):
+def _res_part1(x, temb, p, cfg: Config,
+               tensor: Optional[AxisGroup] = None):
+    """A resblock's conv1 output plus its time projection, over the
+    channels that `p` holds: x and temb whole."""
+    h = F.silu(_group_norm(x, p["norm1"], cfg.groups))
+    h = _conv2d(_conv.copy_to(h, tensor), p["conv1"])
+    t = _conv.copy_to(F.silu(temb), tensor) @ \
+        p["temb"]["kernel"].to(temb.dtype) + p["temb"]["bias"].to(temb.dtype)
+    return h + t[:, :, None, None].to(h.dtype)
+
+
+def _res_part2(h, x, p, cfg: Config, tensor: Optional[AxisGroup] = None):
+    """A resblock's conv2 output, plus its skip conv's, over the channels
+    that `p` holds: h (`_res_part1`'s, gathered) and x whole."""
+    h = F.silu(_group_norm(h, p["norm2"], cfg.groups))
+    h = _conv2d(_conv.copy_to(h, tensor), p["conv2"])
+    if "skip" in p:
+        h = h + _conv2d(_conv.copy_to(x, tensor), p["skip"])
+    return h
+
+
+def _resblock(x, temb, p, cfg: Config, tensor: Optional[AxisGroup] = None):
+    """x and the result whole (on every rank of `tensor`)."""
+    h = _conv.gather_channels(_res_part1(x, temb, p, cfg, tensor), tensor)
+    h = _conv.gather_channels(_res_part2(h, x, p, cfg, tensor), tensor)
+    return h if "skip" in p else h + x
+
+
+def _attn_part1(x, p, cfg: Config, tensor: Optional[AxisGroup] = None):
+    """The attention's q k^T over the columns of q, k and v that `p`
+    holds, formed in fp32 (a part rounded to bf16 before the sum would
+    round once a part), and those columns of v: x whole."""
+    h = _group_norm(x, p["norm"], cfg.groups)
+    flat = _conv.copy_to(h.flatten(2).transpose(1, 2), tensor)  # [B, HW, C]
+    qkv = flat @ p["qkv"]["kernel"].to(flat.dtype) + \
+        p["qkv"]["bias"].to(flat.dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    return torch.matmul(_conv.wide(q), _conv.wide(k).transpose(1, 2)), v
+
+
+def _attn_part2(logits, v, p, tensor: Optional[AxisGroup] = None):
+    """The attention's output before `out`'s bias, over the rows of `out`
+    that `p` holds: logits (the sum of `_attn_part1`'s) whole, v that
+    part's."""
+    c = p["out"]["kernel"].shape[1]
+    probs = torch.softmax(logits / math.sqrt(c), dim=-1).to(v.dtype)
+    return torch.matmul(_conv.copy_to(probs, tensor), v) @ \
+        p["out"]["kernel"].to(v.dtype)
+
+
+def _attn_out(x, o, p):
+    """x plus the attention's output o [B, HW, C] and `out`'s bias."""
     b, c, hh, ww = x.shape
+    o = o + p["out"]["bias"].to(o.dtype)
+    return x + o.transpose(1, 2).reshape(b, c, hh, ww)
+
+
+def _self_attention(x, p, cfg: Config, tensor: Optional[AxisGroup] = None):
+    """x whole; over `tensor` this rank's c/t columns of q, k and v and
+    rows of `out` (the module docstring)."""
+    if tensor is not None:
+        logits, v = _attn_part1(x, p, cfg, tensor)
+        o = _attn_part2(collectives.reduce_from(logits, tensor.group), v, p,
+                        tensor)
+        return _attn_out(x, collectives.reduce_from(o, tensor.group), p)
     h = _group_norm(x, p["norm"], cfg.groups)
     flat = h.flatten(2).transpose(1, 2)                   # [B, HW, C]
     qkv = flat @ p["qkv"]["kernel"].to(flat.dtype) + \
         p["qkv"]["bias"].to(flat.dtype)
     q, k, v = qkv.chunk(3, dim=-1)
     logits = _conv.wide(torch.matmul(q, k.transpose(1, 2)))
-    probs = torch.softmax(logits / math.sqrt(c), dim=-1).to(v.dtype)
-    o = torch.matmul(probs, v)
-    o = o @ p["out"]["kernel"].to(o.dtype) + p["out"]["bias"].to(o.dtype)
-    return x + o.transpose(1, 2).reshape(b, c, hh, ww)
+    probs = torch.softmax(logits / math.sqrt(x.shape[1]), dim=-1).to(v.dtype)
+    return _attn_out(x, torch.matmul(probs, v) @ p["out"]["kernel"].to(
+        v.dtype), p)
 
 
 def _upsample(x):
@@ -287,42 +381,47 @@ def apply(params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
           cfg: Config = Config()) -> torch.Tensor:
     """Predict the noise in x_t. x: [B, H, W, C] in [-1, 1]; t: [B] ints.
     Returns eps_hat with x's shape (cfg.dtype activations, fp32 out)."""
-    _conv.batch_groups(params["conv_in"]["kernel"], "diffusion")
-    params = map_params(sharding.gather_for_use, params)
+    tensor = _conv.mesh_groups(params["conv_in"]["kernel"],
+                               "diffusion").tensor
+    params = map_params(
+        lambda t: sharding.gather_for_use(t, keep=("tensor",)), params)
     h = _conv.nchw(x, cfg.dtype)
     tm = params["time_mlp"]
     temb = _timestep_embedding(t, cfg.time_dim).to(tm["fc1"]["kernel"].dtype)
     temb = F.silu(temb @ tm["fc1"]["kernel"] + tm["fc1"]["bias"])
     temb = temb @ tm["fc2"]["kernel"] + tm["fc2"]["bias"]
 
-    block = _resblock
-    if cfg.remat:
+    def block(h, p):
+        if not cfg.remat:
+            return _resblock(h, temb, p, cfg, tensor)
         from torch.utils.checkpoint import checkpoint
 
-        def block(h, temb, p, cfg):
-            return checkpoint(_resblock, h, temb, p, cfg,
-                              use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(_resblock, h, temb, p, cfg, tensor,
+                          use_reentrant=False, preserve_rng_state=False)
 
-    h = _conv2d(h, params["conv_in"])
+    def split_conv(h, p, stride=1):
+        return _conv.gather_channels(_conv_part(h, p, tensor, stride), tensor)
+
+    h = split_conv(h, params["conv_in"])
     skips = []
     n = len(params["down"])
     for i in range(n):
         lvl = params["down"][str(i)]
-        h = block(h, temb, lvl["res"], cfg)
+        h = block(h, lvl["res"])
         skips.append(h)
         if i < n - 1:
-            h = _conv2d(h, lvl["down"], stride=2)
-    h = block(h, temb, params["mid"]["res1"], cfg)
+            h = split_conv(h, lvl["down"], stride=2)
+    h = block(h, params["mid"]["res1"])
     if "attn" in params["mid"]:
-        h = _self_attention(h, params["mid"]["attn"], cfg)
-    h = block(h, temb, params["mid"]["res2"], cfg)
+        h = _self_attention(h, params["mid"]["attn"], cfg, tensor)
+    h = block(h, params["mid"]["res2"])
     for j in range(n):
         lvl = params["up"][str(j)]
         i = n - 1 - j
         h = torch.cat([h, skips[i]], dim=1)
-        h = block(h, temb, lvl["res"], cfg)
+        h = block(h, lvl["res"])
         if i > 0:
-            h = _conv2d(_upsample(h), lvl["up"])
+            h = split_conv(_upsample(h), lvl["up"])
     h = _group_norm(h, params["norm_out"], cfg.groups)
     h = _conv2d(F.silu(h), params["conv_out"])
     return _conv.wide(_conv.nhwc(h))
@@ -363,7 +462,8 @@ def reverse_step(params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
                  tables: Optional[Dict[str, torch.Tensor]] = None
                  ) -> torch.Tensor:
     """One ancestral step x_t -> x_{t-1}. `t`: a [1] int64 tensor on x's
-    device (read on the device only, so the step can be captured)."""
+    device (read on the device only, so the step can be captured).
+    `params` whole: plain tensors (`sample` gathers a state's)."""
     tables = tables or schedule_tables(cfg, x.device)
     eps_hat = apply(params, x, t.expand(x.shape[0]), cfg)
     coef = tables["coef"].index_select(0, t)
@@ -379,7 +479,9 @@ def sample(params: Dict[str, Any], generator: torch.Generator, n: int,
     [-1, 1]. x_T and the T noise tensors are drawn from `generator` (on
     the params' device) before the loop. `graph` (default: on CUDA)
     captures one step as a CUDA graph and replays it; otherwise the same
-    step runs eagerly."""
+    step runs eagerly. Params laid over a mesh are gathered whole first
+    (every rank then samples alone)."""
+    params = map_params(sharding.full_value, params)
     dev = generator.device
     shape = (n, cfg.image_size, cfg.image_size, cfg.channels)
     T = cfg.timesteps

@@ -241,7 +241,8 @@ def param_logical_axes(cfg: Config) -> Dict[str, Any]:
         blocks["mlp_down"] = {"kernel": (L, "mlp", "embed"),
                               "bias": (L, "embed")}
     return {
-        "wte": ("vocab", "embed"),
+        # Split by vocab rows, 50,257 of them: unequal pieces by design.
+        "wte": (sharding.Uneven("vocab"), "embed"),
         "wpe": (None, "embed"),
         "blocks": blocks,
         "ln_f": {"scale": ("embed",), "bias": ("embed",)},

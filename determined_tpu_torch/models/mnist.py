@@ -6,6 +6,14 @@ model; the convolutions run in NCHW on OIHW kernels (models/_conv.py).
 `fc1`'s rows run (h, w, c), as the JAX model flattens NHWC, so the
 activation is flattened in that order: an NCHW flatten would permute
 them.
+
+Over a `tensor` axis (`fc1` over ("embed", "mlp"), `fc2` over ("mlp",
+None), as in the JAX model) the dense pair is Megatron's MLP: each rank
+computes its columns of `fc1` (its slice of the hidden units) and its
+rows of `fc2`, the f/g pair (`parallel/collectives`) stands at the
+pair's start and end, and `fc2`'s bias is added once, after the sum. The
+convolutions are replicated there, as in the JAX model, and so are the
+logits and the loss.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import torch.nn.functional as F
 
 from determined_tpu_torch.models import _conv
 from determined_tpu_torch.models.gpt2 import map_params
-from determined_tpu_torch.parallel import sharding
+from determined_tpu_torch.parallel import collectives, sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +83,9 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
 def apply(params: Dict[str, Any], images: torch.Tensor,
           cfg: Config = Config()) -> torch.Tensor:
     """images: [B, 28, 28, 1] -> logits [B, n_classes]."""
-    _conv.batch_groups(params["fc1"]["kernel"], "MNIST")
-    p = map_params(sharding.gather_for_use, params)
+    tensor = _conv.mesh_groups(params["fc1"]["kernel"], "MNIST").tensor
+    p = map_params(lambda t: sharding.gather_for_use(t, keep=("tensor",)),
+                   params)
     x = _conv.nchw(images, cfg.dtype)
     x = F.relu(_conv.conv2d_same(x, p["conv1"]["kernel"],
                                  bias=p["conv1"]["bias"]))
@@ -84,9 +93,20 @@ def apply(params: Dict[str, Any], images: torch.Tensor,
     x = F.relu(_conv.conv2d_same(x, p["conv2"]["kernel"],
                                  bias=p["conv2"]["bias"]))
     x = F.max_pool2d(x, 2, 2)
-    x = _conv.nhwc(x).reshape(x.shape[0], -1)
-    x = F.relu(x @ p["fc1"]["kernel"] + p["fc1"]["bias"])
-    return x @ p["fc2"]["kernel"] + p["fc2"]["bias"]
+    x = _fc_part(_conv.nhwc(x).reshape(x.shape[0], -1), p, tensor)
+    if tensor is not None:
+        x = collectives.reduce_from(x, tensor.group)
+    return x + p["fc2"]["bias"]
+
+
+def _fc_part(x, p, tensor=None):
+    """The dense pair over the hidden units that `p` (the rank's pieces)
+    holds, fc2's bias left out: x [B, F] whole. The sum of the ranks'
+    parts plus the bias is the pair; with `tensor=None` one process runs
+    any rank's part (chip_smoke.py's phase 18a)."""
+    x = _conv.copy_to(x, tensor)
+    return F.relu(x @ p["fc1"]["kernel"] + p["fc1"]["bias"]) @ \
+        p["fc2"]["kernel"]
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],

@@ -24,7 +24,17 @@ Over a mesh whose `data` or `fsdp` axis is above 1, the statistics are
 those of the global batch, as the JAX function's `jnp.mean` over a
 batch-sharded array is under GSPMD: the fp32 sum and sum of squares are
 all-reduced over the batch axes, and in the backward the per-channel sums
-of the gradient that reach the statistics are too.
+of the gradient that reach the statistics are too. Never over `tensor`
+or `context`: the ranks of those groups hold the same rows.
+
+Over a `tensor` axis only the head is split, by its class columns (its
+kernel over ("embed", "mlp"), as in the JAX model): each rank computes
+its columns of the logits from the pooled features (Megatron's f before
+the product), the logits are gathered whole (`collectives.gather_from`:
+the loss on them is replicated, so each rank keeps its columns' slice of
+the gradient) and the replicated bias is added once, to the whole. The
+convolutions and BatchNorm are replicated over `tensor` and `context`,
+as in the JAX model.
 
 The batch statistics are a separate tree (`init` returns `(params,
 batch_stats)`), the Trainer's `extra` for a stateful trial; `loss_fn`
@@ -257,11 +267,12 @@ def apply(params: Dict[str, Any], stats: Dict[str, Any],
     batch_stats)."""
     import torch.distributed as dist
 
-    groups = _conv.batch_groups(params["stem"]["kernel"], "ResNet")
+    groups, tensor = _conv.mesh_groups(params["stem"]["kernel"], "ResNet")
     ranks = 1
     for g in groups:
         ranks *= dist.get_world_size(g)
-    p = map_params(sharding.gather_for_use, params)
+    p = map_params(lambda t: sharding.gather_for_use(t, keep=("tensor",)),
+                   params)
 
     def bn(x, bp, bst):
         return batch_norm(x, bp, bst, cfg, train, groups, ranks)
@@ -293,9 +304,26 @@ def apply(params: Dict[str, Any], stats: Dict[str, Any],
                                          bp["proj_bn"], bst["proj_bn"])
         x = F.relu(y + residual)
         new_stats[name] = ns
-    x = _conv.wide(x).mean(dim=(2, 3))
-    logits = x @ _conv.wide(p["head"]["kernel"]) + _conv.wide(p["head"]["bias"])
-    return logits, new_stats
+    logits = _head_part(_conv.wide(x).mean(dim=(2, 3)), p, tensor)
+    if tensor is not None:
+        logits = collectives.gather_from(logits, tensor.group, 1)
+    return logits + _conv.wide(p["head"]["bias"]), new_stats
+
+
+def _head_part(x, p, tensor=None):
+    """The head's logits over the class columns that `p` (the rank's
+    pieces) holds, its bias left out: x [B, width] the pooled features,
+    whole. With `tensor=None` one process runs any rank's part
+    (chip_smoke.py's phase 18a)."""
+    return _conv.copy_to(x, tensor) @ _conv.wide(p["head"]["kernel"])
+
+
+def _nll(logits, labels):
+    """(mean cross entropy, accuracy) of fp32 logits [B, classes]."""
+    labels = labels.long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[:, None])[:, 0].mean()
+    return nll, (logits.argmax(-1) == labels).float().mean()
 
 
 def loss_fn(params, stats, batch: Dict[str, torch.Tensor], rng=None,
@@ -304,9 +332,6 @@ def loss_fn(params, stats, batch: Dict[str, torch.Tensor], rng=None,
     -> (loss, {"accuracy"}, new batch_stats)."""
     logits, new_stats = apply(params, stats, batch["images"], cfg,
                               train=train)
-    labels = batch["labels"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels[:, None])[:, 0].mean()
-    acc = (logits.argmax(-1) == labels).float().mean()
+    nll, acc = _nll(logits, batch["labels"])
     return nll, {"accuracy": acc}, new_stats
 

@@ -16,6 +16,13 @@ where the split starts and ends:
     loss's f and p, the mean loss over the context axis): the gradient of
     a rank's part is the sum of every rank's use of the whole.
   - `max_over`: the maximum, outside autograd (a softmax's shift).
+  - `gather_from`: all-gather along a dim forward, the rank's own slice
+    of the gradient backward (Megatron's gather). It stands where a split
+    activation (a conv's or a product's output channels) is made whole
+    for consumers that compute replicated over the group: each rank then
+    holds the same full gradient of the whole, and its slice is the
+    gradient of its piece. A reduce-scatter there would count the
+    gradient once per rank.
 
 `groups` are process groups (`parallel/mesh.axis_group(...).group`);
 a sequence of them reduces over each in turn, which over the axes of one
@@ -73,6 +80,25 @@ class _SumOver(torch.autograd.Function):
         return all_reduce(grad, ctx.groups), None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.index = dim, dist.get_rank(group)
+        ctx.size = t.shape[dim]
+        t = t.contiguous()
+        pieces = [torch.empty_like(t)
+                  for _ in range(dist.get_world_size(group))]
+        dist.all_gather(pieces, t, group=group)
+        return torch.cat(pieces, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), \
+            None, None
+
+
 def _tuple(groups) -> tuple:
     return tuple(groups) if isinstance(groups, (list, tuple)) else (groups,)
 
@@ -95,3 +121,10 @@ def sum_over(t: torch.Tensor, groups) -> torch.Tensor:
 def max_over(t: torch.Tensor, groups) -> torch.Tensor:
     """The elementwise maximum over `groups`, detached."""
     return all_reduce(t, _tuple(groups), op="max")
+
+
+def gather_from(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Megatron's gather over one process group: the ranks' pieces of
+    `t` concatenated along `dim` in group-rank order; the gradient of
+    this rank's piece is its slice of the whole's gradient."""
+    return _GatherFrom.apply(t, group, dim)

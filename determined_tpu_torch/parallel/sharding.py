@@ -31,6 +31,11 @@ contiguous slice holds the q, k and v columns of its own heads. The leaf
 records its layout (`fused_layout`, `layout_of`), and `full_value` gives
 it back in the one-process layout (`from_split_layout`), which
 checkpoints hold.
+
+`check_even_split` refuses a leaf that the `tensor` axis would split
+into unequal pieces, as the JAX package's jit refuses one, but on a dim
+its model names with `Uneven(name)`: a model that computes over unequal
+pieces of that dim says so in its logical axes.
 """
 
 from __future__ import annotations
@@ -122,6 +127,33 @@ def to_split_layout(t, dim: int, pieces: int, parts: int):
 def from_split_layout(t, dim: int, pieces: int, parts: int):
     """The inverse of `to_split_layout`: the one-process layout."""
     return _regroup(t, dim, parts, pieces)
+
+
+class Uneven(str):
+    """A logical axis name for a dim that the model computes over in
+    unequal pieces, so `check_even_split` lets it pass; equal to the plain
+    name."""
+
+
+def check_even_split(name: str, shape: Sequence[int], logical_axes,
+                     placements, mesh) -> None:
+    """Raise ValueError, naming the leaf and the axis, when the `tensor`
+    mesh axis splits a dim of `shape` into unequal pieces (as the JAX
+    package's jit refuses one), but for a dim named `Uneven`."""
+    names = mesh.mesh_dim_names
+    for i, p in enumerate(placements):
+        n = mesh.size(i)
+        if names[i] != "tensor" or not p.is_shard() or n == 1 or \
+                shape[p.dim] % n == 0:
+            continue
+        logical = (logical_axes or (None,) * len(shape))[p.dim]
+        if isinstance(logical, Uneven):
+            continue
+        raise ValueError(
+            f"leaf {name!r}: dim {p.dim} ({logical!r}) of {tuple(shape)} "
+            f"does not split into {n} equal parts over the tensor mesh "
+            f"axis (tensor={n}); choose a tensor size that divides "
+            f"{shape[p.dim]}")
 
 
 class PartitionSpec(tuple):
@@ -361,6 +393,26 @@ def region(shape: Sequence[int], mesh_shape: Sequence[int], placements,
             offsets[d] += start
             sizes[d] = min(step, n - start)
     return tuple(offsets), tuple(sizes)
+
+
+def tensor_piece(full, logical_axes, index: int, size: int):
+    """Rank `index`'s piece of a leaf (`full`, in the one-process layout)
+    on a mesh whose only axis above 1 is `tensor`, of `size`, under the
+    default rules: the piece `distribute_full` keeps there (a `Fused` dim
+    in the tensor layout) and `gather_for_use(keep=("tensor",))` hands the
+    model. One process can then run each tensor rank's part of a layer
+    (chip_smoke.py's phase 18a)."""
+    placements = spec_to_placements(LogicalRules().spec(logical_axes))
+    split = placements[AXIS_ORDER.index("tensor")]
+    for dim, pieces in fused_dims(logical_axes).items():
+        if split.is_shard() and split.dim == dim and size > 1:
+            full = to_split_layout(full, dim, pieces, size)
+    offsets, sizes = region(
+        full.shape, [size if a == "tensor" else 1 for a in AXIS_ORDER],
+        placements, [index if a == "tensor" else 0 for a in AXIS_ORDER])
+    for dim, (start, n) in enumerate(zip(offsets, sizes)):
+        full = full.narrow(dim, start, n)
+    return full
 
 
 def regions(p) -> list:

@@ -339,6 +339,7 @@ def empty_train_state(abstract: Any, tx: optim.GradientTransformation,
             placements = sharding.mesh_placements(flat_specs[path], mesh)
             axes = _lookup_axes(param_logical_axes or {}, path) \
                 if isinstance(params, dict) else None
+            sharding.check_even_split(path, p.shape, axes, placements, mesh)
             _, sizes = sharding.region(p.shape, tuple(mesh.mesh.shape),
                                        placements, coord)
             d = DTensor.from_local(
@@ -390,7 +391,8 @@ def create_train_state(
     rank draws the same full params from the same generator seed and keeps
     its shard of each leaf (the placements of `aligned_param_specs`; a
     `Fused` dim split over the mesh in the tensor layout); the optimizer
-    state is built over the shards."""
+    state is built over the shards. A leaf the `tensor` axis would split
+    unevenly is refused first (`sharding.check_even_split`)."""
     params = init_fn(generator)
     if device is not None:
         params = _to_device(params, torch.device(device))
@@ -403,14 +405,18 @@ def create_train_state(
         flat_specs = _flatten(specs) if isinstance(specs, dict) else \
             {"0": specs}
         leaves = param_leaves(params)
-        sharded = []
+        laid = []
         for path, p in zip(flat_specs, leaves):
             placements = sharding.mesh_placements(flat_specs[path], mesh)
             axes = _lookup_axes(param_logical_axes or {}, path) \
                 if isinstance(params, dict) else None
-            sharded.append(sharding.distribute_full(
-                p.detach(), mesh, placements,
-                sharding.fused_layout(axes, placements, mesh)))
+            # Every leaf checked before any is distributed.
+            sharding.check_even_split(path, p.shape, axes, placements, mesh)
+            laid.append((p, placements, axes))
+        sharded = [sharding.distribute_full(
+            p.detach(), mesh, placements,
+            sharding.fused_layout(axes, placements, mesh))
+            for p, placements, axes in laid]
         params = _rebuild(params, sharded)
     leaves = param_leaves(params)
     for p in leaves:

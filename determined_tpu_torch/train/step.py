@@ -11,10 +11,17 @@ gathers before use; their gradients come back reduce-scattered over fsdp
 and averaged over data and context (`parallel/sharding.gather_for_use`;
 an MoE model's experts stay split over `expert`, ops/moe.py; a
 tensor-split leaf keeps its own piece's gradient, and a replicated one is
-already whole on every tensor rank through Megatron's f/g pair,
-models/gpt2.py). Over `context` each rank's gradient is its own chunk's
-loss's, once: the loss's mean over the group sums in the backward
-(`collectives.sum_over`), and the average over the axis divides. The
+already whole on every tensor rank through Megatron's f/g pair and
+gather, models/gpt2.py and the conv models). Over `context` each rank's
+gradient is its own chunk's loss's, once: the loss's mean over the group
+sums in the backward (`collectives.sum_over`), and the average over the
+axis divides. A model that names no "seq" axis (MNIST, ResNet, the
+diffusion UNet) computes replicated over `context`: the group's ranks
+hold the same rows, so their gradients are equal and the average over
+the axis leaves them as they are. The ranks of a tensor or context group
+must draw the same random numbers (the diffusion loss's timesteps and
+noise): the Trainer seeds every rank's step generator with `seed + 1`
+(train/trainer.py). The
 global norm counts each shard once and each replica once, and the
 reported loss and metrics are the means over every rank (an all-reduce;
 the ranks of an expert, context or tensor group hold the same rows and

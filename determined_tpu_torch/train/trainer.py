@@ -276,7 +276,9 @@ class Trainer:
                 f"{type(self.trial).__name__} asks for the mesh axes {split}; "
                 "its model splits no work over tensor, context or expert "
                 "(supports_model_parallel() is False), so the port trains it "
-                "over data and fsdp only (ROADMAP.md Queue 1 item 14)")
+                "over data and fsdp only; split the model's work over those "
+                "axes (as models/mnist.py, resnet.py and diffusion.py do) "
+                "and drop the override")
 
     def _ensure_core(self, max_length: Optional[int]) -> core_mod.Context:
         if self.core is None:

@@ -13,11 +13,13 @@ global batch (`TrialContext.distributed` says which), where a JAX process
 yields its host's (`parallel.mesh.batch_shard` says which block).
 `mesh_config()` may set `data` and `fsdp` above 1, `expert` for a
 trial that declares `supports_expert_parallel()`, `tensor` and `context`
-for a GPT-2 trial (dense or MoE), and `pipeline` for a stateless trial
+for a trial whose model splits its work over them (GPT-2, dense or MoE;
+MNIST, ResNet and the diffusion UNet, which split over `tensor` and
+compute replicated over `context`), and `pipeline` for a stateless trial
 that implements `loss_pipelined()` (the Trainer selects it, and
 `evaluate_pipelined()` when the trial has it); the Trainer raises for
 `tensor`, `context` and `expert` for a trial whose
-`supports_model_parallel()` is False (ROADMAP.md Queue 1 item 14).
+`supports_model_parallel()` is False.
 """
 
 from __future__ import annotations
@@ -146,11 +148,12 @@ class TorchTrial(abc.ABC):
 
     def supports_model_parallel(self) -> bool:
         """False for a trial whose model splits no work over the `tensor`,
-        `context` or `expert` axes (the convolutional models: MNIST,
-        ResNet, the diffusion UNet): the Trainer refuses those axes above
-        1 for it, before any state is built, where sharding its leaves by
-        their logical axes would give wrong gradients (ROADMAP.md Queue 1
-        item 14)."""
+        `context` or `expert` axes and would compute with its leaves laid
+        out by their logical axes anyway (a model of the user's own that
+        takes the port's sharded state without the collectives): the
+        Trainer refuses those axes above 1 for it, before any state is
+        built. The port's models (models/gpt2.py, mnist.py, resnet.py,
+        diffusion.py) split their work, so the default is True."""
         return True
 
     def supports_expert_parallel(self) -> bool:

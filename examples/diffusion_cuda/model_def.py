@@ -19,8 +19,10 @@ loads in the other. A set-but-missing path is an error, and so is a
 checkpoint directory. It imports only the port. Launched with the
 `DET_*` variables an agent sets (finetune_asha.yaml), `python3
 model_def.py` is a managed trial on CUDA; in local mode `core.init()`
-needs a `max_length`. The UNet computes over the data and fsdp mesh axes
-only.
+needs a `max_length`. A `mesh` hparam may set `tensor` (the UNet's
+convs, time projections and attention split by channels,
+models/diffusion.py) and `context` (computed replicated) beside `data`
+and `fsdp`.
 """
 
 import os
@@ -118,9 +120,6 @@ class DiffusionTrial(TorchTrial):
 
     def param_logical_axes(self):
         return diffusion.param_logical_axes(self.cfg)
-
-    def supports_model_parallel(self):
-        return False
 
     def optimizer(self):
         lr = float(self.context.get_hparam("learning_rate", 1e-4))

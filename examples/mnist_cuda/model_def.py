@@ -9,8 +9,9 @@ optimizer (SGD with momentum 0.9) and the same evaluation. It imports
 only the port. Launched with the `DET_*` variables an agent sets
 (config.yaml, adaptive.yaml), `python3 model_def.py` is a managed trial on
 the first CUDA device; in local mode `core.init()` needs a `max_length`
-(chip_smoke.py phase 13a). The model computes over the data and fsdp mesh
-axes only.
+(chip_smoke.py phase 13a). A `mesh` hparam may set `tensor` (fc1's
+columns and fc2's rows split, models/mnist.py) and `context` (computed
+replicated) beside `data` and `fsdp`.
 """
 
 import os
@@ -64,9 +65,6 @@ class MNistTrial(TorchTrial):
 
     def param_logical_axes(self):
         return mnist.param_logical_axes(self.cfg)
-
-    def supports_model_parallel(self):
-        return False
 
     def optimizer(self):
         return optim.sgd(

@@ -109,6 +109,22 @@ def test_spec_to_placements():
         assert pl[names.index("data")] == R, k
 
 
+def test_only_a_dim_named_uneven_splits_into_unequal_pieces():
+    class Mesh:  # data 1 x tensor 2: what check_even_split reads of one
+        mesh_dim_names = ("data", "tensor")
+
+        def size(self, i):
+            return (1, 2)[i]
+
+    placements = [Replicate(), Shard(0)]
+    axes = tgpt2.param_logical_axes(tgpt2.Config())["wte"]
+    assert isinstance(axes[0], tsharding.Uneven) and axes == ("vocab", "embed")
+    tsharding.check_even_split("wte", (50257, 768), axes, placements, Mesh())
+    with pytest.raises(ValueError, match=r"'wte': dim 0 \('vocab'\)"):
+        tsharding.check_even_split("wte", (50257, 768), ("vocab", "embed"),
+                                   placements, Mesh())
+
+
 def test_single_device_mesh_and_distribute_full():
     import torch.distributed as dist
 

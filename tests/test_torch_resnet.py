@@ -29,7 +29,9 @@ Then the stateful protocol through the Trainer and the step:
   checkpoint's `extra` restored bit-identical;
 - `make_multi_step` against N `make_train_step`s (bitwise, stats
   included), the stats staying the state's own buffers;
-- the refusal of `tensor`, `context` and `expert` above 1, word for word.
+- the refusal of `tensor`, `context` and `expert` above 1 for a trial
+  that says its model splits no work (`supports_model_parallel()`
+  False), word for word.
 
 The world-2 run over `data` is in test_torch_resnet_data2.py.
 """
@@ -420,5 +422,6 @@ def test_the_model_axes_are_refused_before_any_state(tmp_path, axes):
     assert str(e.value) == (
         f"Split asks for the mesh axes {axes}; its model splits no work "
         "over tensor, context or expert (supports_model_parallel() is "
-        "False), so the port trains it over data and fsdp only (ROADMAP.md "
-        "Queue 1 item 14)")
+        "False), so the port trains it over data and fsdp only; split the "
+        "model's work over those axes (as models/mnist.py, resnet.py and "
+        "diffusion.py do) and drop the override")
