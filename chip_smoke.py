@@ -161,7 +161,11 @@ fails:
      the chief (losses at 5 and 10 held to phase 7's, atol 1e-5, bitwise
      printed) and commit a checkpoint the master registers; a serve
      replica restores it, and its logits must equal the restored params'
-     forward (fp32, 1e-3). Two ranks cannot share this one card
+     forward (fp32, 1e-3). The worker starts cold, as on a fresh node:
+     its kernel directory (DET_KERNEL_DIR) is empty and a compile-farm
+     signature is set, so its first step builds the flash library with
+     nvcc (`build_seconds` above 0, first flush `compile_cache_hit` 0)
+     and uploads it to the fake master. Two ranks cannot share this one card
      (`tools/two_ranks_one_card.py`: NCCL refuses a second rank on a
      device; gloo takes all_reduce, broadcast, all_gather_into_tensor and
      reduce_scatter_tensor on CUDA tensors, but both ranks die (SIGSEGV)
@@ -424,6 +428,31 @@ fails:
      at world 2 against world 1 under 12d's limits, each world's step
      and each rank's peak memory. With one card, `[18b] not run: 1
      card`.
+  19. the compile farm and warm start (docs/compile-farm-torch.md), each
+     process with its own empty kernel directory (DET_KERNEL_DIR under
+     build/smoke/p19; phase 2's build/kernels is never touched), against
+     an in-process fake master with the farm's endpoints (`FarmMaster`,
+     7c's with the model def, the artifact store, the jobs and links).
+     19a: `python -m determined_tpu_torch.compile` for the example's
+     model def at phase 7's hparams must build both libraries with nvcc,
+     upload them as `aot-kernel_*` artifacts and mark the job DONE with
+     the fingerprint; a second signature (another learning rate) must
+     link to the first without building. 19b: 8c's launched trial, 10
+     steps at phase 7's hparams, warm (`DET_COMPILE_SIGNATURE` set, the
+     worker's artifacts prewarmed into `DET_COMPILE_AOT_DIR` as the agent
+     does, `CUDA_HOME` and `PATH` at an nvcc that exits 1), against 8c's
+     cold start: its `build_seconds` must read 0.0 with the library from
+     the farm, its first flush `compile_cache_hit` 1, the flash launches
+     phase 7's formula, its losses bitwise 8c's. 19c: 5's replica in a
+     process of its own, beside 19a's build: a corrupt artifact under its
+     serving signature must raise with nvcc unreachable, then be rebuilt
+     with nvcc (the cold replica, which saves the library back into the
+     node's AOT directory); then a warm replica from that artifact, with
+     nvcc unreachable (`kernel_build_s` 0.0), the paged kernel launched
+     once per layer a decode step in both, and in that process phase 3's
+     8-slot serving case and phase 4's training-shape cases (planted
+     faults included) on the two fetched libraries. Prints cold against
+     warm `harness.compile` ms and replica build + capture s.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
@@ -432,8 +461,10 @@ paged kernel, `launches_moe` phase 11a's, 11c's for the paged kernel,
 and for the flash kernels `launches_long` phase 12a's,
 `launches_ring` 12b's ring schedule, `launches_torch_trial` 14a's
 `pytorch.Trainer.fit`, `launches_pipeline` 16a's schedule walked over
-2 stages and `launches_elastic` 17a's `fit` after the per-rank restore,
-and `long_ms` a launch's device
+2 stages, `launches_elastic` 17a's `fit` after the per-rank restore
+and `launches_warm` 19b's warm trial, for the paged kernel
+`launches_warm_per_decode_step` 19c's warm replica, and `long_ms` a
+launch's device
 time in 12a's steps, at B 4, S 8192, under torch.profiler, beside its
 bound at that shape, `long_bound_ms`); the last line is `{"ok": true,
 "device": {...}}`.
@@ -600,7 +631,7 @@ PAGED_CASES = (
     (8, 256, (4095, 511, 512, 513, 1023, 1024, 4000)))
 
 
-def phase_kernel_check():
+def phase_kernel_check(cases=PAGED_CASES):
     import torch
 
     from determined_tpu_torch.ops.paged_attention import (
@@ -610,7 +641,7 @@ def phase_kernel_check():
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for slots, mb, fixed in PAGED_CASES:
+        for slots, mb, fixed in cases:
             args = make_case(slots, dtype, gen, mb=mb, fixed=fixed)
             out = paged_attention_cuda(*args)
             again = paged_attention_cuda(*args)
@@ -698,14 +729,14 @@ def held(got, want, atol, rtol):
     return float(err.max()), float((err / (atol + rtol * want.abs())).max())
 
 
-def phase_flash_check():
+def phase_flash_check(cases=FLASH_CASES):
     import torch
 
     from determined_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    for b, s, h, d, causal in FLASH_CASES:
+    for b, s, h, d, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
             for bf16 in (False, True):
                 q, k, v, dout = flash_inputs(b, s, h, d, dtype, gen)
@@ -2432,7 +2463,7 @@ sys.path.insert(0, ROOT)
 import torch
 import torch.distributed as dist
 from determined_tpu_torch import core
-from determined_tpu_torch.ops import flash_attention as fa
+from determined_tpu_torch.ops import _build, flash_attention as fa
 from determined_tpu_torch.train import Trainer
 from determined_tpu_torch.train.trial import TrialContext
 
@@ -2475,6 +2506,8 @@ out.update(mesh=dict(zip(trainer.mesh.mesh_dim_names,
                      "dq": fa.flash_dq_cuda.launches,
                      "dkv": fa.flash_dkv_cuda.launches},
            reference_calls=fa.reference_attention.calls,
+           build_seconds=dict(_build.build_seconds),
+           kernel_sources=dict(_build.sources),
            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 print("RESULT " + json.dumps(out), flush=True)
 ctx.close()
@@ -2493,17 +2526,19 @@ GPT2_ENTRY = "examples/gpt2_cuda/model_def.py:GPT2Trial"
 
 
 def launch_trial(workdir, hparams, storage, nproc, slots, backend=None,
-                 trial_id=LAUNCHED_TRIAL, timeout=900, entry=GPT2_ENTRY):
+                 trial_id=LAUNCHED_TRIAL, timeout=900, entry=GPT2_ENTRY,
+                 env=None):
     """The example trial (`entry`: a trial class, "file:Name", or a
     factory of one, "file:name()") through `python -m
     determined_tpu_torch.launch.torch_distributed` against a fresh fake
-    master with one op of LAUNCHED_STEPS: -> (each rank's RESULT, the
-    master, the launcher's exit code, its output)."""
+    master with one op of LAUNCHED_STEPS, in `env` (default this
+    process's): -> (each rank's RESULT, the master, the launcher's exit
+    code, its output)."""
     script = os.path.join(workdir, "launched_worker.py")
     with open(script, "w") as f:
         f.write(LAUNCHED_WORKER)
     master = FakeMaster(LAUNCHED_STEPS)
-    env = dict(os.environ)
+    env = dict(os.environ if env is None else env)
     env.update({
         "DET_MASTER": master.url, "DET_TRIAL_ID": str(trial_id),
         "DET_EXPERIMENT_ID": "1", "DET_ALLOCATION_ID": f"launched-{nproc}",
@@ -2544,7 +2579,10 @@ def phase_launched_trial(workdir, hparams, card, train=None):
     DeviceMesh of the world, run the flash kernels, report through the
     chief and commit a checkpoint the master registers; a serve replica
     then restores it and its logits must equal the restored params'
-    forward (fp32, 1e-3)."""
+    forward (fp32, 1e-3). The worker starts cold, as on a fresh node: its
+    kernel directory is empty, so its first step builds the flash library
+    with nvcc and hands it to the compile farm (a signature is set; the
+    fake master takes the upload); 19b's warm run is held to it."""
     import shutil
 
     import numpy as np
@@ -2555,10 +2593,14 @@ def phase_launched_trial(workdir, hparams, card, train=None):
     from determined_tpu_torch.serve.task import build_replica
 
     storage = os.path.join(workdir, "launched_checkpoints")
-    shutil.rmtree(storage, ignore_errors=True)
+    kernels = os.path.join(workdir, "launched_kernels")
+    for d in (storage, kernels):
+        shutil.rmtree(d, ignore_errors=True)
     t0 = time.monotonic()
-    results, master, rc, log = launch_trial(workdir, hparams, storage, 1,
-                                            "[0]")
+    results, master, rc, log = launch_trial(
+        workdir, hparams, storage, 1, "[0]", env=dict(
+            os.environ, DET_KERNEL_DIR=kernels,
+            DET_COMPILE_SIGNATURE="smoke-8c-cold"))
     wall = time.monotonic() - t0
     with open(os.path.join(workdir, "launched_trial.log"), "w") as f:
         f.write(log)
@@ -2625,9 +2667,21 @@ def phase_launched_trial(workdir, hparams, card, train=None):
         f"restored params' forward, max |diff| {worst:.3e} (atol 1e-3)")
     if worst > 1e-3:
         fail("the replica's logits differ from the launched trial's params")
+    flush = first_flush(master)
+    uploads = [n for b in master.posted("/compile_cache/smoke-8c-cold")
+               for n in b["files"]]
+    say(f"[launch] [{card}] cold start: harness.compile "
+        f"{flush['compile_ms']:.1f} ms (train_step's first call), "
+        f"compile_cache_hit {flush['compile_cache_hit']}, build_seconds "
+        f"{r['build_seconds']}, uploaded {uploads}")
+    if r["kernel_sources"] != {"flash_attention": "nvcc"} or \
+            flush["compile_cache_hit"] != 0.0 or len(uploads) != 1:
+        fail("the launched trial's cold start did not build and upload "
+             "the flash library")
     del engine, params
     _free_cuda()
-    return {"losses": losses, "wall_s": wall}
+    return {"losses": losses, "wall_s": wall, "flush": flush, "result": r,
+            "spans": compile_spans(master)}
 
 
 # ------------------------------------------------------------------ phase 9
@@ -6421,6 +6475,368 @@ def phase_conv_split_world(workdir, card):
         for i, (model, axis, hp, entry, repeat) in enumerate(runs)}
 
 
+# ------------------------------------------------------------------ phase 19
+
+
+# One process of 19b's and 19c's runs, as `python p19_worker.py ROOT MODE
+# ARGS_JSON`: "replica_cold" (a corrupt artifact refused without nvcc, then
+# rebuilt, then the replica built and captured), "warm" (the replica from
+# the node's AOT directory, then the flash library from the worker's
+# artifacts and the phase 3 and 4 cases on both fetched libraries). Its
+# kernel directory (DET_KERNEL_DIR) starts empty.
+P19_WORKER = r'''
+import json, os, sys, time
+ROOT, MODE, ARGS = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+sys.path.insert(0, ROOT)
+import numpy as np
+import torch
+import chip_smoke
+from determined_tpu_torch.compile.runtime import FarmClient
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.serve.task import build_replica
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = {}
+
+
+def replica():
+    """Build and capture 5's replica; a prefill and decode steps -> the
+    paged launches a decode step holds."""
+    t0 = time.monotonic()
+    engine, _ = build_replica(ARGS["config"])
+    engine.compile()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    prompt = np.random.default_rng(0).integers(0, 50257, 40).astype(np.int32)
+    engine.prefill_logits(0, prompt)
+    n, launches0 = 4, engine.attention_launches
+    pos = np.zeros(engine.slots, np.int32)
+    tok = np.zeros(engine.slots, np.int32)
+    for i in range(n):
+        pos[0] = len(prompt) + i
+        engine.decode_logits(tok, pos)
+    torch.cuda.synchronize()
+    return {"build_capture_s": secs, "stats": dict(engine.compile_stats),
+            "launches_per_step": (engine.attention_launches - launches0) / n,
+            "n_layer": engine.cfg.n_layer}
+
+
+if MODE == "replica_cold":
+    try:
+        build_replica(ARGS["config"])[0].compile()
+        out["refused"] = None
+    except RuntimeError as e:
+        out["refused"] = str(e).splitlines()[0]
+    os.environ["CUDA_HOME"] = ARGS["cuda_home"]
+    os.environ["PATH"] = ARGS["path"]
+    out["replica"] = replica()
+else:
+    out["replica"] = replica()
+    _build.load("flash_attention", farm=FarmClient(None, ARGS["signature"]))
+    chip_smoke.phase_kernel_check(chip_smoke.PAGED_CASES[1:2])
+    chip_smoke.phase_flash_check(chip_smoke.FLASH_CASES[:1])
+out["nvcc"] = _build.nvcc_built()
+out["sources"] = dict(_build.sources)
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+class FarmMaster(FakeMaster):
+    """7c's fake master with the compile farm's endpoints: the model def,
+    the artifact store by signature, the compile jobs by state and
+    fingerprint, and links."""
+
+    def __init__(self, model_def_b64, length=0):
+        super().__init__(length)
+        self.model_def = model_def_b64
+        self.store = {}  # signature -> {name: bytes}
+        self.done = {}   # signature -> fingerprint
+
+    def answer(self, method, path, query, body):
+        import base64
+
+        out = super().answer(method, path, query, body)
+        parts = path.split("/")
+        if path.endswith("/model_def"):
+            return {"b64_tgz": self.model_def}
+        if path == "/api/v1/compile_jobs":
+            return {"jobs": [{"signature": s, "fingerprint": f, "state": "DONE"}
+                             for s, f in self.done.items()
+                             if f == query.get("fingerprint")]}
+        if path.startswith("/api/v1/compile_cache/"):
+            files = self.store.setdefault(parts[4], {})
+            if method == "POST":
+                for n, b64 in body["files"].items():
+                    files[n] = base64.b64decode(b64)
+                return {}
+            return {"files": [{"name": n, "b64": base64.b64encode(b).decode()}
+                              for n, b in files.items()
+                              if query.get("name") in (None, n)]}
+        if path.startswith("/api/v1/compile_jobs/"):
+            if path.endswith("/link"):
+                self.store[parts[4]] = dict(self.store[body["from"]])
+                self.done[parts[4]] = body["fingerprint"]
+            elif body.get("state") == "DONE":
+                self.done[parts[4]] = body["fingerprint"]
+        return out
+
+
+def tar_context(path):
+    """The model-def directory as the CLI uploads it: base64 tar.gz."""
+    import base64
+    import io
+    import tarfile
+
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+        for name in sorted(os.listdir(path)):
+            tar.add(os.path.join(path, name), arcname=name)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def no_nvcc(root):
+    """A CUDA_HOME whose nvcc exits 1: nvcc unreachable."""
+    bindir = os.path.join(root, "bin")
+    os.makedirs(bindir, exist_ok=True)
+    nvcc = os.path.join(bindir, "nvcc")
+    with open(nvcc, "w") as f:
+        f.write("#!/bin/sh\necho 'nvcc is unreachable here' >&2\nexit 1\n")
+    os.chmod(nvcc, 0o755)
+    return root
+
+
+def prewarm(aot_dir, signature, files):
+    """What the agent does before a container starts: the signature's aot-
+    artifacts written into the node's AOT directory."""
+    d = os.path.join(aot_dir, signature)
+    os.makedirs(d, exist_ok=True)
+    for name, data in files.items():
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(data)
+
+
+def run_p19(workdir, mode, args, env):
+    script = os.path.join(workdir, "p19_worker.py")
+    with open(script, "w") as f:
+        f.write(P19_WORKER)
+    proc = subprocess.run([sys.executable, script, ROOT, mode,
+                           json.dumps(args)], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    with open(os.path.join(workdir, f"p19_{mode}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        say((proc.stdout + proc.stderr)[-3000:])
+        fail(f"19 {mode}: the process exited {proc.returncode}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("[kernel]") or line.startswith("[flash]"):
+            say(f"[19] {mode}: {line}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def first_flush(master):
+    return next(b["metrics"] for b in master.posted("/metrics")
+                if b["group"] == "training" and "compile_ms" in b["metrics"])
+
+
+def compile_spans(master):
+    return [s for b in master.posted("/spans") for s in b["spans"]
+            if s["name"] == "harness.compile"]
+
+
+def phase_farm(workdir, hparams, ckpt, card, cold):
+    """19: the compile farm and warm start, each process with its own empty
+    kernel directory under build/smoke/p19 (never phase 2's build/kernels).
+    19a the worker builds both libraries and a second signature of the
+    same fingerprint links; 19b 8c's launched trial warm (the worker's
+    artifacts prewarmed, nvcc unreachable) against 8c's cold start
+    (`cold`, phase_launched_trial's result): bitwise losses,
+    `build_seconds` 0.0, `compile_cache_hit` 1, the flash launches of
+    phase 7's formula; 19c 5's replica cold (a corrupt artifact refused
+    without nvcc, then rebuilt; beside the worker's build) and warm, and
+    the phase 3 and 4 cases on the fetched libraries."""
+    import hashlib
+    import shutil
+
+    from determined_tpu_torch.compile import config_signature, step_fingerprint
+    from determined_tpu_torch.ops import _build
+    from determined_tpu_torch.serve.task import serving_signature
+
+    t_phase = time.monotonic()
+    root = os.path.join(workdir, "p19")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    fake = no_nvcc(os.path.join(root, "no_nvcc"))
+    real_path = os.environ.get("PATH", "")
+    blocked = {"CUDA_HOME": fake,
+               "PATH": os.path.join(fake, "bin") + os.pathsep + real_path}
+
+    def env_for(tag, **extra):
+        env = dict(os.environ, PYTHONPATH=ROOT,
+                   DET_KERNEL_DIR=os.path.join(root, tag, "kernels"))
+        env.update(extra)
+        return env
+
+    model_def = tar_context(os.path.join(ROOT, "examples", "gpt2_cuda"))
+    md_hash = hashlib.sha256(model_def.encode()).hexdigest()
+    master = FarmMaster(model_def)
+    hps = (hparams, {**hparams, "learning_rate": 1e-4})
+    sigs = [config_signature(hp, "python3 model_def.py", md_hash, 1)
+            for hp in hps]
+
+    def worker(i):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "determined_tpu_torch.compile"],
+            env=env_for(f"worker{i}", DET_MASTER=master.url,
+                        DET_SESSION_TOKEN="smoke",
+                        DET_COMPILE_SIGNATURE=sigs[i],
+                        DET_COMPILE_HPARAMS=json.dumps(hps[i]),
+                        DET_COMPILE_SLOTS="1", DET_EXPERIMENT_ID="1",
+                        DET_EXPERIMENT_CONFIG="{}"),
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            say((proc.stdout + proc.stderr)[-3000:])
+            fail(f"19a: the compile worker exited {proc.returncode}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["process_s"] = time.monotonic() - t0
+        return out
+
+    aot = os.path.join(root, "aot")
+    serving = {"model": "gpt2",
+               "model_config": {"model_size": "small", "dtype": "bfloat16"},
+               "checkpoint": ckpt, "max_batch_size": 8, "max_seq_len": 1024,
+               "kv_block_size": 16, "prefix_cache": True, "seed": SEED}
+    serve_sig = serving_signature(serving)
+    paged = _build.artifact_name("paged_attention")
+    storage = os.path.join(root, "warm", "checkpoints")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            # 19a's build and 19c's cold replica (a planted corrupt
+            # artifact, then nvcc) side by side: both are nvcc's work.
+            built = pool.submit(worker, 0)
+            prewarm(aot, serve_sig, {paged: b"\x7fELF corrupt"})
+            replica_cold = run_p19(root, "replica_cold", {
+                "config": {"serving": serving},
+                "cuda_home": os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                "path": real_path}, env_for("replica_cold",
+                                            DET_COMPILE_AOT_DIR=aot,
+                                            **blocked))
+            built = built.result()
+            artifacts = master.store.get(sigs[0], {})
+            # 19b: the warm trial from the worker's artifacts, prewarmed
+            # as the agent does; the link beside it.
+            prewarm(aot, sigs[0], artifacts)
+            linked = pool.submit(worker, 1)
+            t0 = time.monotonic()
+            results, tmaster, rc, log = launch_trial(
+                workdir, hparams, storage, 1, "[0]",
+                trial_id=LAUNCHED_TRIAL + 60, env=env_for(
+                    "warm", DET_COMPILE_SIGNATURE=sigs[0],
+                    DET_COMPILE_AOT_DIR=aot, **blocked))
+            wall = time.monotonic() - t0
+            linked = linked.result()
+    finally:
+        master.close()
+    with open(os.path.join(root, "trial_warm.log"), "w") as f:
+        f.write(log)
+
+    fingerprint = step_fingerprint()[0]
+    names = {_build.artifact_name(n) for n in _build.SOURCES}
+    say(f"[19a] [{card}] python -m determined_tpu_torch.compile: built "
+        f"{built.get('build_seconds')} s (nvcc, in parallel; compile_ms "
+        f"{built.get('compile_ms')}), uploaded {built.get('artifacts')} "
+        f"artifacts ({built.get('bytes')} bytes), process "
+        f"{built['process_s']:.1f} s; a second signature "
+        f"{'linked from the first' if linked.get('linked_from') == sigs[0] else 'did not link'}"
+        f" in {linked['process_s']:.1f} s; requests "
+        f"{[(m, p.rsplit('/', 1)[-1][:12]) for m, p, q, b in master.requests]}")
+    if set(built.get("build_seconds", {})) != set(_build.SOURCES) or \
+            built.get("fingerprint") != fingerprint or \
+            set(artifacts) != names or \
+            master.done.get(sigs[0]) != fingerprint or \
+            linked.get("linked_from") != sigs[0] or "build_seconds" in linked \
+            or master.store.get(sigs[1]) != artifacts:
+        fail(f"19a: the worker did not build, upload and link as expected: "
+             f"{built} {linked}")
+
+    if rc != 0 or list(results) != [0]:
+        say(log[-3000:])
+        fail(f"19b: the warm trial exited {rc}")
+    warm = {"result": results[0], "flush": first_flush(tmaster),
+            "spans": compile_spans(tmaster), "wall_s": wall,
+            "losses": [b["metrics"]["loss"] for b in tmaster.posted("/metrics")
+                       if b["group"] == "training" and "loss" in b["metrics"]]}
+    L, n_val = 12, 4
+    want = {"fwd": (2 * LAUNCHED_STEPS + n_val) * L,
+            "dq": LAUNCHED_STEPS * L, "dkv": LAUNCHED_STEPS * L}
+    for tag, r in (("cold (8c)", cold), ("warm", warm)):
+        sp = r["spans"][0] if r["spans"] else {"attrs": {}}
+        say(f"[19b] [{card}] {tag} trial: harness.compile "
+            f"{r['flush']['compile_ms']:.1f} ms (train_step's first call), "
+            f"compile_cache_hit {r['flush']['compile_cache_hit']}, "
+            f"build_seconds {r['result']['build_seconds']}, sources "
+            f"{r['result']['kernel_sources']}, span attrs {sp['attrs']}, "
+            f"flash launches {r['result']['launches']} (expected {want}), "
+            f"losses {[round(x, 4) for x in r['losses']]}, process "
+            f"{r['wall_s']:.1f} s")
+    if warm["result"]["build_seconds"] != {"flash_attention": 0.0} or \
+            warm["result"]["kernel_sources"] != {"flash_attention": "farm"} \
+            or warm["flush"]["compile_cache_hit"] != 1.0 or \
+            warm["result"]["launches"] != want or \
+            warm["result"]["reference_calls"] or \
+            warm["spans"][0]["attrs"].get("signature") != sigs[0]:
+        fail("19b: the warm trial did not run on the fetched library as "
+             "expected")
+    bitwise = warm["losses"] == cold["losses"]
+    say(f"[19b] warm losses bitwise 8c's cold run's: {bitwise}")
+    if not bitwise or len(warm["losses"]) != LAUNCHED_STEPS // 5:
+        fail("19b: the warm trial's losses differ from the cold run's")
+
+    # 19c: the warm replica from what the cold one saved back, and the
+    # phase 3 and 4 cases on the fetched libraries.
+    with open(os.path.join(aot, serve_sig, paged), "rb") as f:
+        saved_back = f.read()
+    replica_warm = run_p19(root, "warm", {
+        "config": {"serving": serving}, "signature": sigs[0]},
+        env_for("warm_replica", DET_COMPILE_AOT_DIR=aot, **blocked))
+    for tag, r in (("cold", replica_cold), ("warm", replica_warm)):
+        rep = r["replica"]
+        say(f"[19c] [{card}] {tag} replica: built and captured in "
+            f"{rep['build_capture_s']:.3f} s ({rep['stats']}); paged "
+            f"launches a decode step {rep['launches_per_step']} "
+            f"({rep['n_layer']} layers); nvcc {r['nvcc']}, sources "
+            f"{r['sources']}")
+    say(f"[19c] planted: the corrupt artifact without nvcc raised "
+        f"{replica_cold['refused']!r}; with nvcc it was rebuilt "
+        f"({replica_cold['replica']['stats'].get('kernel_source')}) and "
+        f"saved back ({len(saved_back)} bytes)")
+    rc_, rw = replica_cold["replica"], replica_warm["replica"]
+    if not replica_cold["refused"] or "cannot be rebuilt" not in \
+            replica_cold["refused"] or rc_["stats"].get("kernel_source") \
+            != "nvcc" or len(saved_back) <= 64 or \
+            rw["stats"].get("kernel_source") != "farm" or \
+            rw["stats"].get("kernel_build_s") != 0.0 or replica_warm["nvcc"] \
+            or replica_warm["sources"] != {"paged_attention": "farm",
+                                           "flash_attention": "farm"} or \
+            rw["launches_per_step"] != rw["n_layer"] or \
+            rc_["launches_per_step"] != rc_["n_layer"]:
+        fail("19c: the replica did not resolve its library as expected")
+    say(f"[19] [{card}] harness.compile cold {cold['flush']['compile_ms']:.1f}"
+        f" ms against warm {warm['flush']['compile_ms']:.1f} ms; replica "
+        f"build + capture cold {rc_['build_capture_s']:.3f} s against warm "
+        f"{rw['build_capture_s']:.3f} s; phase 19 took "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {"cold_ms": cold["flush"]["compile_ms"],
+            "warm_ms": warm["flush"]["compile_ms"],
+            "launches_warm": warm["result"]["launches"],
+            "paged_per_step_warm": rw["launches_per_step"],
+            "worker_build_s": built["build_seconds"],
+            "replica_s": {"cold": rc_["build_capture_s"],
+                          "warm": rw["build_capture_s"]}}
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -6444,7 +6860,7 @@ def main() -> int:
     pairs = phase_prefetch_pairs(workdir, hparams, card)
     multi = phase_multi_step(hparams, card)
     phase_remat_policies(card)
-    phase_launched_trial(workdir, hparams, card, train)
+    launched = phase_launched_trial(workdir, hparams, card, train)
     phase_train_parity()
     paged = phase_paged_times(card)
     flash = phase_flash_times(card)
@@ -6468,6 +6884,7 @@ def main() -> int:
     phase_elastic_world(workdir, hparams, card)
     conv_split = phase_conv_split(card)
     phase_conv_split_world(workdir, card)
+    farm = phase_farm(workdir, hparams, ckpt, card, launched)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -6567,6 +6984,7 @@ def main() -> int:
         "replaces": "determined_tpu/ops/paged_attention.py:99",
         "launches": serve["launches"],
         "launches_moe": moe_serve["launches"],
+        "launches_warm_per_decode_step": farm["paged_per_step_warm"],
         "max_abs_err": paged_err,
         **paged,
     }]
@@ -6584,6 +7002,7 @@ def main() -> int:
             "launches_torch_trial": t14a["launches"][key],
             "launches_pipeline": pipe["launches"][key],
             "launches_elastic": elastic["launches"][key],
+            "launches_warm": farm["launches_warm"][key],
             "long_ms": long["per_layer_ms"][key],
             "long_bound_ms": long["bound_ms"][key],
             "max_abs_err": flash_err[key],

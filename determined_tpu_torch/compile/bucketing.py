@@ -1,11 +1,13 @@
 """Shape canonicalization: batch-size bucketing (docs/compile-farm.md).
 
 Counterpart of determined_tpu/compile/bucketing.py, copied whole but for
-the tree walk (`torch.utils._pytree` in place of `jax.tree_util`). The
-preflight's DTL205 reads `bucket_size` and `CompileConfig`; the port's
-compile worker will use the rest. On the port an "executable" is a step
-captured by `make_multi_step` (a CUDA graph), keyed by exact shapes as an
-XLA executable is.
+the tree walk (`torch.utils._pytree` in place of `jax.tree_util`) and a
+padded leaf keeping its type (a tensor stays a tensor). The preflight's
+DTL205 reads `bucket_size` and `CompileConfig`; the Trainer pads every
+training and validation batch with `bucketed_iter`, and the compile worker
+resolves `CompileConfig`. On the port an "executable" is a step captured
+by `make_multi_step` (a CUDA graph), keyed by exact shapes as an XLA
+executable is.
 
 An XLA executable is keyed by exact input shapes, so an hparam sweep that
 samples `global_batch_size` raw compiles one executable per sampled value —
@@ -31,6 +33,7 @@ import dataclasses
 from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
+import torch
 import torch.utils._pytree as pytree
 
 # DTL205's default ceiling: a sweep implying more distinct executables than
@@ -110,8 +113,9 @@ def _leading_batch_dim(batch: Any) -> Optional[int]:
 
 def pad_batch(batch: Any, target: int) -> Any:
     """Pad every leaf whose leading dim equals the batch size up to `target`
-    rows by wrapping (repeating rows from the front). Host-side numpy — runs
-    before the async input pipeline's device transfer."""
+    rows by wrapping (repeating rows from the front). Host-side — runs
+    before the async input pipeline's device transfer; a tensor leaf stays
+    a tensor, any other becomes a numpy array as in the JAX package."""
     b = _leading_batch_dim(batch)
     if b is None or b >= target:
         return batch
@@ -120,8 +124,10 @@ def pad_batch(batch: Any, target: int) -> Any:
         shape = getattr(leaf, "shape", ())
         if len(shape) < 1 or shape[0] != b:
             return leaf
-        arr = np.asarray(leaf)
         reps = (target + b - 1) // b
+        if isinstance(leaf, torch.Tensor):
+            return torch.cat([leaf] * reps, dim=0)[:target]
+        arr = np.asarray(leaf)
         return np.concatenate([arr] * reps, axis=0)[:target]
 
     return pytree.tree_map(one, batch)

@@ -19,7 +19,13 @@ for one serve replica:
 compiles decode, every prefill bucket and the block copy before the first
 request is admitted, so no request pays a trace. On a CUDA device it
 
-  1. builds the kernels;
+  1. builds the kernels, or with a compile farm (`engine.farm`, a
+     `FarmClient` scoped to the serving signature: serve/task.py) fetches
+     the paged kernel's library from the node's AOT directory or the
+     master and builds it with nvcc only where none exists; a fresh build
+     is saved into the node's AOT directory and uploaded in the
+     background (docs/compile-farm-torch.md), and `kernel_build_s` reads
+     0.0 on a hit;
   2. allocates the static inputs of each function: one int32 device buffer
      a function (tokens, positions, tables, lengths, adapter indices,
      temperatures as views into it) and a pinned host twin;
@@ -274,7 +280,9 @@ class ServingEngine:
         # None on the CPU, where the functions run eagerly.
         self._graphs: Optional[Dict[str, Tuple[Any, Any, int]]] = None
         self._functions: Dict[str, Callable[[], Any]] = {}
-        self.compile_stats: Dict[str, float] = {}
+        self.compile_stats: Dict[str, Any] = {}
+        # Compile farm client (serve/task.py's `serving.warm_aot`), or None.
+        self.farm = None
         # device-call counters (drained into /v1/stats)
         self.decode_steps = 0
         self.prefills = 0
@@ -447,11 +455,12 @@ class ServingEngine:
                               paged_attention_cuda.launches - launches0)
         graph.replay()
 
-    def compile(self) -> Dict[str, float]:
-        """Allocate the cache and the static inputs, build the kernels, and
-        capture decode, every prefill bucket and the block copy as CUDA
-        graphs (on the CPU: run each once). A second call returns the
-        first one's stats: the graphs are captured once."""
+    def compile(self, farm=None) -> Dict[str, Any]:
+        """Allocate the cache and the static inputs, build the kernels
+        (through `farm`, default `self.farm`), and capture decode, every
+        prefill bucket and the block copy as CUDA graphs (on the CPU: run
+        each once). A second call returns the first one's stats: the
+        graphs are captured once."""
         if self._compiled:
             return dict(self.compile_stats)
         t_all = time.monotonic()
@@ -466,10 +475,17 @@ class ServingEngine:
                                             device=self.device)
         cuda = self.device.type == "cuda"
         if self.attention_impl == "kernel" and cuda:
-            t0 = time.monotonic()
-            _build.load("paged_attention")
+            farm = farm if farm is not None else self.farm
+            _build.load("paged_attention", farm=farm)
             self.compile_stats["kernel_build_s"] = round(
-                time.monotonic() - t0, 3)
+                _build.build_seconds["paged_attention"], 3)
+            self.compile_stats["kernel_source"] = \
+                _build.sources["paged_attention"]
+            if farm is not None and \
+                    _build.sources["paged_attention"] == "nvcc":
+                # The next replica on this node finds it without the
+                # master; _build has queued the upload.
+                farm.save_local(_build.artifacts("paged_attention"))
         self._declare()
         pool = None
         if cuda:

@@ -33,8 +33,9 @@ tree. Both are retire-time work: the decode loop itself never touches a
 clock beyond the per-step timestamps it already takes.
 
 The port's copy of determined_tpu/serve/scheduler.py, with the same host
-logic. Engines are captured as CUDA graphs at `start()`, not AOT-compiled
-through a compile farm (warm AOT is not ported; ROADMAP.md).
+logic. Engines are captured as CUDA graphs at `start()`, their kernel
+library resolved through the engine's compile farm client when it has one
+(warm AOT, docs/compile-farm-torch.md).
 """
 
 from __future__ import annotations
@@ -388,7 +389,7 @@ class ContinuousBatcher:
         if self._thread is not None:
             return self
         # Build the kernels and capture every call before the first admit.
-        self.engine.compile()
+        self.engine.compile(farm=getattr(self.engine, "farm", None))
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="serve-batcher")
         self._thread.start()

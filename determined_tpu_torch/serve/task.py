@@ -14,8 +14,12 @@ on the command line. Lifecycle:
      written by `models.gpt2.save_params_npz`. Each `serving.adapters`
      entry is restored the same way, from the trial of its checkpoint id,
      else from the base checkpoint's trial (`_trial_id_for`);
-  3. build the kernels and capture every call as a CUDA graph, start the
-     batcher and the HTTP front-end; inside a cluster (DET_MASTER and
+  3. build the kernels (warm AOT, `serving.warm_aot`, default on: through
+     a compile-farm client scoped to `serving_signature`, which fetches
+     the kernel library from the node's AOT directory or the master and
+     saves a fresh build back; docs/compile-farm-torch.md) and capture
+     every call as a CUDA graph, start the batcher and the HTTP
+     front-end; inside a cluster (DET_MASTER and
      DET_ALLOCATION_ID set) report the proxy address and readiness, push
      the load report on a heartbeat and ship request spans to the master;
   4. on SIGTERM or SIGINT, or on the allocation's preemption signal (the
@@ -25,7 +29,7 @@ on the command line. Lifecycle:
      one), and exit 0.
 
 The config is JSON, or YAML when the file ends in .yaml/.yml (PyYAML is
-imported only then). Not ported yet (ROADMAP.md): compile-farm warm AOT.
+imported only then).
 """
 
 from __future__ import annotations
@@ -173,10 +177,31 @@ def _restore(ckpt: str, storage, trial_id: int) -> Dict[str, Any]:
     return load_checkpoint_params(ctx, ckpt)
 
 
-def build_replica(config: Dict[str, Any], device=None):
+def serving_signature(serving: Dict[str, Any]) -> str:
+    """Compile-farm signature for a serving config: every shape-affecting
+    knob (model geometry, slots, buckets, paged-KV layout) plus the
+    runtime tag, so two replicas of the same deployment — or a respawn
+    after scale-to-zero — address the same artifacts, and a config
+    change can never load a stale one. The JAX package's function with
+    the port's runtime tag."""
+    import hashlib
+
+    from determined_tpu_torch.compile.signature import runtime_tag
+
+    shape_keys = ("model", "model_config", "max_batch_size", "max_seq_len",
+                  "kv_block_size", "kv_num_blocks", "prefill_buckets",
+                  "attention_impl", "seed", "adapters")
+    key = {k: serving.get(k) for k in shape_keys}
+    key["runtime_tag"] = runtime_tag()
+    blob = json.dumps(key, sort_keys=True, default=str).encode()
+    return "serve-" + hashlib.sha256(blob).hexdigest()[:32]
+
+
+def build_replica(config: Dict[str, Any], device=None, session=None):
     """Config -> (engine, batcher). Shared by the task, tests and
     chip_smoke.py. `device` defaults to `serving.device`, then to CUDA
-    (which raises without a card; pass "cpu" explicitly)."""
+    (which raises without a card; pass "cpu" explicitly). `session` is the
+    master's, for the compile farm's fetches and uploads."""
     from determined_tpu_torch.serve.engine import ServingEngine
     from determined_tpu_torch.serve.kv_cache import BlockManager
     from determined_tpu_torch.serve.scheduler import (
@@ -212,6 +237,15 @@ def build_replica(config: Dict[str, Any], device=None):
         adapters=adapters or None,
         device=device if device is not None else serving.get("device"),
     )
+    # Warm AOT: scope a compile-farm client to this config's serving
+    # signature, so compile() fetches the kernel library from the
+    # node-local AOT dir or the master and saves a fresh build back. Opt
+    # out with serving.warm_aot: false.
+    if serving.get("warm_aot", True):
+        from determined_tpu_torch.compile.runtime import FarmClient
+
+        engine.farm = FarmClient(
+            session=session, signature=serving_signature(serving))
     if engine.paged:
         # The device pool IS the budget: the manager mirrors it exactly.
         blocks = BlockManager(
@@ -259,7 +293,7 @@ def main(argv=None) -> int:
 
         session = Session(master, os.environ.get("DET_SESSION_TOKEN"))
 
-    engine, batcher = build_replica(config)
+    engine, batcher = build_replica(config, session=session)
     serving = config.get("serving") or {}
 
     # Per-request span tracing: retire-time span trees batch-POST to the

@@ -39,10 +39,21 @@ group hold the same rows, each stage its layers) and its
 or a stateful one, is refused under it. A world of more than one process
 without a process group raises: it never trains alone in silence.
 
-The first step call of a `fit` lands a `harness.compile` span, the JAX
-Trainer's "first executable acquisition": here, the hand-written kernels
-built with nvcc at their first launch (or loaded from build/kernels) and
-the step's first eager run on the host.
+The first call of the train step (and of the eval step) lands a
+`harness.compile` span, the JAX Trainer's "first executable acquisition"
+(`_timed_first_call`): here, the hand-written kernel libraries resolved at
+their first launch, from the kernel directory, the compile farm or nvcc
+(ops/_build.py; docs/compile-farm-torch.md), and the step's first eager
+run on the host. A `FarmClient` from core's session and
+`DET_COMPILE_SIGNATURE` is the farm; a library nvcc builds is uploaded in
+the background, and `fit` joins the uploads at its end. The span carries
+`executable`, `cache_hit` (no library was built by nvcc in this process;
+0 on the CPU, where nothing is built), `signature` and `attention_impl`,
+and the next metrics flush reports `compile_ms`, `compile_cache_hit` and
+`attention_impl`. With `compile: {bucket_batch_sizes: true}` (the trial's
+`compile` attribute, else the config's block) every training and
+validation batch is padded up to its bucket on the host, before the
+prefetcher (compile/bucketing.py).
 
 Elastic resize (docs/elasticity-torch.md): `slots` is the counterpart
 of the JAX Trainer's `devices`, the number of the world's ranks the mesh
@@ -62,10 +73,6 @@ watcher re-armed; `harness.resize.downtime` wraps it all,
 it), and the chief reports `resize_from_slots`, `resize_target_slots`
 and `resize_downtime_ms`. A resize it cannot serve takes the
 preemption checkpoint path and exits, as in cluster mode.
-
-Not ported (ROADMAP.md): the compile farm and batch-size bucketing
-(`_timed_first_call`, `FarmClient`; PyTorch runs eagerly and compiles
-nothing here).
 """
 
 from __future__ import annotations
@@ -84,8 +91,12 @@ import torch
 from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.common import faultpoint, trace
+from determined_tpu_torch.compile.bucketing import CompileConfig, bucketed_iter
+from determined_tpu_torch.compile.runtime import FarmClient
 from determined_tpu_torch.data.prefetch import DevicePrefetcher, PrefetchConfig
 from determined_tpu_torch.core._searcher import SearcherOperation
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.ops.flash_attention import resolve_attention_impl
 from determined_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 from determined_tpu_torch.train import state as state_mod
 from determined_tpu_torch.train.health import (
@@ -190,6 +201,14 @@ class Trainer:
         # newest one's while it is being filled.
         self.resize_parts: List[Dict[str, float]] = []
         self._parts: Optional[Dict[str, float]] = None
+        # Compile farm (docs/compile-farm-torch.md): the artifact client of
+        # this trial's signature, the resolved `compile:` block, and the
+        # (executable, compile_ms, cache_hit) events the first calls feed
+        # into the next metrics flush, with the resolved attention_impl.
+        self._farm: Optional[FarmClient] = None
+        self._compile_cfg: Optional[CompileConfig] = None
+        self._compile_events: List[Dict[str, Any]] = []
+        self._attention_impl: Optional[str] = None
 
     # -- setup ---------------------------------------------------------
 
@@ -343,10 +362,49 @@ class Trainer:
 
                 def evaluate(params, batch):  # noqa: F811
                     return trial.evaluate(state_mod.gathered(params), batch)
-        self._train_step = make_train_step(loss, tx, stateful=trial.stateful,
-                                           mesh=self.mesh)
-        self._eval_step = (make_eval_step(evaluate, stateful=trial.stateful)
-                           if has_eval else None)
+        self._train_step = self._timed_first_call(
+            make_train_step(loss, tx, stateful=trial.stateful,
+                            mesh=self.mesh), "train_step")
+        self._eval_step = (self._timed_first_call(
+            make_eval_step(evaluate, stateful=trial.stateful), "eval_step")
+            if has_eval else None)
+
+    def _timed_first_call(self, fn, executable: str):
+        """`fn` wrapped so that its first call is the compile-farm
+        integration point (the JAX Trainer's `_timed_first_call`): the
+        kernel libraries it launches resolve through the farm, a
+        `harness.compile` span lands with `cache_hit` (on CUDA: no library
+        was built by nvcc in this process) and the signature, and the next
+        metrics flush reports `compile_ms` and `compile_cache_hit`. The
+        wrapper then puts the bare step back in its place."""
+        cfg = self._compile_cfg or CompileConfig()
+        farm = self._farm if cfg.enabled else None
+
+        def wrapped(*args, **kwargs):
+            t0 = time.monotonic()
+            t0_us = trace.now_us()
+            previous = _build.set_farm(farm, upload=cfg.upload)
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                _build.set_farm(previous)
+            setattr(self, f"_{executable}", fn)
+            cache_hit = self.device.type == "cuda" and not _build.nvcc_built()
+            compile_ms = (time.monotonic() - t0) * 1000.0
+            attrs: Dict[str, Any] = {
+                "executable": executable, "cache_hit": cache_hit,
+                "attention_impl": self._attention_impl}
+            if self._farm is not None and self._farm.signature:
+                attrs["signature"] = self._farm.signature
+            if self.core is not None:
+                self.core.tracer.emit("harness.compile", t0_us,
+                                      trace.now_us(), attrs)
+            self._compile_events.append(
+                {"executable": executable, "compile_ms": compile_ms,
+                 "cache_hit": cache_hit})
+            return out
+
+        return wrapped
 
     def _stream(self):
         """(batches on the device, the prefetcher or None): the trial's
@@ -357,6 +415,11 @@ class Trainer:
         data_iter: Iterator[Any] = _repeat(self.trial.build_training_data)
         for _ in range(self._consumed):
             next(data_iter)
+        cfg = self._compile_cfg
+        if cfg is not None and cfg.bucket_batch_sizes:
+            # Pad each host batch up to its bucket before the device copy:
+            # a rebuilt stream pads as the first one did.
+            data_iter = bucketed_iter(data_iter, cfg)
         if not self._pf_cfg.enabled:
             return (_to_device(b, self.device) for b in data_iter), None
         prefetcher = DevicePrefetcher(data_iter, self.device,
@@ -392,8 +455,15 @@ class Trainer:
         seed = self._seed = core.trial_seed or seed
         self._fit_id, self._generation, self._consumed = next(_FITS), 0, 0
         self._profile = profile
-        self._build(seed)
         expconf = _expconf(core)
+        self._compile_cfg = CompileConfig.resolve(self.trial, expconf)
+        if self._farm is None:
+            self._farm = FarmClient(core.checkpoint._session)
+        opt = (expconf or {}).get("optimizations")
+        self._attention_impl = resolve_attention_impl(
+            opt.get("attention_impl") if isinstance(opt, dict) else None,
+            self.device)
+        self._build(seed)
         self._pf_cfg = PrefetchConfig.resolve(self.trial, expconf)
         self._health_cfg = HealthConfig.resolve(self.trial, expconf)
         self._preempt_cfg = PreemptionConfig.resolve(self.trial, expconf)
@@ -420,6 +490,9 @@ class Trainer:
                 # Wakes the ranks standing by: the run is over.
                 self._publish(core, {"end": True})
         core.checkpoint.wait()
+        # Fresh kernel builds upload in the background; give successors
+        # their artifacts before the process exits.
+        self._farm.wait(30.0)
         if profile:
             core.profiler.off()
         return self.state
@@ -513,7 +586,6 @@ class Trainer:
             watchdog.beat()
             return True
 
-        first_call = True
         try:
             watchdog.start()
             for op in ops:
@@ -525,14 +597,8 @@ class Trainer:
                         faultpoint.fire("step.hang")
                         batch = next(data_iter)
                         self._consumed += 1
-                        t0_us = trace.now_us() if first_call else 0
                         self.state, metrics = self._train_step(
                             self.state, batch, rng)
-                        if first_call:
-                            first_call = False
-                            core.tracer.emit(
-                                "harness.compile", t0_us, trace.now_us(),
-                                {"step": step})
                         step += 1
                         n_report += 1
                         last = (step, metrics)
@@ -586,7 +652,7 @@ class Trainer:
                             rng.manual_seed(seed + 1)
                             step = last_validated = last_checkpointed = \
                                 self.state.step
-                            preempted, first_call = False, True
+                            preempted = False
                             watchdog.beat()
                             continue  # resharded: keep training
                     break
@@ -811,6 +877,13 @@ class Trainer:
                 host["h2d_ms"] = h2d / n
                 host["prefetch_queue_depth"] = depth / n
                 core.profiler.observe_input(wait, h2d, depth, n)
+        if self._compile_events:
+            # The first calls' events land in the flush after them.
+            events, self._compile_events = self._compile_events, []
+            host["compile_ms"] = sum(e["compile_ms"] for e in events)
+            host["compile_cache_hit"] = (
+                1.0 if all(e["cache_hit"] for e in events) else 0.0)
+            host["attention_impl"] = self._attention_impl
         # The divergence sentinel's event channel: a non-finite step marks
         # this flush's report (train/health.py).
         if float(host.get("all_finite", 1.0)) < 1.0:
@@ -834,6 +907,9 @@ class Trainer:
         pf_cfg = self._pf_cfg or PrefetchConfig.resolve(self.trial,
                                                         _expconf(core))
         data: Iterator[Any] = iter(self.trial.build_validation_data())
+        cfg = self._compile_cfg
+        if cfg is not None and cfg.bucket_batch_sizes:
+            data = bucketed_iter(data, cfg)
         prefetcher: Optional[DevicePrefetcher] = None
         if pf_cfg.enabled:
             prefetcher = DevicePrefetcher(data, self.device,

@@ -161,8 +161,8 @@ def test_remat_policy_loss_and_grads_match_jax(policy, attention_impl):
     params = numpy_params(seed=2)
     tokens = np.random.default_rng(9).integers(
         0, DIMS["vocab_size"], size=(3, 17)).astype(np.int32)
-    jloss, jgrads = jax.value_and_grad(lambda p: jgpt2.loss_fn(
-        p, {"tokens": jnp.asarray(tokens)}, jcfg))(
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: jgpt2.loss_fn(
+        p, {"tokens": jnp.asarray(tokens)}, jcfg)))(
         jax.tree_util.tree_map(jnp.asarray, params))
     tparams = tgpt2.params_from_numpy(params)
     leaves = tgpt2._flatten(tparams)

@@ -1,8 +1,10 @@
 """GPT-2 over the `tensor` and `context` mesh axes: the port against the
 JAX package, on the CPU.
 
-One world of 4 gloo processes (a worker per rank over a FileStore in the
-test's directory; the worker imports only the port) runs every case:
+A world of 4 gloo processes (a worker per rank over a FileStore in the
+test's directory; the worker imports only the port) runs the cases, one
+world for the model cases here and one for the Trainer's fits in
+test_torch_tensor_parallel_fit.py:
 
   - the model: a TINY fp32 GPT-2 with an uneven vocab (65 rows over
     tensor 2: 33 and 32) and numpy-drawn params, laid out by
@@ -34,7 +36,6 @@ to 2 x lr x steps (tests/test_torch_fsdp_trainer.py's rule).
 
 import json
 import os
-import shutil
 import subprocess
 import sys
 
@@ -272,10 +273,10 @@ def inputs():
     return params, tokens
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory, inputs, devices):
-    """Every case in one world of 4, and the JAX side computed while it
-    runs -> (rank 0's report, the run dir, the JAX results)."""
+def run_world(tmp_path_factory, inputs, devices, model_cases, fit_cases):
+    """`model_cases` and `fit_cases` in one world of 4, and the JAX side
+    computed while it runs -> (the ranks' reports, the run dir, the JAX
+    results)."""
     params, tokens = inputs
     out = tmp_path_factory.mktemp("tensor_world")
     np.savez(out / "params.npz", **params)
@@ -285,14 +286,15 @@ def world(tmp_path_factory, inputs, devices):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep +
                os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
-    args = [json.dumps(a) for a in (DIMS, MODEL_CASES, FIT_MESH, FIT_CASES)]
+    args = [json.dumps(a) for a in (DIMS, model_cases, FIT_MESH, fit_cases)]
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(r), str(WORLD), str(out), *args],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(WORLD)]
     logs = []
     try:
-        ref = jax_side(inputs, devices, tmp_path_factory.mktemp("jax"))
+        ref = jax_side(inputs, devices, tmp_path_factory.mktemp("jax"),
+                       model_cases, fit_cases)
         for p in procs:
             logs.append(p.communicate(timeout=TIMEOUT_S)[0])
     finally:
@@ -306,14 +308,22 @@ def world(tmp_path_factory, inputs, devices):
     return reports, out, ref
 
 
-def jax_side(inputs, devices, tmp):
+@pytest.fixture(scope="module")
+def world(tmp_path_factory, inputs, devices):
+    """The model cases in one world of 4 (the fits run in
+    test_torch_tensor_parallel_fit.py's)."""
+    return run_world(tmp_path_factory, inputs, devices, MODEL_CASES, {})
+
+
+def jax_side(inputs, devices, tmp, model_cases, fit_cases):
     """JAX's logits, loss and gradients for each model case on its mesh,
-    and the JAX Trainer's ring and Ulysses runs."""
+    and the JAX Trainer's runs of the fit cases it can lay out (ring and
+    Ulysses)."""
     params, tokens = inputs
     batch = {"tokens": jnp.asarray(tokens[0])}
     jparams = jax.tree_util.tree_map(jnp.asarray, unflatten(params))
     ref = {}
-    for name, (sizes, impl) in MODEL_CASES.items():
+    for name, (sizes, impl) in model_cases.items():
         cfg = jax_config(impl)
         mesh = jax_mesh(sizes, devices)
         with jax.sharding.set_mesh(mesh):
@@ -322,7 +332,9 @@ def jax_side(inputs, devices, tmp):
                 jgpt2.apply(p, batch["tokens"][:, :-1], cfg)))(jparams)
         ref[name] = (float(loss), flatten(grads), np.asarray(logits))
     for name in ("ring", "ulysses"):
-        ref[f"fit_{name}"] = run_jax(tmp / name, inputs, *FIT_CASES[name])
+        if name in fit_cases:
+            ref[f"fit_{name}"] = run_jax(tmp / name, inputs,
+                                         *fit_cases[name])
     return ref
 
 
@@ -429,18 +441,6 @@ def assert_metrics(got, want, what):
                                        err_msg=f"{what} {key}")
 
 
-@pytest.mark.parametrize("name", ["ring", "ulysses"])
-def test_fit_matches_the_jax_trainer(world, name):
-    reports, out, ref = world
-    run = reports[0][f"fit_{name}"]
-    assert run["mesh"]["tensor"] == 2 and run["mesh"]["context"] == 2
-    jmetrics, jfinal, jmesh = ref[f"fit_{name}"]
-    assert (jmesh["tensor"], jmesh["context"]) == (2, 2)
-    assert_metrics(run["metrics"], jmetrics, name)
-    assert_params(dict(np.load(out / f"fit_{name}.npz")), jfinal, name)
-    assert run["checkpoints"] == [f"trial0-step{STEPS}"]
-
-
 def port_trial_class(params, tokens, vocab):
     from determined_tpu_torch.models import gpt2 as tgpt2
     from determined_tpu_torch.train import TorchTrial, optim
@@ -466,48 +466,6 @@ def port_trial_class(params, tokens, vocab):
             return [{"tokens": t % vocab} for t in tokens]
 
     return Trial
-
-
-def test_fit_with_an_uneven_vocab_matches_one_process(tmp_path, world,
-                                                      inputs):
-    from determined_tpu_torch import core as tcore
-    from determined_tpu_torch.models import gpt2 as tgpt2
-    from determined_tpu_torch.train import Trainer
-    from determined_tpu_torch.train.trial import TrialContext
-
-    reports, out, _ = world
-    run = reports[0]["fit_ring_uneven"]
-    Trial = port_trial_class(*inputs, DIMS["vocab_size"])
-    ctx = tcore.init(max_length=STEPS, checkpoint_dir=str(tmp_path / "one"))
-    state = Trainer(Trial(TrialContext(core_context=ctx)), core_context=ctx,
-                    device="cpu").fit(report_period=1)
-    metrics = [r["metrics"] for r in ctx.train.local_training_metrics]
-    ctx.close()
-    assert_metrics(run["metrics"], metrics, "uneven vocab")
-    assert_params(dict(np.load(out / "fit_ring_uneven.npz")),
-                  tgpt2._flatten(tgpt2.params_to_numpy(state.params)),
-                  "uneven vocab")
-
-
-def test_the_checkpoint_restores_into_one_process(tmp_path, world, inputs):
-    from determined_tpu_torch import core as tcore
-    from determined_tpu_torch.models import gpt2 as tgpt2
-    from determined_tpu_torch.train import Trainer
-    from determined_tpu_torch.train.trial import TrialContext
-
-    reports, out, _ = world
-    (sid,) = reports[0]["fit_ring"]["checkpoints"]
-    final = dict(np.load(out / "fit_ring.npz"))
-    shutil.copytree(out / "ckpt_ring", tmp_path / "ckpt")
-    Trial = port_trial_class(*inputs, FIT_CASES["ring"][1])
-    ctx = tcore.init(max_length=STEPS, checkpoint_dir=str(tmp_path / "ckpt"))
-    state = Trainer(Trial(TrialContext(core_context=ctx)), core_context=ctx,
-                    device="cpu").fit(resume_from=sid)  # at max_length
-    ctx.close()
-    assert state.step == STEPS
-    restored = tgpt2._flatten(tgpt2.params_to_numpy(state.params))
-    for k, v in final.items():
-        np.testing.assert_array_equal(restored[k], v, err_msg=k)
 
 
 def test_seq_shard_orders_chunks_by_context_rank():
