@@ -453,6 +453,38 @@ fails:
      8-slot serving case and phase 4's training-shape cases (planted
      faults included) on the two fetched libraries. Prints cold against
      warm `harness.compile` ms and replica build + capture s.
+ 20a. NCCL collectives in a CUDA graph, one card: a world-1 NCCL process
+     group in this process; `collectives.all_reduce`, `gather_from` and
+     `sum_over` (forward and backward), `sharding.gather_for_use` of a
+     DTensor over the group's mesh (sync and `async_op`) and
+     `step.global_mean` captured as one graph as `make_multi_step`
+     captures (warm-up on a side stream, thread-local capture mode), then
+     replayed on 3 new inputs: every output bitwise the same calls made
+     eagerly.
+ 20b. with two cards or more, `make_multi_step` over a mesh of several
+     processes: one launched world of 2 NCCL ranks (the port's launcher,
+     local mode, its own worker script) runs in turn phase 7's GPT-2
+     small (B 8, S 1024, bf16, remat "dots") at `fsdp: 2` (with and
+     without `overlap_allgather`), `data: 2`, `tensor: 2`, `context: 2`
+     with the ring and with Ulysses, moe.yaml's model at `expert: 2`,
+     pipeline.yaml's at `pipeline: 2` (16b's settings), and 13c's
+     stateful CIFAR ResNet-18 at `tensor: 2`; with four cards two such
+     worlds run at once, on cards 0-1 and 2-3, each half the cases, then
+     a world of 4 runs GPT-2 at `fsdp: 2, tensor: 2` and moe.yaml's
+     model at `data: 2, expert: 2`. Each case: steps_per_call 4 over two
+     windows (step 0 eager, the capture, then replays only) against 8
+     `make_train_step` calls from the same state and batches, under 8a's
+     limits (window means rtol 1e-6; every rank's params, optimizer
+     moments and BatchNorm statistics atol 1e-6), bitwise or not
+     printed; 7 replays made, the wrapper's flash count twice the
+     graph's, and the flash kernels that torch.profiler traces on the
+     card in 4 replays the graph's count x 4 (phase 7's formula at
+     `fsdp`). A planted fault must be refused: rank 1 replays one step
+     on its stale static batch. Information, rank 0: host ms a step
+     replayed and eager in turns; from a traced window of each, device
+     busy ms and NCCL ms a step (unions of kernel intervals on the
+     trace's timeline) and the idle share; each rank's peak memory. With
+     one card, `[20b] not run: 1 card`.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
@@ -461,8 +493,10 @@ paged kernel, `launches_moe` phase 11a's, 11c's for the paged kernel,
 and for the flash kernels `launches_long` phase 12a's,
 `launches_ring` 12b's ring schedule, `launches_torch_trial` 14a's
 `pytorch.Trainer.fit`, `launches_pipeline` 16a's schedule walked over
-2 stages, `launches_elastic` 17a's `fit` after the per-rank restore
-and `launches_warm` 19b's warm trial, for the paged kernel
+2 stages, `launches_elastic` 17a's `fit` after the per-rank restore,
+`launches_warm` 19b's warm trial and `launches_multi_mesh` the launches
+traced on the card (torch.profiler) in 4 replays of 20b's `fsdp: 2`
+graph on rank 0 (null with one card), for the paged kernel
 `launches_warm_per_decode_step` 19c's warm replica, and `long_ms` a
 launch's device
 time in 12a's steps, at B 4, S 8192, under torch.profiler, beside its
@@ -474,6 +508,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import importlib
 import json
@@ -2219,6 +2254,61 @@ def device_ms_per_step(run, n_steps):
             us = ev.self_cuda_time_total
         busy += max(0.0, us) / 1e3
     return busy / n_steps
+
+
+FLASH_KERNEL_NAME = re.compile(r"flash_(fwd|dq|dkv)_(wgmma_)?kernel")
+
+
+def union_ms(spans):
+    """ms covered by the union of the (start, end) intervals `spans`
+    (microseconds): time in which one kernel or more ran, however many
+    streams ran at once."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def device_trace(run, n_steps):
+    """`run()` (n_steps steps) traced under torch.profiler, from the
+    device events on the trace's timeline: {"busy_ms": the union of every
+    kernel's and copy's interval a step, "nccl_ms": the union of the NCCL
+    kernels' a step, "nccl_only_ms": NCCL time a step during which no
+    other device work ran, "wall_ms": host ms a step around the traced
+    run, "idle": 1 - busy / wall, "flash": the flash kernels' launches by
+    kernel (`flash_fwd` ...)}. NCCL kernels that wait for a peer count as
+    busy: the card holds them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, nccl, other = [], [], []
+    flash = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        span = (ev.time_range.start, ev.time_range.end)
+        spans.append(span)
+        (nccl if "nccl" in ev.name.lower() else other).append(span)
+        hit = FLASH_KERNEL_NAME.search(ev.name)
+        if hit:
+            flash["flash_" + hit.group(1)] += 1
+    busy = union_ms(spans)
+    return {"busy_ms": busy / n_steps, "nccl_ms": union_ms(nccl) / n_steps,
+            "nccl_only_ms": (busy - union_ms(other)) / n_steps,
+            "wall_ms": wall / n_steps, "idle": 1 - busy / wall,
+            "flash": flash}
 
 
 def step_order_sum(values):
@@ -6837,6 +6927,504 @@ def phase_farm(workdir, hparams, ckpt, card, cold):
                           "warm": rw["build_capture_s"]}}
 
 
+# ----------------------------------------------------------------- phase 20
+
+
+def capture_collectives_run(group, x, leaf):
+    """20a's function: the port's collectives over `group` (a world-1 NCCL
+    process group), forward and backward, on input `x` and the DTensor
+    `leaf` (over a mesh of that group)."""
+    import torch
+
+    from determined_tpu_torch.parallel import collectives, sharding
+    from determined_tpu_torch.train.step import global_mean
+
+    reduced = collectives.all_reduce(x, [group])
+    y = x.detach().clone().requires_grad_(True)
+    gathered = collectives.gather_from(y, group, dim=1)
+    summed = collectives.sum_over(gathered * 2.0, [group])
+    full = sharding.gather_for_use(leaf)
+    early = sharding.gather_for_use(leaf, async_op=True)
+    z = (summed[:, :full.shape[0]] @ full).square().mean() + \
+        (x[:, :early.shape[0]] @ early).mean()
+    dy, dleaf = torch.autograd.grad(z, [y, leaf])
+    means = global_mean([z, summed.mean()])
+    return [reduced, gathered.detach(), summed.detach(), dy,
+            sharding.local_value(dleaf), *means]
+
+
+def phase_capture_collectives(card):
+    """20a: a world-1 NCCL process group in this process (one card carries
+    one NCCL rank: tools/two_ranks_one_card.py): `collectives.all_reduce`,
+    `gather_from` and `sum_over` (forward and backward), `gather_for_use`
+    of a DTensor over the group's mesh, sync and async, and
+    `step.global_mean` captured as one CUDA graph (warm-up on a side
+    stream, `capture_error_mode="thread_local"`, as `make_multi_step`
+    captures), then replayed on new inputs copied into the graph's
+    buffers, each output against the same calls made eagerly on those
+    inputs: bitwise. A group this phase formed is destroyed after."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    elif dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        fail(f"20a: this process already has a process group of "
+             f"{dist.get_world_size()} ranks over {dist.get_backend()}")
+    try:
+        group = dist.group.WORLD
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("fsdp",))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+        x = torch.randn(256, 1024, device="cuda", generator=gen)
+        w = torch.randn(768, 512, device="cuda", generator=gen)
+        leaf = DTensor.from_local(w, mesh, [Shard(0)], run_check=False
+                                  ).detach().requires_grad_(True)
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            capture_collectives_run(group, static, leaf)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = capture_collectives_run(group, static, leaf)
+        names = ("all_reduce", "gather_from", "sum_over",
+                 "dgather_from (gather_from, sum_over backward)",
+                 "dleaf (gather_for_use sync + async backward)",
+                 "global_mean z", "global_mean sum_over")
+        equal = {}
+        for _ in range(3):
+            new = torch.randn(x.shape, device="cuda", generator=gen)
+            static.copy_(new)
+            graph.replay()
+            want = capture_collectives_run(group, new, leaf)
+            torch.cuda.synchronize()
+            for name, got, ref in zip(names, outs, want):
+                equal[name] = equal.get(name, True) and torch.equal(got, ref)
+        say(f"[20a] [{card}] a world-1 NCCL group (backend "
+            f"{dist.get_backend()}): the port's collectives captured in one "
+            f"CUDA graph and replayed on 3 new inputs, against eager calls: "
+            + ", ".join(f"{k} bitwise {v}" for k, v in equal.items()))
+        if not all(equal.values()):
+            fail("20a: the replayed collectives differ from eager calls")
+        del graph, outs
+    finally:
+        if own:
+            dist.destroy_process_group()
+        _free_cuda()
+    return equal
+
+
+# 20b's cases: (name, model, hparams over phase 7's), at world 2; those
+# of MESH_WORLD4_CASES at world 4 with four cards.
+MESH_CASES = (
+    ("fsdp", "gpt2", {"mesh": {"fsdp": 2}}),
+    ("fsdp_overlap", "gpt2", {"mesh": {"fsdp": 2},
+                              "optimizations": {"overlap_allgather": True}}),
+    ("data", "gpt2", {"mesh": {"data": 2}}),
+    ("tensor", "gpt2", {"mesh": {"data": 1, "tensor": 2}}),
+    ("context_ring", "gpt2", {"mesh": {"data": 1, "context": 2},
+                              "attention_impl": "ring"}),
+    ("context_ulysses", "gpt2", {"mesh": {"data": 1, "context": 2},
+                                 "attention_impl": "ulysses"}),
+    ("expert", "gpt2", {"mesh": {"data": 1, "expert": 2}, **MOE_HPARAMS}),
+    ("pipeline", "gpt2", {"mesh": {"data": 1, "pipeline": 2}}),
+    ("cifar_tensor", "cifar", {"mesh": {"data": 1, "tensor": 2},
+                               "global_batch_size": CIFAR_BATCH}),
+)
+# With four cards the cases of world 2 run as two worlds at once, one on
+# cards 0-1 and one on cards 2-3, split here by name (about even in time).
+MESH_PAIR_SPLIT = {"fsdp", "fsdp_overlap", "data", "tensor", "context_ring"}
+MESH_WORLD4_CASES = (
+    ("fsdp_tensor", "gpt2", {"mesh": {"fsdp": 2, "tensor": 2}}),
+    # MoE's count gather over a batch group of 2 ranks (`data`).
+    ("expert_data", "gpt2", {"mesh": {"data": 2, "expert": 2},
+                             **MOE_HPARAMS}),
+)
+MESH_FAULT_STEP = 2   # 20b's planted fault: rank 1 skips this batch's copy
+# One rank of 20b, as `python mesh_worker.py ROOT OUT CASES_JSON`: each case
+# of CASES_JSON in turn in one launched world (`mesh_case`), a RESULT line
+# each. A case that raises ends the process (the launcher then takes the
+# other ranks down: they would wait in a collective).
+MESH_WORKER = r'''
+import faulthandler, json, os, sys, time, traceback
+ROOT, OUT, CASES = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+sys.path.insert(0, ROOT)
+import torch
+import chip_smoke
+from determined_tpu_torch import core
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.monotonic()
+ctx = core.init(max_length=1, checkpoint_dir=os.path.join(OUT, "ckpt"))
+print(f"[20b] core.init {time.monotonic() - t0:.1f} s", flush=True)
+for name, model, hparams in CASES:
+    t0 = time.monotonic()
+    try:
+        out = chip_smoke.mesh_case(ctx, name, model, hparams)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    out["seconds"] = time.monotonic() - t0
+    print("RESULT " + json.dumps(out), flush=True)
+# Every thread's stack if the close takes a minute.
+faulthandler.dump_traceback_later(60, exit=False)
+t0 = time.monotonic()
+ctx.close()
+faulthandler.cancel_dump_traceback_later()
+print(f"[20b] closed in {time.monotonic() - t0:.1f} s", flush=True)
+'''
+
+
+def _train_tensors(state):
+    """(params, optimizer moments, extra): this rank's local tensors."""
+    from determined_tpu_torch.core._checkpoint import _map_tensors
+    from determined_tpu_torch.parallel import sharding
+    from determined_tpu_torch.train.state import extra_leaves
+
+    moments = []
+    _map_tensors(state.opt_state, moments.append)
+    return ([sharding.local_value(t) for t in state.leaves()], moments,
+            list(extra_leaves(state.extra)))
+
+
+def _max_abs(a, b):
+    return max([float((x.float() - y.float()).abs().max())
+                for x, y in zip(a, b)] or [0.0])
+
+
+def mesh_case(ctx, name, model, hparams):
+    """One case of 20b on this rank of a launched world (MESH_WORKER):
+    the trial (phase 7's GPT-2 trial, or 13c's CIFAR ResNet-18) at
+    `hparams` (phase 7's and the case's) over the mesh they name, built
+    by `Trainer` as `fit` builds it, twice from one seed.
+    `make_multi_step` (steps_per_call MULTI_STEPS) over MULTI_WINDOWS
+    windows of the trial's own batches (this rank's rows) against as
+    many `make_train_step` calls: the window means, this rank's params,
+    optimizer moments and `extra`; the flash launches the graph holds,
+    the wrapper's count and the replays made; each rank's peak memory of
+    each. At `fsdp`, the planted
+    fault: a third window through the same graph in which rank 1 replays
+    step MESH_FAULT_STEP without refreshing its static batch, against the
+    same window's eager steps; its window must fall outside the limits.
+    One graph is alive at a time: with a second multi step's graph
+    captured over the same communicators, `destroy_process_group` hung
+    on both ranks (PERF.md §7). Then, as information: host ms a step, replay and
+    eager in turns over a window each (replay, eager, eager, replay), and
+    a window of each traced (`device_trace`): device and NCCL ms, idle
+    share, and the flash kernels the replays ran on the card, which
+    `phase_multi_mesh` holds to the graph's count. Every rank runs every
+    call in the same order."""
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.step import make_multi_step, make_train_step
+    from determined_tpu_torch.train.trial import TrialContext
+
+    d = ctx.distributed
+    hp = hparams
+    Trial = cifar_trial_class() if model == "cifar" else gpt2_trial_class()
+    trial = Trial(TrialContext(hparams=hp, core_context=ctx,
+                               n_devices=d.size))
+    if hp.get("optimizations"):
+        # The experiment config's `optimizations:` block, which a launch
+        # in local mode has not: set on the trial's model config.
+        trial.cfg = dataclasses.replace(trial.cfg, **hp["optimizations"])
+    trainer = Trainer(trial, core_context=ctx)
+
+    def fresh():
+        trainer._build(SEED)
+        return trainer.state, trainer._tx, \
+            torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    replayed, tx_r, rng_r = fresh()
+    eager, tx_e, rng_e = fresh()
+    mesh = trainer.mesh
+    if trainer.mesh_config.pipeline > 1:
+        def loss(p, b, r):
+            return trial.loss_pipelined(p, b, r, mesh)
+    else:
+        loss = trial.loss
+    stream = trial.build_training_data()
+    host = [next(stream) for _ in range(MULTI_STEPS * MULTI_WINDOWS)]
+    windows = [{k: torch.from_numpy(np.stack([b[k] for b in host[
+        w * MULTI_STEPS:(w + 1) * MULTI_STEPS]])).cuda() for k in host[0]}
+        for w in range(MULTI_WINDOWS)]
+    multi = make_multi_step(loss, tx_r, MULTI_STEPS, mesh=mesh,
+                            stateful=trial.stateful)
+    step = make_train_step(loss, tx_e, stateful=trial.stateful, mesh=mesh)
+
+    def eager_window(w):
+        ms = []
+        for i in range(MULTI_STEPS):
+            _, m = step(eager, {k: v[i] for k, v in w.items()}, rng_e)
+            ms.append(m)
+        return ms
+
+    # The main path of 20b: every count starts at 0.
+    for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    means_r = []
+    for w in windows:
+        _, m = multi(replayed, w, rng_r)
+        means_r.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    peak_r = torch.cuda.max_memory_allocated() / 2 ** 30
+    wrapper = {"flash_fwd": fa.flash_fwd_cuda.launches,
+               "flash_dq": fa.flash_dq_cuda.launches,
+               "flash_dkv": fa.flash_dkv_cuda.launches}
+    torch.cuda.reset_peak_memory_stats()
+    means_e = []
+    for w in windows:
+        ms = eager_window(w)
+        means_e.append({k: float(step_order_sum([x[k] for x in ms])
+                                 / MULTI_STEPS) for k in ms[0]})
+    torch.cuda.synchronize()
+    peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel = max(abs(mr[k] - me[k]) / max(abs(me[k]), 1e-12)
+              for mr, me in zip(means_r, means_e)
+              for k in ("loss", "grad_norm", "all_finite"))
+    got, want = _train_tensors(replayed), _train_tensors(eager)
+    diffs = {part: _max_abs(a, b) for part, a, b in zip(
+        ("params", "moments", "extra"), got, want)}
+    bitwise = all(v == 0.0 for v in diffs.values()) and all(
+        mr[k] == me[k] for mr, me in zip(means_r, means_e) for k in mr)
+    out = {"name": name, "rank": d.rank, "world": d.size,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "loss_r": [m["loss"] for m in means_r],
+           "loss_e": [m["loss"] for m in means_e], "rel": rel,
+           "diffs": diffs, "bitwise": bitwise,
+           "graph": dict(multi._graph_launches), "replays": multi.replays,
+           "wrapper": wrapper,
+           "peak_gib": {"replay": peak_r, "eager": peak_e}}
+
+    if name == "fsdp":
+        # The planted fault, on the states the oracle left equal: a third
+        # window through the same graph, in which rank 1 replays step
+        # MESH_FAULT_STEP on its stale static batch, against the same
+        # window's eager steps.
+        if d.rank == 1:
+            def stale(batches, i, copy=multi._copy_batch):
+                if i != MESH_FAULT_STEP:
+                    copy(batches, i)
+            multi._copy_batch = stale
+        _, m = multi(replayed, windows[0], rng_r)
+        multi.__dict__.pop("_copy_batch", None)
+        ms = eager_window(windows[0])
+        out["fault_rel"] = max(
+            abs(float(m[k]) - float(step_order_sum([x[k] for x in ms])
+                                    / MULTI_STEPS))
+            / max(abs(float(step_order_sum([x[k] for x in ms])
+                            / MULTI_STEPS)), 1e-12)
+            for k in ("loss", "grad_norm", "all_finite"))
+
+    # Information: replayed against eager, in turns, then traced.
+    w = windows[0]
+    times = {"replay": [], "eager": []}
+    run = {"replay": lambda: multi(replayed, w, rng_r),
+           "eager": lambda: eager_window(w)}
+    for mode in ("replay", "eager", "eager", "replay"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run[mode]()
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3 / MULTI_STEPS)
+    out["host_ms"] = times
+    # A window of replays and one of eager steps, each traced: device
+    # time, NCCL time, idle share, and the flash kernels that ran on the
+    # card in the window's MULTI_STEPS replays.
+    out["trace"] = {mode: device_trace(run[mode], MULTI_STEPS)
+                    for mode in ("replay", "eager")}
+    del multi, step, replayed, eager, trainer
+    _free_cuda()
+    return out
+
+
+def launch_mesh_world(workdir, slots, cases, timeout, port):
+    """MESH_WORKER through the port's launcher on the GPU slots `slots`,
+    in local mode (no master), its rendezvous on `port` -> (each case's
+    RESULT by rank, exit code, output). The launcher runs in a session of
+    its own, killed whole at `timeout`."""
+    import signal
+
+    out = os.path.join(workdir, "mesh" + "-".join(map(str, slots)))
+    os.makedirs(out, exist_ok=True)
+    script = os.path.join(out, "mesh_worker.py")
+    with open(script, "w") as f:
+        f.write(MESH_WORKER)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DET_") and k != "CUDA_VISIBLE_DEVICES"}
+    env.update({"DET_SLOT_IDS": json.dumps(list(slots)),
+                "DET_TORCH_MASTER_PORT": str(port),
+                "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", "")})
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "determined_tpu_torch.launch.torch_distributed",
+         "--nproc-per-node", str(len(slots)), "--", sys.executable, script,
+         ROOT, out, json.dumps(cases)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        log += f"\n[20b] killed at its limit of {timeout} s"
+    results = {}
+    for line in log.splitlines():
+        if "RESULT " in line:
+            r = json.loads(line.split("RESULT ", 1)[1])
+            results.setdefault(r["name"], {})[r["rank"]] = r
+    return results, proc.returncode, log
+
+
+def mesh_launch_checks(name, ranks):
+    """What is wrong with the flash launches of one case of 20b, from
+    every rank's RESULT: the replays the oracle made (one window's step 0
+    runs eagerly as the warm-up), the wrapper's count (the warm-up and
+    the capture: twice the graph's), a GPT-2 graph holding flash
+    launches (phase 7's formula at `fsdp`), and the flash kernels traced
+    on the card in a window of MULTI_STEPS replays: the graph's count
+    each."""
+    L = 12
+    want_fsdp = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    wrong = []
+    for rank, r in sorted(ranks.items()):
+        g = r["graph"]
+        traced = r["trace"]["replay"]["flash"]
+        if r["replays"] != MULTI_STEPS * MULTI_WINDOWS - 1:
+            wrong.append(f"rank {rank} made {r['replays']} replays")
+        if r["wrapper"] != {k: 2 * v for k, v in g.items()}:
+            wrong.append(f"rank {rank}'s wrapper counted {r['wrapper']}, "
+                         f"not twice the graph's {g}")
+        if not name.startswith("cifar") and not sum(g.values()):
+            wrong.append(f"rank {rank}'s graph holds no flash launch")
+        if name.startswith("fsdp") and r["world"] == 2 and g != want_fsdp:
+            wrong.append(f"rank {rank}'s graph holds {g}, not {want_fsdp}")
+        if traced != {k: v * MULTI_STEPS for k, v in g.items()}:
+            wrong.append(f"rank {rank}: {MULTI_STEPS} replays ran {traced} "
+                         f"on the card, not {MULTI_STEPS} x {g}")
+    return wrong
+
+
+def phase_multi_mesh(workdir, hparams, card, cases=MESH_CASES,
+                     per_case=False, timeout=900):
+    """20b: with two cards or more, a launched world of 2 NCCL ranks runs
+    the cases of MESH_CASES in turn (`mesh_case`); with four, two such
+    worlds run at once (cards 0-1 and 2-3, the cases split by
+    MESH_PAIR_SPLIT), then a world of 4 runs MESH_WORLD4_CASES. Each
+    case's window means within MULTI_RTOL and every rank's params,
+    optimizer moments and BatchNorm statistics within MULTI_PARAM_ATOL of
+    the eager steps' (8a's limits); whether each is bitwise is printed;
+    the flash launches as `mesh_launch_checks` holds them; the planted
+    fault outside the limits. `per_case` launches a world for each case
+    (a fault in one does not end the others). With one card: `[20b] not
+    run: 1 card`."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[20b] not run: {n} card")
+        return None
+    pair = [(c, m, {**hparams, **hp}) for c, m, hp in cases]
+    if n >= 4:
+        stages = [[((0, 1), [c for c in pair if c[0] in MESH_PAIR_SPLIT]),
+                   ((2, 3), [c for c in pair
+                             if c[0] not in MESH_PAIR_SPLIT])],
+                  [((0, 1, 2, 3), [(c, m, {**hparams, **hp})
+                                   for c, m, hp in MESH_WORLD4_CASES])]]
+    else:
+        stages = [[((0, 1), pair)]]
+    results, failures = {}, []
+    t0 = time.monotonic()
+    for stage in stages:
+        worlds = [(slots, part) for slots, group in stage if group
+                  for part in ([[c] for c in group] if per_case
+                               else [group])]
+        for together in ([[w] for w in worlds] if per_case else [worlds]):
+            ports = [free_port() for _ in together]
+            with concurrent.futures.ThreadPoolExecutor(len(together)) as ex:
+                runs = list(ex.map(
+                    lambda w, port: launch_mesh_world(workdir, w[0], w[1],
+                                                      timeout, port),
+                    together, ports))
+            for (slots, part), (got, rc, log) in zip(together, runs):
+                results.update(got)
+                missing = [c[0] for c in part
+                           if sorted(got.get(c[0], {})) !=
+                           list(range(len(slots)))]
+                if rc != 0 or missing:
+                    say(log[-6000:])
+                    failures.append(f"world on cards {slots} exited {rc}; "
+                                    f"no result from every rank for "
+                                    f"{missing}")
+    for name, ranks in results.items():
+        r0 = ranks[0]
+        worst = {"rel": max(r["rel"] for r in ranks.values())}
+        for part in ("params", "moments", "extra"):
+            worst[part] = max(r["diffs"][part] for r in ranks.values())
+        bitwise = all(r["bitwise"] for r in ranks.values())
+        wrong = mesh_launch_checks(name, ranks)
+        say(f"[20b] [{card}] {name}, world {r0['world']}, mesh "
+            f"{ {k: v for k, v in r0['mesh'].items() if v > 1} }: "
+            f"make_multi_step({MULTI_STEPS}) x {MULTI_WINDOWS} against "
+            f"{MULTI_STEPS * MULTI_WINDOWS} make_train_step calls: "
+            f"window-mean losses {r0['loss_r']} / {r0['loss_e']}, max rel "
+            f"diff of loss / grad_norm / all_finite {worst['rel']:.3e} "
+            f"(rtol {MULTI_RTOL}); max |diff| over the ranks: params "
+            f"{worst['params']:.3e}, moments {worst['moments']:.3e}, extra "
+            f"{worst['extra']:.3e} (atol {MULTI_PARAM_ATOL}); bitwise "
+            f"{bitwise}; flash launches the graph holds by rank "
+            f"{[r['graph'] for r in ranks.values()]}, the wrapper's counts "
+            f"{[r['wrapper'] for r in ranks.values()]}, {r0['replays']} "
+            f"replays; traced on the card in {MULTI_STEPS} replays "
+            f"{[r['trace']['replay']['flash'] for r in ranks.values()]}; "
+            f"launch checks {'held' if not wrong else wrong}")
+        h = r0["host_ms"]
+        tr = {m: r0["trace"][m] for m in ("replay", "eager")}
+        say(f"[20b] [{card}] {name} (information, rank 0): host ms a step, "
+            f"replay {h['replay'][0]:.2f} / {h['replay'][1]:.2f}, eager "
+            f"{h['eager'][0]:.2f} / {h['eager'][1]:.2f} (in turns); traced "
+            f"a step (union of kernel intervals), " + "; ".join(
+                f"{m}: device busy {t['busy_ms']:.2f} ms, NCCL "
+                f"{t['nccl_ms']:.2f} ms ({t['nccl_only_ms']:.2f} with "
+                f"nothing else running), host {t['wall_ms']:.2f} ms, idle "
+                f"share {t['idle'] * 100:.1f}%" for m, t in tr.items())
+            + f"; max_memory_allocated GiB by rank, replay "
+            f"{[round(r['peak_gib']['replay'], 3) for r in ranks.values()]}"
+            f", eager "
+            f"{[round(r['peak_gib']['eager'], 3) for r in ranks.values()]}")
+        if worst["rel"] > MULTI_RTOL or max(
+                worst[p] for p in ("params", "moments", "extra")) > \
+                MULTI_PARAM_ATOL:
+            failures.append(f"{name}: the replays differ from the eager "
+                            f"steps: {worst}")
+        if wrong:
+            failures.append(f"{name}: flash launches: {wrong}")
+        if name == "fsdp":
+            fault = max(r["fault_rel"] for r in ranks.values())
+            say(f"[20b] [{card}] planted fault (rank 1 replays step "
+                f"{MESH_FAULT_STEP} on its stale batch): window max rel diff "
+                f"{fault:.3e}, refused: {fault > MULTI_RTOL}")
+            if not fault > MULTI_RTOL:
+                failures.append("the planted stale batch was not refused")
+    say(f"[20b] [{card}] {time.monotonic() - t0:.1f} s")
+    if failures:
+        fail("20b: " + "; ".join(failures))
+    return results
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -6885,6 +7473,8 @@ def main() -> int:
     conv_split = phase_conv_split(card)
     phase_conv_split_world(workdir, card)
     farm = phase_farm(workdir, hparams, ckpt, card, launched)
+    phase_capture_collectives(card)
+    mesh = phase_multi_mesh(workdir, hparams, card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -7003,6 +7593,8 @@ def main() -> int:
             "launches_pipeline": pipe["launches"][key],
             "launches_elastic": elastic["launches"][key],
             "launches_warm": farm["launches_warm"][key],
+            "launches_multi_mesh": None if mesh is None else
+            mesh["fsdp"][0]["trace"]["replay"]["flash"][name],
             "long_ms": long["per_layer_ms"][key],
             "long_bound_ms": long["bound_ms"][key],
             "max_abs_err": flash_err[key],

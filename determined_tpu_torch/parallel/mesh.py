@@ -159,7 +159,8 @@ def axis_group(mesh, axis: str) -> Optional[AxisGroup]:
 
 
 # The meshes made over the current default process group, by (ranks,
-# shape, device type), each beside the group it was made over.
+# shape, device type), each beside the group it was made over and its
+# control group (`control_group`).
 _MESHES: dict = {}
 
 
@@ -183,7 +184,11 @@ def create_mesh(config: Optional[MeshConfig] = None,
     its groups, so no resize adds communicators. None is destroyed while
     the group lives: DTensor's sharding cache compares meshes by their
     ranks, shape and names, and may hand an op the equal mesh of an
-    earlier generation."""
+    earlier generation.
+
+    A mesh of several ranks comes with a gloo group over those ranks, made
+    beside it (`control_group`): host-side agreement among them that
+    issues nothing on the card."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -208,8 +213,24 @@ def create_mesh(config: Optional[MeshConfig] = None,
     else:
         mesh = DeviceMesh(device_type, torch.arange(n).reshape(shape),
                           mesh_dim_names=AXIS_ORDER)
-    _MESHES[key] = (default, mesh)
+    control = dist.new_group(list(range(n)), backend="gloo") if n > 1 \
+        else None
+    _MESHES[key] = (default, mesh, control)
     return mesh
+
+
+def control_group(mesh):
+    """The gloo group over the ranks of `mesh`, a mesh of several ranks
+    that `create_mesh` made over the current default group."""
+    import torch.distributed as dist
+
+    default = dist.distributed_c10d._get_default_group()
+    for made_over, made, control in _MESHES.values():
+        if made is mesh and made_over is default and control is not None:
+            return control
+    raise ValueError(
+        "this mesh was not made by parallel.mesh.create_mesh over the "
+        "current process group, or holds one rank: it has no control group")
 
 
 def single_device_mesh(device_type: str = "cuda"):

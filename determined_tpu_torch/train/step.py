@@ -30,7 +30,32 @@ the same loss), as the JAX step's are over the global batch.
 `make_multi_step` is the counterpart of the JAX package's `lax.scan` over
 N steps in one executable: on CUDA one training step captured as a CUDA
 graph and replayed N times, each batch copied into the graph's static
-input buffers first.
+input buffers first. Over a mesh of several processes each rank captures
+its own sharded step, NCCL collectives included, and the ranks replay
+their graphs in lockstep: every collective is a kernel node of the graph
+on the NCCL stream, so replay k of one rank meets replay k of the others
+on the card, with no host in between. The warm-up step 0 runs before the
+capture and creates every communicator the step uses (the mesh groups'
+and the per-pair ones that P2P creates at first use), which a capture
+cannot. How each axis's collectives enter the graph:
+
+  - data, fsdp: `sharding.gather_for_use`'s DTensor `redistribute` to
+    `Replicate` (a functional all-gather and its `wait_tensor`, or, with
+    `overlap_allgather`, an AsyncCollectiveTensor waited on at first use)
+    and its backward reduce-scatter or all-reduce; `_sharded_sq_sum`'s
+    and `global_mean`'s all-reduces;
+  - tensor: Megatron's f/g and gathers (`parallel/collectives.py`), the
+    vocab-split logits' functional all-gather (`models/gpt2.py`);
+  - context: the ring's `batch_isend_irecv` pairs (ops/ring_attention.py)
+    or Ulysses' functional all-to-alls (ops/ulysses.py), and the loss's
+    `sum_over`;
+  - expert: the routing's count all-gather (ops/moe.py) besides f/g;
+  - pipeline: the stages' blocking sends and receives
+    (parallel/pipeline.py), in one order on every replay.
+
+A step that reads a device value on the host could not be captured; none
+does (tests/test_torch_multi_step_mesh.py holds each axis to that, and
+to one sequence of collectives every step).
 """
 
 from __future__ import annotations
@@ -189,11 +214,11 @@ class _MultiStep:
     """`multi_step(state, batches, rng) -> (state, window-mean metrics)`;
     see `make_multi_step`."""
 
-    def __init__(self, step, tx, steps_per_call: int, sharded: bool):
+    def __init__(self, step, tx, steps_per_call: int, mesh):
         self._step = step
         self._tx = tx
         self.steps_per_call = steps_per_call
-        self._sharded = sharded
+        self._mesh = mesh if _is_sharded(mesh) else None
         self.graph = None          # the captured step (CUDA)
         self._static = None        # the graph's input batch
         self._hyper = None         # the update's host floats, on the device
@@ -210,24 +235,17 @@ class _MultiStep:
 
     def __call__(self, state: TrainState, batches: Any, rng):
         n = self.steps_per_call
-        for leaf in _leaves(batches):
-            if not hasattr(leaf, "shape") or len(leaf.shape) < 1 or \
-                    leaf.shape[0] != n:
-                raise ValueError(
-                    f"every batch leaf needs a leading [steps_per_call={n}] "
-                    f"axis; got {getattr(leaf, 'shape', type(leaf))}")
         device = sharding.local_value(state.leaves()[0]).device
+        refusal = self._refusal(state, batches, device)
+        if self._mesh is not None:
+            # Over several processes every rank refuses, or none does: a
+            # rank that raised while the others replayed would leave them
+            # waiting in the graph's collectives.
+            refusal = self._agree(refusal)
+        if refusal is not None:
+            raise refusal[0](refusal[1])
         if device.type != "cuda":
             return self._eager(state, batches, rng)
-        if self._sharded:
-            raise NotImplementedError(
-                "make_multi_step over a mesh of more than one process on "
-                "CUDA: capturing the NCCL collectives of the sharded step in "
-                "the graph is not ported (ROADMAP.md Queue 1 item 4)")
-        if self._tx.hyper is None:
-            raise ValueError(
-                "make_multi_step on CUDA needs a transformation with "
-                "`hyper` (train/optim.py) to replay its update")
         batches = _map(batches, lambda x: torch.as_tensor(x).to(
             device, non_blocking=True))
         start = 0
@@ -235,7 +253,6 @@ class _MultiStep:
             self._capture(state, batches, rng)  # step 0 runs as warm-up
             start = 1
         else:
-            self._check_state(state)
             self._acc.zero_()
         floats, opt = [], state.opt_state
         for _ in range(start, n):
@@ -282,12 +299,57 @@ class _MultiStep:
         out += [t.data_ptr() for t in extra_leaves(state.extra)]
         return out
 
-    def _check_state(self, state) -> None:
+    def _refusal(self, state, batches, device):
+        """Why this call cannot run, as (exception type, message), or
+        None."""
+        n = self.steps_per_call
+        for leaf in _leaves(batches):
+            if not hasattr(leaf, "shape") or len(leaf.shape) < 1 or \
+                    leaf.shape[0] != n:
+                return ValueError, (
+                    f"every batch leaf needs a leading [steps_per_call={n}] "
+                    f"axis; got {getattr(leaf, 'shape', type(leaf))}")
+        if device.type != "cuda":
+            return None
+        if self._tx.hyper is None:
+            return ValueError, (
+                "make_multi_step on CUDA needs a transformation with "
+                "`hyper` (train/optim.py) to replay its update")
+        if self.graph is None:
+            return None
+        shapes = [tuple(x.shape[1:]) for x in _leaves(batches)]
+        static = [tuple(x.shape) for x in _leaves(self._static)]
+        if shapes != static:
+            return ValueError, (
+                f"the batch's shapes {shapes} (a step's) are not the "
+                f"captured step's {static}")
         if self._state_ptrs(state) != self._ptrs:
-            raise RuntimeError(
+            return RuntimeError, (
                 "the train state's tensors are not the ones the multi step "
                 "captured (a restore replaces them): build a new "
                 "make_multi_step for the new state")
+        return None
+
+    def _agree(self, refusal):
+        """This rank's refusal, or else the first refusing rank's, on
+        every rank of the mesh: one all-reduce of a flag a rank over the
+        mesh's control group (gloo, host memory: nothing waits on the
+        card)."""
+        import torch.distributed as dist
+
+        from determined_tpu_torch.parallel import mesh as mesh_lib
+
+        group = mesh_lib.control_group(self._mesh)
+        flags = torch.zeros(dist.get_world_size(group), dtype=torch.int32)
+        if refusal is not None:
+            flags[dist.get_rank(group)] = 1
+        dist.all_reduce(flags, group=group)
+        if refusal is not None or not bool(flags.any()):
+            return refusal
+        rank = int(flags.nonzero()[0])
+        return RuntimeError, (
+            f"rank {rank} of the mesh refused this make_multi_step call "
+            "(its error says why); every rank refuses it")
 
     def _capture(self, state, batches, rng) -> None:
         from determined_tpu_torch.ops import flash_attention as fa
@@ -361,11 +423,24 @@ def make_multi_step(loss_fn: LossFn, tx: optim.GradientTransformation,
     `CUDAGraph.replay()`. Nothing in the step syncs with the host. The
     state's tensors must stay the ones captured (a restore replaces them:
     build a new multi step then). On the CPU it runs the same steps
-    eagerly: the plain version. A mesh over more than one process on CUDA
-    raises (ROADMAP.md Queue 1 item 4): the port does not capture NCCL
-    collectives yet. `rules` is the JAX package's argument, kept for its
-    signature: a rank's batch already holds only its rows
-    (`step_input_shardings`), so there is nothing to constrain.
+    eagerly: the plain version; a CUDA state never takes that route.
+
+    With a `mesh` over several processes (the DeviceMesh `Trainer` or
+    `core.init()` made, one rank a card) each rank captures its sharded
+    step, its NCCL collectives included (the module docstring lists them
+    by axis), and replays it as many times as every other rank, in the
+    same order: a replay's collectives meet the peers' on the card. The
+    window's metrics are the global means, as `make_train_step`'s. A call
+    that one rank refuses (the batch's leading axis or shapes, a state
+    whose tensors are not the captured ones, a `tx` without `hyper`) is
+    refused on every rank before any replays (one gloo all-reduce a
+    call), so no rank is left waiting in a collective. The rng, a CUDA
+    generator, is registered with the graph: the ranks of a tensor or
+    context group keep drawing the same numbers.
+
+    `rules` is the JAX package's argument, kept for its signature: a
+    rank's batch already holds only its rows (`step_input_shardings`), so
+    there is nothing to constrain.
     `stateful`: `loss_fn` takes and returns the state's `extra`, as in
     `make_train_step`; each replay writes the new values into the same
     buffers (`TrainState.apply_gradients`), so replay N reads replay
@@ -373,7 +448,7 @@ def make_multi_step(loss_fn: LossFn, tx: optim.GradientTransformation,
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     step = _step_fn(loss_fn, tx, stateful, mesh)
-    return _MultiStep(step, tx, steps_per_call, _is_sharded(mesh))
+    return _MultiStep(step, tx, steps_per_call, mesh)
 
 
 def batch_placements(mesh, rules: Optional[LogicalRules] = None,
