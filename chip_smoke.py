@@ -86,14 +86,19 @@ fails:
      GPT-2 small, seq_len 1024, global batch 8, bf16, remat "dots",
      attention_impl auto, through `core.init(max_length=30)` and
      `Trainer.fit`, on a memmapped token stream of repeated random 64-token
-     phrases written from a seed. The loss must be finite and fall; each
-     step must launch the flash forward kernel 24 times (12 layers, again
-     in the remat recompute) and the dQ and dK/dV kernels 12 times each,
-     the op-end validation 12 forward launches a batch; the plain
-     attention must never run; the op end must leave one COMMITTED
-     checkpoint that `restore_state` reads back bit-identical; the
-     profiled steps must show all three flash kernels on their
-     tensor-core (wgmma) kernel functions.
+     phrases written from a seed. The loss must be finite and fall; fit
+     must have replayed its step as one captured CUDA graph (its first
+     flush `step_captured` 1.0), so the flash wrappers count the warm-up
+     step and the capture only: each launches the forward kernel 24 times
+     (12 layers, again in the remat recompute) and the dQ and dK/dV
+     kernels 12 times each, the op-end validation 12 forward launches a
+     batch (`fit_launches`); the plain attention must never run; the op
+     end must leave one COMMITTED checkpoint that `restore_state` reads
+     back bit-identical; 3 more replayed steps under torch.profiler must
+     trace the graph's flash launches 3 times over, all three on their
+     tensor-core (wgmma) kernel functions. Every later fit on one card
+     (7c, 8c, 11a, 12a, 13, 17a, 19b, 21) replays likewise, and its
+     wrapper counts follow `fit_launches`.
  7b. a replica restored from phase 7's checkpoints: `build_replica` with
      `checkpoint: latest` and one adapter, a second committed checkpoint of
      the trained params with `wte` perturbed from the seed; a newer
@@ -485,16 +490,46 @@ fails:
      busy ms and NCCL ms a step (unions of kernel intervals on the
      trace's timeline) and the idle share; each rank's peak memory. With
      one card, `[20b] not run: 1 card`.
+  21. `Trainer.fit` replaying its step on one card (`make_captured_step`:
+     one CUDA graph a batch shape) against its eager route
+     (`make_train_step`, which `fit` takes for an optimizer without
+     `hyper`), each from one seed, the captured run first. 21a: GPT-2
+     small bf16 (B 8, S 1024, phase 7's trial and hparams) to step 15
+     with a report every 5 and a checkpoint every 5, the 8th batch drawn
+     non-finite (a flag a row the loss reads on the card) under
+     `health.on_nan: rollback` (the window to 10 diverges and rolls back
+     to step 5), then a resume from step 15 to 20; the batches drawn have
+     8, 8, 8 and 3 rows in turn, bucketed into 2 shapes. Every report's
+     loss, grad_norm and all_finite and the final params, moments and
+     extra held to the eager run's under 8a's limits (bitwise printed);
+     each captured fit must hold 2 graphs and the flash wrappers count
+     exactly their 4 captures (the rollback captured nothing again).
+     Then 4 more B-8 steps on each route's last state: host ms a step in
+     turns, and under torch.profiler the device busy ms (the union of
+     kernel intervals), the idle share (1 - busy / host, not clipped)
+     and the flash kernels traced, which for the replays must be the
+     graph's count x 4; `max_memory_allocated` of each run, and of
+     captured fits over 1 and 3 bucket shapes. 21b: 13c's stateful CIFAR
+     ResNet-18 (B 128), 10 steps, likewise held to its eager run (BN
+     stats and momentum included). 21c: the DDPM UNet (13e's hparams),
+     whose loss draws its timesteps and noise from the step's generator,
+     10 steps through a non-finite 7th batch and a rollback that
+     reseeds the generator: the replays must draw what the eager steps
+     draw.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
-or "ffma" CUDA cores; `launches` counts phase 7's path, phase 5's for the
+or "ffma" CUDA cores; `launches` counts phase 7's path (its wrappers:
+the warm-up step, the capture and the validation), phase 5's for the
 paged kernel, `launches_moe` phase 11a's, 11c's for the paged kernel,
 and for the flash kernels `launches_long` phase 12a's,
 `launches_ring` 12b's ring schedule, `launches_torch_trial` 14a's
 `pytorch.Trainer.fit`, `launches_pipeline` 16a's schedule walked over
 2 stages, `launches_elastic` 17a's `fit` after the per-rank restore,
-`launches_warm` 19b's warm trial and `launches_multi_mesh` the launches
+`launches_warm` 19b's warm trial (the wrappers: fit's warm-up and
+capture), `launches_fit_traced` the launches torch.profiler traced in 3
+replayed steps of phase 7's fit step, `launches_fit21_traced` those in
+21a's 4 replayed steps, and `launches_multi_mesh` the launches
 traced on the card (torch.profiler) in 4 replays of 20b's `fsdp: 2`
 graph on rank 0 (null with one card), for the paged kernel
 `launches_warm_per_decode_step` 19c's warm replica, and `long_ms` a
@@ -1496,11 +1531,13 @@ def phase_train(workdir, hparams):
     if not losses[-1] < losses[0] - 0.5:
         fail(f"the loss did not fall: {losses}")
     n_val = sum(1 for _ in trial.build_validation_data())
-    want = {"fwd": (2 * TRAIN_STEPS + n_val) * cfg.n_layer,
-            "dq": TRAIN_STEPS * cfg.n_layer, "dkv": TRAIN_STEPS * cfg.n_layer}
-    say(f"[train] flash launches {launches} (expected {want}: forward 24 a "
-        f"step with the remat recompute, + {cfg.n_layer} a validation "
-        f"batch x {n_val}); reference_attention calls {ref_calls}")
+    captured_fit_step(trainer, reports[0]["metrics"], "[train]")
+    want = fit_launches(1, n_val, cfg.n_layer)
+    say(f"[train] flash wrapper launches {launches} (expected {want}: the "
+        f"warm-up step and the capture, forward 24 a step with the remat "
+        f"recompute, + {cfg.n_layer} a validation batch x {n_val}; the "
+        f"{TRAIN_STEPS - 1} replays are counted on a trace below); "
+        f"reference_attention calls {ref_calls}")
     if launches != want:
         fail(f"flash launches {launches} != {want}")
     if ref_calls != 0:
@@ -1550,7 +1587,7 @@ def phase_train(workdir, hparams):
     say(f"[train] flash kernel routes on the main path: {routes}")
     if any(route != "wgmma" for route in routes.values()):
         fail(f"bf16 at D 64 must run the wgmma kernels, ran {routes}")
-    idle = max(0.0, 1.0 - breakdown["busy_ms"] / step_ms)
+    idle = 1.0 - breakdown["busy_ms"] / step_ms
     say(f"[train] fit's step time over steps {TRAIN_REPORT_PERIOD + 1}-"
         f"{TRAIN_STEPS}: {step_ms:.2f} ms a step (report windows "
         f"{[round(w * 1e3 / TRAIN_REPORT_PERIOD, 2) for w in window_s]} ms "
@@ -1959,10 +1996,11 @@ def phase_managed_trial(workdir, hparams, train, card):
             counts["/progress"] != 2 or counts["/ack_preemption"] != 1:
         fail(f"the master's record is incomplete: {steps} {counts}")
     n_layer = trainer.trial.cfg.n_layer
-    want = {"fwd": (2 * TRAIN_STEPS + train["n_val"]) * n_layer,
-            "dq": TRAIN_STEPS * n_layer, "dkv": TRAIN_STEPS * n_layer}
-    say(f"[managed] flash launches over runs A and B {launches} (expected "
-        f"{want}); reference_attention calls {ref_calls}")
+    # Runs A and B each capture their step once; B validates at the end.
+    want = fit_launches(2, train["n_val"], n_layer)
+    say(f"[managed] flash wrapper launches over runs A and B {launches} "
+        f"(expected {want}: each run's warm-up step and capture, and the "
+        f"validation); reference_attention calls {ref_calls}")
     if launches != want or ref_calls != 0:
         fail(f"managed trial: flash launches {launches} != {want} or plain "
              f"attention calls {ref_calls}")
@@ -2135,11 +2173,89 @@ def replica_drains_on_preemption(serving, storage, card):
              + "".join(lines[-20:]))
 
 
+def fit_launches(captures, n_val, n_layer):
+    """The flash wrappers' counts over fits on one card whose step was
+    captured `captures` times (a graph a batch shape, a fit): each
+    capture's warm-up step and its recording call the wrappers (the
+    forward twice a layer with the remat recompute, dQ and dK/dV once);
+    the replays do not (a trace counts their launches); plus the
+    forwards of `n_val` validation batches."""
+    steps = 2 * captures
+    return {"fwd": (2 * steps + n_val) * n_layer, "dq": steps * n_layer,
+            "dkv": steps * n_layer}
+
+
+def captured_fit_step(trainer, flush, where, graphs=1):
+    """The step a one-card `fit` ran, checked: `make_captured_step`'s, with
+    `graphs` graphs (batch shapes), and the first metrics flush reporting
+    `step_captured` 1.0. -> the step."""
+    from determined_tpu_torch.train.step import _CapturedStep
+
+    step = trainer._train_step
+    n = len(step.graphs) if isinstance(step, _CapturedStep) else None
+    say(f"{where} fit's step: {type(step).__name__} with {n} graph(s); the "
+        f"first flush: step_captured {flush.get('step_captured')}, "
+        f"step_route {flush.get('step_route')!r}")
+    if n != graphs or flush.get("step_captured") != 1.0:
+        fail(f"{where} fit did not replay its step as {graphs} captured "
+             "graph(s)")
+    return step
+
+
+def fit_rng(step):
+    """The generator a captured fit step registered with its graphs (its
+    replays draw from that one only); a new one for an eager step."""
+    import torch
+
+    graphs = list(getattr(step, "graphs", {}).values())
+    if graphs:
+        return graphs[0].rng
+    return torch.Generator(device="cuda").manual_seed(SEED)
+
+
+# Spin kernels (count, cycles each) before and after a traced window. Late
+# in this script's process a trace loses the device events of its first
+# ~10 ms (seen on the card: 16 pads of ~0.5 ms were not enough, and the
+# window's first ~1.2 ms went with them, its first flash forward among
+# them; in a fresh process nothing is lost): the pads, ~60 ms in 4096
+# kernels, take that loss, and the readers leave them out.
+TRACE_PAD = (4096, 30_000)
+PAD_KERNEL = "spin_kernel"
+
+
+def trace_pad():
+    import torch
+
+    for _ in range(TRACE_PAD[0]):
+        torch.cuda._sleep(TRACE_PAD[1])
+    torch.cuda.synchronize()
+
+
+def device_events(prof, pads=False):
+    """The device events of a trace, the pads' spin kernels left out (or,
+    with `pads`, only those)."""
+    return [ev for ev in prof.events()
+            if str(getattr(ev, "device_type", "")).split(".")[-1] == "CUDA"
+            and (PAD_KERNEL in ev.name) == pads]
+
+
+def flash_events(prof):
+    """The flash kernels' launches on a torch.profiler trace, by kernel."""
+    counts = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for ev in device_events(prof):
+        hit = FLASH_KERNEL_NAME.search(ev.name)
+        if hit:
+            counts["flash_" + hit.group(1)] += 1
+    return counts
+
+
 def profile_train_steps(trainer, trial, n_steps=3):
     """Device time of `n_steps` more training steps by kernel group, under
     torch.profiler (one stream: kernels do not overlap, so their sum is
-    the busy time). The profiler slows the host, so the wall time and
-    idle share of these steps are the profiled loop's, not fit's."""
+    the busy time), and the flash kernels counted on the trace: a fit
+    step replayed on one card must launch its graph's count each step.
+    The profiler slows the host, so the wall time and idle share of
+    these steps are the profiled loop's, not fit's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2147,17 +2263,18 @@ def profile_train_steps(trainer, trial, n_steps=3):
 
     data = iter(trial.build_training_data())
     batches = [_to_device(next(data), trainer.device) for _ in range(n_steps)]
-    rng = torch.Generator(device="cuda").manual_seed(SEED)
     step = trainer._train_step
+    rng = fit_rng(step)
     state = step(trainer.state, batches[0], rng)[0]  # warm, unprofiled
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+        trace_pad()
         t0 = time.perf_counter()
         for batch in batches:
             state = step(state, batch, rng)[0]
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        trace_pad()
     # One group per flash kernel function (its name and template
     # arguments, so the route that ran shows), then GEMMs and the rest.
     groups = {"gemm": 0.0, "other": 0.0}
@@ -2168,7 +2285,7 @@ def profile_train_steps(trainer, trial, n_steps=3):
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        if us <= 0:
+        if us <= 0 or PAD_KERNEL in ev.key:
             continue
         name = ev.key
         per_kernel[name] = per_kernel.get(name, 0.0) + us / 1e3
@@ -2184,7 +2301,16 @@ def profile_train_steps(trainer, trial, n_steps=3):
     out = {"groups": {k: v / n_steps for k, v in groups.items()}}
     out["busy_ms"] = busy / n_steps
     out["wall_ms"] = wall_ms / n_steps
-    out["idle_share"] = max(0.0, 1.0 - busy / wall_ms)
+    out["idle_share"] = 1.0 - busy / wall_ms
+    out["flash"] = flash_events(prof)
+    graphs = list(getattr(step, "graphs", {}).values())
+    if graphs:
+        want = {k: v * n_steps for k, v in graphs[0].launches.items()}
+        say(f"[profile] flash kernels traced in {n_steps} replayed steps "
+            f"{out['flash']} (the graph's {graphs[0].launches} x {n_steps})")
+        if out["flash"] != want:
+            fail(f"the replayed steps launched {out['flash']} flash kernels, "
+                 f"not the graph's {want}")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     say(f"[profile] {n_steps} training steps under torch.profiler: wall "
         f"{out['wall_ms']:.2f} ms a step (the profiled loop), device busy "
@@ -2282,33 +2408,30 @@ def device_trace(run, n_steps):
     other device work ran, "wall_ms": host ms a step around the traced
     run, "idle": 1 - busy / wall, "flash": the flash kernels' launches by
     kernel (`flash_fwd` ...)}. NCCL kernels that wait for a peer count as
-    busy: the card holds them."""
+    busy: the card holds them. The window sits between two `trace_pad`s,
+    left out of every reading."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+        trace_pad()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        trace_pad()
     spans, nccl, other = [], [], []
-    flash = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
-            continue
+    for ev in device_events(prof):
         span = (ev.time_range.start, ev.time_range.end)
         spans.append(span)
         (nccl if "nccl" in ev.name.lower() else other).append(span)
-        hit = FLASH_KERNEL_NAME.search(ev.name)
-        if hit:
-            flash["flash_" + hit.group(1)] += 1
     busy = union_ms(spans)
     return {"busy_ms": busy / n_steps, "nccl_ms": union_ms(nccl) / n_steps,
             "nccl_only_ms": (busy - union_ms(other)) / n_steps,
             "wall_ms": wall / n_steps, "idle": 1 - busy / wall,
-            "flash": flash}
+            "flash": flash_events(prof),
+            "pads": len(device_events(prof, pads=True))}
 
 
 def step_order_sum(values):
@@ -2704,10 +2827,7 @@ def phase_launched_trial(workdir, hparams, card, train=None):
               if b["group"] == "training" and "loss" in b["metrics"]]
     ops = [q for m, p, q, b in master.requests
            if p.endswith("/searcher/operation")]
-    L = 12
-    n_val = 4
-    want = {"fwd": (2 * LAUNCHED_STEPS + n_val) * L,
-            "dq": LAUNCHED_STEPS * L, "dkv": LAUNCHED_STEPS * L}
+    want = fit_launches(1, 4, 12)  # one capture at world 1, 4 val batches
     say(f"[launch] [{card}] 1 slot: the worker saw CUDA_VISIBLE_DEVICES="
         f"{r['cuda_visible_devices']} ({r['device']}), rank {r['rank']} of "
         f"{r['size']}, process group {r['group_backend']}, DeviceMesh "
@@ -3173,10 +3293,10 @@ def phase_moe_train(workdir, hparams, card):
             not losses[-1] < losses[0] - 0.25:
         fail(f"the MoE losses are not finite and falling: {losses}")
     n_val = sum(1 for _ in trial.build_validation_data())
-    want = {"fwd": (2 * MOE_STEPS + n_val) * cfg.n_layer,
-            "dq": MOE_STEPS * cfg.n_layer, "dkv": MOE_STEPS * cfg.n_layer}
-    say(f"[moe] flash launches {launches} (expected {want}, phase 7's "
-        f"formula); reference_attention calls {ref_calls}")
+    captured_fit_step(trainer, reports[0]["metrics"], "[moe]")
+    want = fit_launches(1, n_val, cfg.n_layer)
+    say(f"[moe] flash wrapper launches {launches} (expected {want}, phase "
+        f"7's formula); reference_attention calls {ref_calls}")
     if launches != want or ref_calls != 0:
         fail(f"MoE training launched {launches} flash kernels (want {want}) "
              f"and the plain attention {ref_calls} times")
@@ -3190,7 +3310,7 @@ def phase_moe_train(workdir, hparams, card):
                 for r in reports[1:]]
     step_ms = sum(window_s) / (TRAIN_REPORT_PERIOD * len(window_s)) * 1e3
     breakdown = profile_train_steps(trainer, trial)
-    idle = max(0.0, 1.0 - breakdown["busy_ms"] / step_ms)
+    idle = 1.0 - breakdown["busy_ms"] / step_ms
     tokens_per_s = 8 * 1024 / (step_ms / 1e3)
     active = moe_active_flops_per_token(cfg, 1024)
     mfu = active * tokens_per_s / PEAK_FLOPS["torch.bfloat16"]
@@ -3568,10 +3688,10 @@ def phase_long_context_train(workdir, hparams, card):
             not losses[-1] < losses[0] - 0.25:
         fail(f"the long-context losses are not finite and falling: {losses}")
     n_val = sum(1 for _ in trial.build_validation_data())
-    want = {"fwd": (2 * LONG_STEPS + n_val) * cfg.n_layer,
-            "dq": LONG_STEPS * cfg.n_layer, "dkv": LONG_STEPS * cfg.n_layer}
-    say(f"[long] flash launches {launches} (expected {want}, phase 7's "
-        f"formula); plain attention calls {plain_calls}")
+    captured_fit_step(trainer, reports[0]["metrics"], "[long]")
+    want = fit_launches(1, n_val, cfg.n_layer)
+    say(f"[long] flash wrapper launches {launches} (expected {want}, phase "
+        f"7's formula); plain attention calls {plain_calls}")
     if launches != want or plain_calls != 0:
         fail(f"the long-context fit launched {launches} flash kernels (want "
              f"{want}) and the plain attention {plain_calls} times")
@@ -3581,7 +3701,7 @@ def phase_long_context_train(workdir, hparams, card):
                 for r in reports[1:]]
     step_ms = sum(window_s) / (TRAIN_REPORT_PERIOD * len(window_s)) * 1e3
     breakdown = profile_train_steps(trainer, trial)
-    idle = max(0.0, 1.0 - breakdown["busy_ms"] / step_ms)
+    idle = 1.0 - breakdown["busy_ms"] / step_ms
     tokens_per_s = LONG_BATCH * LONG_SEQ / (step_ms / 1e3)
     mfu = gpt2.flops_per_token(cfg, LONG_SEQ) * tokens_per_s / PEAK_FLOPS[
         "torch.bfloat16"]
@@ -6858,9 +6978,7 @@ def phase_farm(workdir, hparams, ckpt, card, cold):
             "spans": compile_spans(tmaster), "wall_s": wall,
             "losses": [b["metrics"]["loss"] for b in tmaster.posted("/metrics")
                        if b["group"] == "training" and "loss" in b["metrics"]]}
-    L, n_val = 12, 4
-    want = {"fwd": (2 * LAUNCHED_STEPS + n_val) * L,
-            "dq": LAUNCHED_STEPS * L, "dkv": LAUNCHED_STEPS * L}
+    want = fit_launches(1, 4, 12)
     for tag, r in (("cold (8c)", cold), ("warm", warm)):
         sp = r["spans"][0] if r["spans"] else {"attrs": {}}
         say(f"[19b] [{card}] {tag} trial: harness.compile "
@@ -7425,6 +7543,301 @@ def phase_multi_mesh(workdir, hparams, card, cases=MESH_CASES,
     return results
 
 
+# ----------------------------------------------------------------- phase 21
+
+
+FIT_FIRST, FIT_RESUMED = 15, 20  # 21a: fit to 15, then resume to 20
+FIT_POISON_AT = 8        # the 8th batch drawn is non-finite (21a, 21c)
+FIT_SIZES = (8, 8, 8, 3)  # 21a's rows a batch in turn: buckets 8 and 4
+FIT_MEMORY_SIZES = {1: (8,), 3: (8, 3, 2)}  # buckets 8; 8, 4 and 2
+FIT_TRACE_STEPS = 4
+FIT_CIFAR_STEPS = 10
+FIT_DIFFUSION_STEPS = 10
+
+
+def fit_trial(base, eager, poison_at=None, sizes=None):
+    """`base` (a trial class of the port) as phase 21 runs it: with
+    `eager`, its optimizer without `hyper`, so that `fit` takes its eager
+    route on the card (`step_route`: the run the captured one is held
+    to); the `poison_at`-th training batch drawn non-finite through a flag
+    a row that the loss reads on the device (no host read), under
+    `health.on_nan: rollback`; the batches drawn in turn cut to `sizes`
+    rows and bucketed (powers of two); one validation batch."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from determined_tpu_torch.train import optim
+
+    class Trial(base):
+        health = {"on_nan": "rollback", "rollback_window": 1,
+                  "max_rollbacks": 1}
+        compile = {"bucket_batch_sizes": True, "upload": False} \
+            if sizes else None
+
+        def optimizer(self):
+            tx = super().optimizer()
+            return optim.GradientTransformation(tx.init, tx.update) \
+                if eager else tx
+
+        def build_training_data(self):
+            for i, batch in enumerate(super().build_training_data()):
+                if sizes:
+                    n = sizes[i % len(sizes)]
+                    batch = {k: v[:n] for k, v in batch.items()}
+                if poison_at is not None:
+                    rows = len(next(iter(batch.values())))
+                    batch = dict(batch, poison=np.full(
+                        rows, i + 1 == poison_at, np.float32))
+                yield batch
+
+        def build_validation_data(self):
+            return itertools.islice(super().build_validation_data(), 1)
+
+        if poison_at is not None:
+            def loss(self, params, batch, rng):
+                out = super().loss(params, {k: v for k, v in batch.items()
+                                            if k != "poison"}, rng)
+                # NaN loss and gradients on the poisoned batch.
+                nan = torch.where((batch["poison"] > 0).any(), float("nan"),
+                                  1.0)
+                if isinstance(out, tuple):
+                    return (out[0] * nan,) + tuple(out[1:])
+                return out * nan
+
+    Trial.__name__ = f"{base.__name__}{'Eager' if eager else ''}"
+    return Trial
+
+
+def fit_runs(trial_cls, hparams, ckpt_dir, fits, **fit_kwargs):
+    """The fits `fits` ((max_length, resume_from), ...) of one trial class
+    in a checkpoint directory of its own -> (every training report, the
+    trainers, the last state, max_memory_allocated in GiB above what was
+    allocated before the first fit: another run's live state and graphs
+    are not this run's)."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.trial import TrialContext
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reports, trainers, state = [], [], None
+    for length, resume in fits:
+        ctx = core.init(max_length=length, checkpoint_dir=ckpt_dir)
+        trainer = Trainer(trial_cls(TrialContext(hparams=hparams,
+                                                 core_context=ctx)),
+                          core_context=ctx)
+        state = trainer.fit(resume_from=resume, **fit_kwargs)
+        ctx.close()
+        reports += ctx.train.local_training_metrics
+        trainers.append(trainer)
+    torch.cuda.synchronize()
+    return reports, trainers, state, \
+        (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def held_to_eager(where, got, want):
+    """The captured run `got` against the eager run `want` (each a
+    fit_runs result): every report's step and its loss, grad_norm and
+    all_finite (8a's MULTI_RTOL; a NaN window must be NaN in both), the
+    final params, optimizer state and extra (MULTI_PARAM_ATOL). -> True
+    when all are bitwise equal."""
+    import math
+
+    steps = [[r["steps_completed"] for r in run[0]] for run in (got, want)]
+    worst_rel, bitwise = 0.0, steps[0] == steps[1]
+    for g, w in zip(got[0], want[0]):
+        for k in ("loss", "grad_norm", "all_finite"):
+            a, b = float(g["metrics"][k]), float(w["metrics"][k])
+            if math.isnan(a) or math.isnan(b):
+                if not (math.isnan(a) and math.isnan(b)):
+                    worst_rel, bitwise = math.inf, False
+                continue
+            bitwise = bitwise and a == b
+            worst_rel = max(worst_rel, abs(a - b) / max(abs(b), 1e-12))
+    diffs = {part: _max_abs(a, b) for part, a, b in zip(
+        ("params", "moments", "extra"), _train_tensors(got[2]),
+        _train_tensors(want[2]))}
+    bitwise = bitwise and all(v == 0.0 for v in diffs.values())
+    say(f"{where} captured against eager: reports at {steps[0]} (eager "
+        f"{steps[1]}); losses {[round(float(r['metrics']['loss']), 4) for r in got[0]]}; "
+        f"max rel diff of loss / grad_norm / all_finite {worst_rel:.3e} "
+        f"(rtol {MULTI_RTOL}); final max |diff| {diffs} (atol "
+        f"{MULTI_PARAM_ATOL}); bitwise equal: {bitwise}")
+    if steps[0] != steps[1] or worst_rel > MULTI_RTOL or \
+            max(diffs.values()) > MULTI_PARAM_ATOL:
+        fail(f"{where} the captured fit differs from the eager fit")
+    return bitwise
+
+
+def phase_fit_captured(workdir, hparams, card):
+    """21: `Trainer.fit` replaying its step on one card, against its eager
+    route, each from one seed, captured first. 21a: GPT-2 small bf16 (B 8,
+    S 1024, the example trial at phase 7's hparams) through 3 report
+    windows, a non-finite step that rolls back, a checkpoint and a resume,
+    with batches of 8 and 3 rows bucketed into 2 shapes: the reports and
+    the final state held to the eager run's; the captured step's 2 graphs
+    kept through the rollback (no new capture); its flash kernels traced
+    in a replayed window against the graph's count x the replays; host ms
+    a step (in turns), device busy ms (the union of kernel intervals),
+    the idle share and `max_memory_allocated`, with 1 and 3 bucket shapes
+    too. 21b: the stateful CIFAR trial, 10 steps, likewise. 21c: the DDPM
+    UNet, whose loss draws from the step's generator, through a rollback
+    that reseeds it."""
+    import torch
+
+    from determined_tpu_torch.ops import flash_attention as fa
+    from determined_tpu_torch.train.trainer import _to_device
+
+    GPT2Trial = gpt2_trial_class()
+    fits = ((FIT_FIRST, None), (FIT_RESUMED, f"trial0-step{FIT_FIRST}"))
+    kw = {"report_period": 5, "checkpoint_period": 5}
+    out = {"peak_gib": {}}
+    runs = {}
+    for mode in ("captured", "eager"):
+        cls = fit_trial(GPT2Trial, mode == "eager", FIT_POISON_AT, FIT_SIZES)
+        for fn in (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda):
+            fn.launches = 0
+        t0 = time.monotonic()
+        runs[mode] = fit_runs(cls, hparams, os.path.join(
+            workdir, f"fit21_{mode}"), fits, **kw)
+        wrapper = {"fwd": fa.flash_fwd_cuda.launches,
+                   "dq": fa.flash_dq_cuda.launches,
+                   "dkv": fa.flash_dkv_cuda.launches}
+        reports, trainers = runs[mode][0], runs[mode][1]
+        out["peak_gib"][f"{mode}_2"] = runs[mode][3]
+        divergences = [r["steps_completed"] for r in reports
+                       if r["metrics"].get("divergence")]
+        firsts = [r["metrics"] for r in reports if "step_route" in r["metrics"]]
+        say(f"[21a] [{card}] {mode}: fits to {FIT_FIRST} and resumed to "
+            f"{FIT_RESUMED} in {time.monotonic() - t0:.1f} s; reports at "
+            f"{[r['steps_completed'] for r in reports]}, divergence at "
+            f"{divergences}; routes {[m['step_route'] for m in firsts]}; "
+            f"flash wrapper launches {wrapper}; max_memory_allocated "
+            f"{runs[mode][3]:.3f} GiB above what was live before")
+        if divergences != [10] or len(firsts) != 2:
+            fail(f"21a: the {mode} fit did not roll back once and resume")
+        if mode == "captured":
+            for t, m in zip(trainers, firsts):
+                captured_fit_step(t, m, "[21a]", graphs=2)
+            # Two captures a fit (a bucket each), the rollback none; one
+            # validation batch a fit.
+            want = fit_launches(4, 2, 12)
+            if wrapper != want:
+                fail(f"21a: the flash wrappers ran {wrapper}, not {want}: a "
+                     "capture more or less than the 2 buckets of 2 fits")
+        elif any(m["step_captured"] != 0.0 or
+                 not m["step_route"].startswith("eager:") for m in firsts):
+            fail("21a: the comparison fit did not take the eager route")
+    out["bitwise"] = {"21a": held_to_eager("[21a]", runs["captured"],
+                                           runs["eager"])}
+
+    # A window of B 8 steps on each route's last state, in turns.
+    trial = runs["captured"][1][-1].trial
+    data = trial.build_training_data()
+    batches = []
+    while len(batches) < FIT_TRACE_STEPS:
+        b = next(data)
+        if len(b["tokens"]) == 8:
+            batches.append(_to_device(b, "cuda"))
+    steps = {m: runs[m][1][-1] for m in runs}
+
+    def window(mode):
+        tr = steps[mode]
+        rng = fit_rng(tr._train_step)
+        for b in batches:
+            tr._train_step(tr.state, b, rng)
+
+    host = {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window(mode)
+        torch.cuda.synchronize()
+        host[mode].append((time.perf_counter() - t0) * 1e3 / FIT_TRACE_STEPS)
+    traced = {m: device_trace(lambda m=m: window(m), FIT_TRACE_STEPS)
+              for m in ("captured", "eager")}
+    graph = steps["captured"]._train_step.graphs
+    key = next(k for k in graph if k[0][1][0] == 8)
+    want = {k: v * FIT_TRACE_STEPS for k, v in graph[key].launches.items()}
+    for mode in ("captured", "eager"):
+        t = traced[mode]
+        say(f"[21a] [{card}] {mode}: host {host[mode][0]:.2f} / "
+            f"{host[mode][1]:.2f} ms a step ({FIT_TRACE_STEPS} steps, in "
+            f"turns); traced: host {t['wall_ms']:.2f} ms a step, device "
+            f"busy {t['busy_ms']:.2f} ms (the union of kernel intervals), "
+            f"idle share {t['idle'] * 100:.1f}%, flash kernels {t['flash']} "
+            f"(pad kernels traced {t['pads']} of {2 * TRACE_PAD[0]})")
+    if traced["captured"]["flash"] != want or \
+            graph[key].launches["flash_fwd"] != 24:
+        fail(f"21a: {FIT_TRACE_STEPS} replays launched "
+             f"{traced['captured']['flash']} flash kernels, not the graph's "
+             f"{graph[key].launches} x {FIT_TRACE_STEPS}")
+    out.update(host=host, traced=traced, replayed_flash=traced["captured"][
+        "flash"])
+    del runs, steps, trial, data, batches, graph
+    _free_cuda()
+
+    # max_memory_allocated with 1 and 3 bucket shapes (2: above).
+    for n, sizes in FIT_MEMORY_SIZES.items():
+        run = fit_runs(fit_trial(GPT2Trial, False, None, sizes), hparams,
+                       os.path.join(workdir, "fit21_memory"),
+                       ((len(sizes) + 1, None),), report_period=5)
+        step = run[1][0]._train_step
+        out["peak_gib"][f"captured_{n}"] = run[3]
+        say(f"[21a] [{card}] {len(sizes) + 1} captured steps over {n} bucket "
+            f"shape(s): {len(step.graphs)} graph(s), max_memory_allocated "
+            f"{run[3]:.3f} GiB above what was live before")
+        if len(step.graphs) != n:
+            fail(f"21a: {n} bucket shapes made {len(step.graphs)} graphs")
+        del run, step
+    _free_cuda()
+
+    # 21b: the stateful CIFAR trial, 10 steps.
+    CifarTrial = cifar_trial_class()
+    hp = {"global_batch_size": CIFAR_BATCH}
+    runs = {m: fit_runs(fit_trial(CifarTrial, m == "eager"), hp,
+                        os.path.join(workdir, f"fit21_cifar_{m}"),
+                        ((FIT_CIFAR_STEPS, None),), report_period=5)
+            for m in ("captured", "eager")}
+    captured_fit_step(runs["captured"][1][0], runs["captured"][0][0][
+        "metrics"], "[21b]")
+    out["bitwise"]["21b"] = held_to_eager("[21b] CIFAR ResNet-18",
+                                          runs["captured"], runs["eager"])
+    del runs
+    _free_cuda()
+
+    # 21c: the UNet draws its timesteps and noise from the step's
+    # generator; the rollback reseeds it, and the replays must see it.
+    ex = load_example("examples/diffusion_cuda/model_def.py",
+                      "diffusion_cuda_fit21")
+    hp = {**yaml_hparams(os.path.join(
+        ROOT, "examples/diffusion_cuda/finetune_asha.yaml")),
+        **DIFFUSION_POINT}
+    runs = {m: fit_runs(fit_trial(ex.DiffusionTrial, m == "eager", 7), hp,
+                        os.path.join(workdir, f"fit21_unet_{m}"),
+                        ((FIT_DIFFUSION_STEPS, None),), **kw)
+            for m in ("captured", "eager")}
+    captured_fit_step(runs["captured"][1][0], runs["captured"][0][0][
+        "metrics"], "[21c]")
+    div = [r["steps_completed"] for r in runs["captured"][0]
+           if r["metrics"].get("divergence")]
+    if div != [10]:
+        fail(f"21c: the UNet fit diverged at {div}, not once at 10")
+    out["bitwise"]["21c"] = held_to_eager("[21c] DDPM UNet",
+                                          runs["captured"], runs["eager"])
+    del runs
+    _free_cuda()
+    return out
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -7475,6 +7888,7 @@ def main() -> int:
     farm = phase_farm(workdir, hparams, ckpt, card, launched)
     phase_capture_collectives(card)
     mesh = phase_multi_mesh(workdir, hparams, card)
+    fit21 = phase_fit_captured(workdir, hparams, card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -7565,6 +7979,16 @@ def main() -> int:
         f"plain step's {pipe['ms']['plain']:.2f} ms; device time "
         f"{pipe['device_ms']['walked']:.2f} against "
         f"{pipe['device_ms']['plain']:.2f} ms")
+    h, t = fit21["host"], fit21["traced"]
+    say(f"[times] [{card}] GPT-2 small bf16, B 8, S 1024, Trainer.fit's "
+        f"step (21a, in turns): replayed host "
+        f"{' / '.join(f'{x:.2f}' for x in h['captured'])} ms a step, traced "
+        f"busy {t['captured']['busy_ms']:.2f} ms, idle "
+        f"{t['captured']['idle'] * 100:.1f}%; eager host "
+        f"{' / '.join(f'{x:.2f}' for x in h['eager'])} ms, traced busy "
+        f"{t['eager']['busy_ms']:.2f} ms, idle "
+        f"{t['eager']['idle'] * 100:.1f}%; peak GiB {fit21['peak_gib']}; "
+        f"bitwise {fit21['bitwise']}")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",
@@ -7593,6 +8017,8 @@ def main() -> int:
             "launches_pipeline": pipe["launches"][key],
             "launches_elastic": elastic["launches"][key],
             "launches_warm": farm["launches_warm"][key],
+            "launches_fit_traced": train["breakdown"]["flash"][name],
+            "launches_fit21_traced": fit21["replayed_flash"][name],
             "launches_multi_mesh": None if mesh is None else
             mesh["fsdp"][0]["trace"]["replay"]["flash"][name],
             "long_ms": long["per_layer_ms"][key],

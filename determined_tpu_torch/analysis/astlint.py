@@ -4,16 +4,18 @@ Counterpart of determined_tpu/analysis/astlint.py, with the same machinery
 (the module index, the same-module call-graph closure, `# det: noqa[...]`,
 `iter_py_files`, `lint_paths`) and the port's idea of what runs as a step.
 The port's step runs eagerly, where a host read of a device value stalls
-the step every call, and `make_multi_step` captures it once as a CUDA
-graph and replays it, where Python RNG, the wall clock and shape branches
-keep the value they had at capture and each distinct shape costs a capture.
+the step every call, and `make_multi_step` and `make_captured_step`
+(`Trainer.fit` on one card) capture it once as a CUDA graph and replay
+it, where Python RNG, the wall clock and shape branches keep the value
+they had at capture and each distinct shape costs a capture.
 
 What counts as a step function (the roots):
   - methods named loss / loss_pipelined / evaluate / evaluate_pipelined /
     init_extra on classes whose bases mention TorchTrial (and their
     same-module subclasses)
   - functions handed to the port's step factories (`make_train_step`,
-    `make_multi_step`, `make_eval_step`, train/step.py), including a
+    `make_multi_step`, `make_captured_step`, `make_eval_step`,
+    train/step.py), including a
     nested def the enclosing factory builds and hands over, and a lambda
   - the body of a `with torch.cuda.graph(...)` block (a capture)
   - module-level functions named loss_fn* / apply* (the model library's
@@ -50,7 +52,8 @@ TRACED_METHODS = {
 DATA_LOADER_METHODS = {"build_training_data", "build_validation_data"}
 TRACED_BASES = {"TorchTrial"}
 TRACED_NAME_PREFIXES = ("loss_fn", "apply")
-STEP_FACTORIES = {"make_train_step", "make_multi_step", "make_eval_step"}
+STEP_FACTORIES = {"make_train_step", "make_multi_step", "make_captured_step",
+                  "make_eval_step"}
 GRAPH_CAPTURES = {"torch.cuda.graph", "cuda.graph"}
 
 _NOQA_RE = re.compile(

@@ -6,8 +6,8 @@ padded leaf keeping its type (a tensor stays a tensor). The preflight's
 DTL205 reads `bucket_size` and `CompileConfig`; the Trainer pads every
 training and validation batch with `bucketed_iter`, and the compile worker
 resolves `CompileConfig`. On the port an "executable" is a step captured
-by `make_multi_step` (a CUDA graph), keyed by exact shapes as an XLA
-executable is.
+by `make_multi_step` or by `Trainer.fit` (`make_captured_step`: one CUDA
+graph a bucket), keyed by exact shapes as an XLA executable is.
 
 An XLA executable is keyed by exact input shapes, so an hparam sweep that
 samples `global_batch_size` raw compiles one executable per sampled value —

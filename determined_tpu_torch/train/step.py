@@ -56,6 +56,14 @@ cannot. How each axis's collectives enter the graph:
 A step that reads a device value on the host could not be captured; none
 does (tests/test_torch_multi_step_mesh.py holds each axis to that, and
 to one sequence of collectives every step).
+
+`make_captured_step` is the counterpart of the JAX package's jitted train
+step on one process, `Trainer.fit`'s step on one card: one CUDA graph a
+tuple of batch-leaf shapes, captured at the first batch of those shapes
+and replayed for every later one, all graphs over the same state tensors
+and one memory pool. `_Capture` is the capture core both share (warm-up
+on a side stream, the optimizer's floats through a device tensor, the
+rng registered with the graph, the host bookkeeping put back).
 """
 
 from __future__ import annotations
@@ -210,6 +218,119 @@ def _leaves(tree: Any) -> List[Any]:
     return out
 
 
+def _paths(tree: Any, prefix: str = "") -> List[str]:
+    """Each leaf's key path, in `_leaves` order: a batch's structure."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _state_ptrs(state) -> List[int]:
+    """The addresses of every tensor of the state: a CUDA graph reads and
+    writes these, so a path that replaces one would leave a replay
+    working on memory the state no longer holds."""
+    out: List[int] = []
+    for t in state.leaves():
+        out.append(sharding.local_value(t).data_ptr())
+    _map_tensors(state.opt_state, lambda t: out.append(t.data_ptr()))
+    out += [t.data_ptr() for t in extra_leaves(state.extra)]
+    return out
+
+
+def _flash_counters() -> Dict[str, Any]:
+    from determined_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_fwd_cuda, "flash_dq": fa.flash_dq_cuda,
+            "flash_dkv": fa.flash_dkv_cuda}
+
+
+class _Capture:
+    """One training step captured as a CUDA graph over the graph's own
+    input buffers: the capture core of `make_multi_step` and of
+    `make_captured_step`.
+
+    `warm_up` runs a real step eagerly on a side stream, as capture
+    requires (the kernels loaded, the allocator warm, every communicator
+    made), from the input buffers. `capture` then records the same step
+    with the optimizer's host floats read from a device tensor
+    (`GradientTransformation.hyper`), `epilogue(metrics)` appended, the
+    rng (a CUDA generator) registered with the graph, so that each replay
+    draws what an eager step would draw from the generator's state at
+    that time (a `manual_seed` in between included), and puts back the
+    host bookkeeping the recording advanced (`state.step`, the
+    optimizer's count). Several captures may share one memory `pool`:
+    each keeps its outputs alive, so replays of any of them may follow
+    one another in any order on one stream. `load` and the replays run
+    on the current stream."""
+
+    def __init__(self, step, tx, batch: Any, pool=None):
+        self._step, self._tx, self._pool = step, tx, pool
+        self.static = _map(batch, torch.empty_like)  # the input buffers
+        self.device = _leaves(self.static)[0].device
+        self.hyper: Optional[torch.Tensor] = None  # the update's floats
+        self.graph = None
+        self.outputs: Dict[str, Any] = {}  # the recorded step's metrics
+        self.launches: Dict[str, int] = {}  # flash launches it holds
+        self.rng = None
+
+    def load(self, batch: Any, floats: Optional[List[float]] = None
+             ) -> None:
+        # On the current stream, which a prefetched batch's consumer has
+        # already made wait for that batch's copy (data/prefetch.py).
+        for dst, src in zip(_leaves(self.static), _leaves(batch)):
+            dst.copy_(src, non_blocking=True)
+        if floats is not None:
+            self.hyper.copy_(torch.tensor(floats, dtype=torch.float32),
+                             non_blocking=True)
+
+    def warm_up(self, state, batch: Any, rng) -> Dict[str, Any]:
+        """One real step from `batch` (through the input buffers), eager,
+        on a side stream; -> its metrics."""
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.load(batch)
+            _, metrics = self._step(state, self.static, rng)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return metrics
+
+    def capture(self, state, rng, epilogue=None) -> None:
+        floats, _ = self._tx.hyper(state.opt_state)
+        self.hyper = torch.zeros(len(floats), dtype=torch.float32,
+                                 device=self.device)
+        counters = _flash_counters()
+        before = {k: f.launches for k, f in counters.items()}
+        opt, step = state.opt_state, state.step
+        graph = torch.cuda.CUDAGraph()
+        if isinstance(rng, torch.Generator) and rng.device.type == "cuda":
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise RuntimeError(
+                    "this PyTorch cannot register a generator with a CUDA "
+                    "graph; replaying its draws would repeat them")
+            register(rng)
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            _, metrics = self._step(state, self.static, rng,
+                                    hyper=self.hyper)
+            if epilogue is not None:
+                epilogue(metrics)
+        state.opt_state, state.step = opt, step
+        self.outputs = metrics
+        self.launches = {k: f.launches - before[k]
+                         for k, f in counters.items()}
+        self.graph, self.rng = graph, rng
+
+
+def _stale_state(what: str, remedy: str) -> RuntimeError:
+    return RuntimeError(
+        f"the train state's tensors are not the ones {what} captured (a "
+        f"restore replaces them): {remedy}")
+
+
 class _MultiStep:
     """`multi_step(state, batches, rng) -> (state, window-mean metrics)`;
     see `make_multi_step`."""
@@ -219,19 +340,24 @@ class _MultiStep:
         self._tx = tx
         self.steps_per_call = steps_per_call
         self._mesh = mesh if _is_sharded(mesh) else None
-        self.graph = None          # the captured step (CUDA)
-        self._static = None        # the graph's input batch
-        self._hyper = None         # the update's host floats, on the device
-        self._hyper_all = None     # those of every step of a call
+        self._cap: Optional[_Capture] = None  # the captured step (CUDA)
+        self._hyper_all = None     # the update floats of every step of a call
         self._acc = None           # the graph's metric sums
         self._keys: List[str] = []
         self._ptrs: List[int] = []
-        self._graph_launches: Dict[str, int] = {}
         # Kernel launches the replays made: a replay does not pass through
         # the kernels' wrappers, so their own counters see only the
         # warm-up and capture calls.
         self.replayed_launches: Dict[str, int] = {}
         self.replays = 0
+
+    @property
+    def graph(self):
+        return None if self._cap is None else self._cap.graph
+
+    @property
+    def _graph_launches(self) -> Dict[str, int]:
+        return {} if self._cap is None else self._cap.launches
 
     def __call__(self, state: TrainState, batches: Any, rng):
         n = self.steps_per_call
@@ -249,7 +375,7 @@ class _MultiStep:
         batches = _map(batches, lambda x: torch.as_tensor(x).to(
             device, non_blocking=True))
         start = 0
-        if self.graph is None:
+        if self._cap is None:
             self._capture(state, batches, rng)  # step 0 runs as warm-up
             start = 1
         else:
@@ -263,10 +389,10 @@ class _MultiStep:
                 torch.tensor(floats, dtype=torch.float32), non_blocking=True)
         for i in range(start, n):
             self._copy_batch(batches, i)
-            self._hyper.copy_(self._hyper_all[i - start])
-            self.graph.replay()
+            self._cap.hyper.copy_(self._hyper_all[i - start])
+            self._cap.graph.replay()
             self.replays += 1
-            for k, v in self._graph_launches.items():
+            for k, v in self._cap.launches.items():
                 self.replayed_launches[k] = \
                     self.replayed_launches.get(k, 0) + v
         state.opt_state = opt
@@ -286,18 +412,7 @@ class _MultiStep:
         return state, {k: v / self.steps_per_call for k, v in sums.items()}
 
     def _copy_batch(self, batches, i: int) -> None:
-        # On the current stream, which a prefetched batch's consumer has
-        # already made wait for that batch's copy (data/prefetch.py).
-        for dst, src in zip(_leaves(self._static), _leaves(batches)):
-            dst.copy_(src[i], non_blocking=True)
-
-    def _state_ptrs(self, state) -> List[int]:
-        out: List[int] = []
-        for t in state.leaves():
-            out.append(sharding.local_value(t).data_ptr())
-        _map_tensors(state.opt_state, lambda t: out.append(t.data_ptr()))
-        out += [t.data_ptr() for t in extra_leaves(state.extra)]
-        return out
+        self._cap.load(_map(batches, lambda x: x[i]))
 
     def _refusal(self, state, batches, device):
         """Why this call cannot run, as (exception type, message), or
@@ -315,19 +430,18 @@ class _MultiStep:
             return ValueError, (
                 "make_multi_step on CUDA needs a transformation with "
                 "`hyper` (train/optim.py) to replay its update")
-        if self.graph is None:
+        if self._cap is None:
             return None
         shapes = [tuple(x.shape[1:]) for x in _leaves(batches)]
-        static = [tuple(x.shape) for x in _leaves(self._static)]
+        static = [tuple(x.shape) for x in _leaves(self._cap.static)]
         if shapes != static:
             return ValueError, (
                 f"the batch's shapes {shapes} (a step's) are not the "
                 f"captured step's {static}")
-        if self._state_ptrs(state) != self._ptrs:
-            return RuntimeError, (
-                "the train state's tensors are not the ones the multi step "
-                "captured (a restore replaces them): build a new "
-                "make_multi_step for the new state")
+        if _state_ptrs(state) != self._ptrs:
+            err = _stale_state("the multi step", "build a new "
+                               "make_multi_step for the new state")
+            return type(err), str(err)
         return None
 
     def _agree(self, refusal):
@@ -352,56 +466,114 @@ class _MultiStep:
             "(its error says why); every rank refuses it")
 
     def _capture(self, state, batches, rng) -> None:
-        from determined_tpu_torch.ops import flash_attention as fa
-
-        self._static = _map(batches, lambda x: torch.empty_like(x[0]))
-        floats, _ = self._tx.hyper(state.opt_state)
-        dev = self._static_device()
-        self._hyper = torch.zeros(len(floats), dtype=torch.float32,
-                                  device=dev)
+        cap = _Capture(self._step, self._tx, _map(batches, lambda x: x[0]))
+        metrics = cap.warm_up(state, _map(batches, lambda x: x[0]), rng)
+        self._keys = list(metrics)
+        self._acc = torch.stack([torch.as_tensor(metrics[k]).float()
+                                 .reshape(()) for k in self._keys])
         self._hyper_all = torch.zeros(
-            (self.steps_per_call, len(floats)), dtype=torch.float32,
-            device=dev)
-        # Warm-up on a side stream, as capture requires: this is the
-        # window's real step 0.
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._copy_batch(batches, 0)
-            state, m = self._step(state, self._static, rng)
-            self._keys = list(m)
-            self._acc = torch.stack(
-                [torch.as_tensor(m[k]).float().reshape(())
-                 for k in self._keys])
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self._ptrs = self._state_ptrs(state)
-        counters = {"flash_fwd": fa.flash_fwd_cuda,
-                    "flash_dq": fa.flash_dq_cuda,
-                    "flash_dkv": fa.flash_dkv_cuda}
-        before = {k: f.launches for k, f in counters.items()}
-        # The capture runs the step's Python once more: its host
-        # bookkeeping (the optimizer's count, `state.step`) is put back.
-        opt, step = state.opt_state, state.step
-        graph = torch.cuda.CUDAGraph()
-        if isinstance(rng, torch.Generator) and rng.device.type == "cuda":
-            register = getattr(graph, "register_generator_state", None)
-            if register is None:
-                raise RuntimeError(
-                    "this PyTorch cannot register a generator with a CUDA "
-                    "graph; replaying its draws would repeat them")
-            register(rng)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            _, m = self._step(state, self._static, rng, hyper=self._hyper)
+            (self.steps_per_call, len(self._tx.hyper(state.opt_state)[0])),
+            dtype=torch.float32, device=cap.device)
+        self._ptrs = _state_ptrs(state)
+
+        def accumulate(m):
             self._acc.add_(torch.stack(
                 [torch.as_tensor(m[k]).float().reshape(())
                  for k in self._keys]))
-        state.opt_state, state.step = opt, step
-        self._graph_launches = {k: f.launches - before[k]
-                                for k, f in counters.items()}
-        self.graph = graph
 
-    def _static_device(self) -> torch.device:
-        return _leaves(self._static)[0].device
+        cap.capture(state, rng, epilogue=accumulate)
+        self._cap = cap
+
+
+class _CapturedStep:
+    """`step(state, batch, rng) -> (state, metrics)`; see
+    `make_captured_step`."""
+
+    def __init__(self, step, tx):
+        self._step = step
+        self._tx = tx
+        self.graphs: Dict[tuple, _Capture] = {}  # by the batch's shapes
+        self._pool = None   # the graphs' shared memory pool
+        self._ptrs: Optional[List[int]] = None
+
+    def __call__(self, state: TrainState, batch: Any, rng):
+        leaves = _leaves(batch)
+        for leaf in leaves:
+            if not isinstance(leaf, torch.Tensor):
+                raise TypeError(
+                    "a captured step takes a batch of tensors only (a graph "
+                    f"would hold the value of a {type(leaf).__name__} "
+                    "leaf); make it a tensor")
+        ptrs = _state_ptrs(state)
+        if self._ptrs is None:
+            self._ptrs = ptrs
+        elif ptrs != self._ptrs:
+            raise _stale_state("the step", "restore into the live state "
+                               "(`restore_state(..., into=True)`)")
+        device = sharding.local_value(state.leaves()[0]).device
+        if device.type != "cuda":
+            return self._plain(state, batch, rng)
+        key = tuple((path, tuple(x.shape), x.dtype, x.device)
+                    for path, x in zip(_paths(batch), leaves))
+        cap = self.graphs.get(key)
+        if cap is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            cap = _Capture(self._step, self._tx, batch, self._pool)
+            metrics = cap.warm_up(state, batch, rng)
+            cap.capture(state, rng)
+            self.graphs[key] = cap
+            return state, metrics
+        if rng is not cap.rng:
+            raise ValueError(
+                "the rng is not the generator the captured step registered "
+                "(its replays draw from that one): pass the same generator "
+                "at every step")
+        floats, opt = self._tx.hyper(state.opt_state)
+        cap.load(batch, floats)
+        cap.graph.replay()
+        state.opt_state = opt
+        state.step += 1
+        return state, dict(cap.outputs)
+
+    def _plain(self, state, batch, rng):
+        """The plain version: the step the graph holds, called eagerly,
+        the optimizer's floats passed as a tensor as a replay reads
+        them."""
+        floats, _ = self._tx.hyper(state.opt_state)
+        return self._step(state, batch, rng,
+                          hyper=torch.tensor(floats, dtype=torch.float32))
+
+
+def make_captured_step(loss_fn: LossFn, tx: optim.GradientTransformation,
+                       stateful: bool = False):
+    """Build `step(state, batch, rng) -> (state, metrics)`, the counterpart
+    of the JAX package's jitted train step on one process: `Trainer.fit`'s
+    step on one card. The same contract as `make_train_step` (no mesh).
+
+    On CUDA the first call with a batch of new shapes runs that step
+    eagerly (the warm-up capture needs) and captures it as a CUDA graph;
+    every later call with those shapes copies the batch into the graph's
+    input buffers and the optimizer's host floats into a device tensor
+    (`tx.hyper`), on the current stream, and replays it: one graph a
+    tuple of batch-leaf shapes (a bucket, a ragged last batch), all over
+    the same state tensors and one memory pool, as the JAX step retraces
+    a new shape. The metrics a replay returns are the graph's output
+    tensors: the next replay of that graph overwrites them. Nothing syncs
+    with the host. The rng, a CUDA generator, is registered with each
+    graph: every call must pass that same generator, and a replay draws
+    from its state at the time, a `manual_seed` in between included.
+
+    The state's tensors must stay the ones of the first call: a call on a
+    state whose tensors were replaced raises (a restore writes into the
+    live state instead, `restore_state(..., into=True)`), on the CPU too.
+    On the CPU the step runs eagerly, its plain version: the step the
+    graph holds, with the floats as a tensor. `tx` must have `hyper`."""
+    if tx.hyper is None:
+        raise ValueError(
+            "make_captured_step needs a transformation with `hyper` "
+            "(train/optim.py) to replay its update")
+    return _CapturedStep(_step_fn(loss_fn, tx, stateful, None), tx)
 
 
 def make_multi_step(loss_fn: LossFn, tx: optim.GradientTransformation,

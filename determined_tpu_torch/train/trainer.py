@@ -39,12 +39,27 @@ group hold the same rows, each stage its layers) and its
 or a stateful one, is refused under it. A world of more than one process
 without a process group raises: it never trains alone in silence.
 
+The training step is decided once, in `_build_steps` (`step_route`): on
+one card (a mesh of one rank, CUDA, an optimizer with `hyper`) it is
+`make_captured_step`, the counterpart of the JAX Trainer's jitted step:
+its first call with a batch of new shapes runs the step and captures it
+as a CUDA graph, and every later batch of those shapes replays it (one
+graph a bucket); on the CPU the same step runs its plain version; over a
+mesh of several ranks, or without `hyper`, `make_train_step` runs
+eagerly. A capture that fails raises: nothing falls back. The state's
+tensors stay the captured ones: a rollback restores into them
+(`restore_state(..., into=True)`), the resume at fit start runs before
+the first step, and a resize drops the steps, graphs and all, before its
+new state is allocated.
+
 The first call of the train step (and of the eval step) lands a
 `harness.compile` span, the JAX Trainer's "first executable acquisition"
 (`_timed_first_call`): here, the hand-written kernel libraries resolved at
 their first launch, from the kernel directory, the compile farm or nvcc
-(ops/_build.py; docs/compile-farm-torch.md), and the step's first eager
-run on the host. A `FarmClient` from core's session and
+(ops/_build.py; docs/compile-farm-torch.md), and the step's first run
+(with the capture of its graph, on one card). The train step's span and
+the first flush carry `step_captured` (1.0 or 0.0) and `step_route` (what
+ran and why). A `FarmClient` from core's session and
 `DET_COMPILE_SIGNATURE` is the farm; a library nvcc builds is uploaded in
 the background, and `fit` joins the uploads at its end. The span carries
 `executable`, `cache_hit` (no library was built by nvcc in this process;
@@ -83,7 +98,7 @@ import logging
 import math
 import os
 import time
-from typing import Any, Dict, Iterator, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -107,6 +122,7 @@ from determined_tpu_torch.train.health import (
 from determined_tpu_torch.train.state import TrainState, create_train_state
 from determined_tpu_torch.train.step import (
     global_mean,
+    make_captured_step,
     make_eval_step,
     make_train_step,
 )
@@ -156,6 +172,24 @@ def _to_host(metrics: Dict[str, Any]) -> Dict[str, Any]:
                             for k in keys]).cpu().tolist()
         host.update(zip(keys, vals))
     return host
+
+
+def step_route(device: torch.device, ranks: int, tx) -> Tuple[str, str]:
+    """How `fit` runs its training step, decided once before any step:
+    (kind, why). "captured" (`make_captured_step`: one CUDA graph a batch
+    shape) on a CUDA device, over a mesh of one rank, with an optimizer
+    that has `hyper`; "plain" on the CPU otherwise alike (the same step
+    object runs its plain version); else "eager" (`make_train_step`).
+    Nothing falls back from one to another later."""
+    if ranks > 1:
+        return "eager", (f"a mesh of {ranks} ranks: fit replays its step on "
+                         "one card only")
+    if tx.hyper is None:
+        return "eager", ("the optimizer has no `hyper` (train/optim.py) to "
+                         "feed a replay its host floats")
+    if torch.device(device).type != "cuda":
+        return "plain", "on the CPU the captured step runs its plain version"
+    return "captured", "one CUDA graph a batch shape, replayed"
 
 
 # Each rank counts its fits: the ranks of a world call `fit` alike, so a
@@ -209,6 +243,9 @@ class Trainer:
         self._compile_cfg: Optional[CompileConfig] = None
         self._compile_events: List[Dict[str, Any]] = []
         self._attention_impl: Optional[str] = None
+        # The training step's route (`step_route`), decided in
+        # `_build_steps`.
+        self._route: Dict[str, Any] = {}
 
     # -- setup ---------------------------------------------------------
 
@@ -362,21 +399,34 @@ class Trainer:
 
                 def evaluate(params, batch):  # noqa: F811
                     return trial.evaluate(state_mod.gathered(params), batch)
-        self._train_step = self._timed_first_call(
-            make_train_step(loss, tx, stateful=trial.stateful,
-                            mesh=self.mesh), "train_step")
+        ranks = self.mesh.size() if self.mesh is not None else 1
+        kind, why = step_route(self.device, ranks, tx)
+        # The span's and the first flush's: what ran, and why.
+        self._route = {"step_captured": float(kind == "captured"),
+                       "step_route": f"{kind}: {why}"}
+        if kind == "eager":
+            train = make_train_step(loss, tx, stateful=trial.stateful,
+                                    mesh=self.mesh)
+        else:
+            train = make_captured_step(loss, tx, stateful=trial.stateful)
+        self._train_step = self._timed_first_call(train, "train_step",
+                                                  self._route)
         self._eval_step = (self._timed_first_call(
             make_eval_step(evaluate, stateful=trial.stateful), "eval_step")
             if has_eval else None)
 
-    def _timed_first_call(self, fn, executable: str):
+    def _timed_first_call(self, fn, executable: str,
+                          route: Optional[Dict[str, Any]] = None):
         """`fn` wrapped so that its first call is the compile-farm
         integration point (the JAX Trainer's `_timed_first_call`): the
         kernel libraries it launches resolve through the farm, a
         `harness.compile` span lands with `cache_hit` (on CUDA: no library
         was built by nvcc in this process) and the signature, and the next
-        metrics flush reports `compile_ms` and `compile_cache_hit`. The
-        wrapper then puts the bare step back in its place."""
+        metrics flush reports `compile_ms` and `compile_cache_hit`. For a
+        captured step the first call is the warm-up and the capture, as
+        the JAX step's is its compile; `route` (the training step's
+        `step_route`) rides the span and the flush. The wrapper then puts
+        the bare step back in its place."""
         cfg = self._compile_cfg or CompileConfig()
         farm = self._farm if cfg.enabled else None
 
@@ -393,7 +443,7 @@ class Trainer:
             compile_ms = (time.monotonic() - t0) * 1000.0
             attrs: Dict[str, Any] = {
                 "executable": executable, "cache_hit": cache_hit,
-                "attention_impl": self._attention_impl}
+                "attention_impl": self._attention_impl, **(route or {})}
             if self._farm is not None and self._farm.signature:
                 attrs["signature"] = self._farm.signature
             if self.core is not None:
@@ -401,7 +451,7 @@ class Trainer:
                                       trace.now_us(), attrs)
             self._compile_events.append(
                 {"executable": executable, "compile_ms": compile_ms,
-                 "cache_hit": cache_hit})
+                 "cache_hit": cache_hit, "route": route or {}})
             return out
 
         return wrapped
@@ -567,7 +617,10 @@ class Trainer:
                     f"diverged again after {health.max_rollbacks} rollbacks")
             self._rollbacks += 1
             core.checkpoint.wait()  # commit the pending save: a current lineage
-            restored = self._restore_chain(core.checkpoint.lineage())
+            # Into the live state: a captured step reads and writes its
+            # tensors.
+            restored = self._restore_chain(core.checkpoint.lineage(),
+                                           into=True)
             if restored is None:
                 raise DivergenceError(
                     failed_step, "health.on_nan=rollback but no COMPLETED "
@@ -783,7 +836,9 @@ class Trainer:
         if self._parts is None:
             self._parts = {}  # a rank standing by
         with core.tracer.span("harness.reshard", target=target):
-            self.state = None  # before the new one is allocated
+            # Before the new state is allocated: the state, and the steps
+            # whose graphs hold the old one's tensors and their pool.
+            self.state = self._train_step = self._eval_step = None
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t0 = time.monotonic()
@@ -793,7 +848,6 @@ class Trainer:
                                     ranks=target)
             self._note("groups", t0)
             if not core.distributed.active:
-                self._train_step = self._eval_step = None
                 self.resize_parts.append(self._parts)
                 self._parts = None
                 return False
@@ -884,6 +938,8 @@ class Trainer:
             host["compile_cache_hit"] = (
                 1.0 if all(e["cache_hit"] for e in events) else 0.0)
             host["attention_impl"] = self._attention_impl
+            for e in events:
+                host.update(e["route"])
         # The divergence sentinel's event channel: a non-finite step marks
         # this flush's report (train/health.py).
         if float(host.get("all_finite", 1.0)) < 1.0:
@@ -1024,31 +1080,38 @@ class Trainer:
                 "starting fresh", storage_id)
         return restored
 
-    def _restore_chain(self, candidates, fresh: bool = False
-                       ) -> Optional[str]:
+    def _restore_chain(self, candidates, fresh: bool = False,
+                       into: bool = False) -> Optional[str]:
         """Try each candidate in order, extending with the lineage after the
         first failure. Missing (FileNotFoundError) and corrupt
         (CorruptCheckpoint) checkpoints fall through to the next
         candidate; anything else re-raises. `fresh`: restore into a
-        template built from the candidate (a resize has no live state)."""
+        template built from the candidate (a resize has no live state).
+        `into`: write into the live state's own tensors (a rollback: the
+        captured step holds them), else into new ones (the resume at fit
+        start, before any step: a corrupt candidate leaves the initial
+        state as it was)."""
         assert self.state is not None or fresh
         with self.core.tracer.span(
                 "harness.restore",
                 requested=candidates[0] if candidates else "") as sp:
-            restored = self._restore_chain_inner(candidates, fresh)
+            restored = self._restore_chain_inner(candidates, fresh, into)
             if sp is not None:
                 sp.attrs["restored"] = restored or ""
             return restored
 
-    def _read_checkpoint(self, storage_id: str, fresh: bool) -> TrainState:
+    def _read_checkpoint(self, storage_id: str, fresh: bool,
+                         into: bool = False) -> TrainState:
         """Checkpoint `storage_id` in the current layout: a sharded state
         reads only the pieces its shards overlap (no collective). At a
         resize the template is built from the checkpoint's own structure
-        for the new mesh, and the restore writes into it."""
+        for the new mesh, and the restore writes into it; `into` writes
+        into the live state's tensors."""
         ckpt = self.core.checkpoint
         if not fresh:
             return state_mod.from_checkpoint_view(ckpt.restore_state(
-                storage_id, state_mod.checkpoint_view(self.state)))
+                storage_id, state_mod.checkpoint_view(self.state),
+                into=into))
         t0 = time.monotonic()
         template = state_mod.empty_train_state(
             ckpt.abstract_state(storage_id), self._tx, self.device,
@@ -1062,7 +1125,8 @@ class Trainer:
         self._note("restore", t1)
         return state_mod.from_checkpoint_view(restored)
 
-    def _restore_chain_inner(self, candidates, fresh: bool) -> Optional[str]:
+    def _restore_chain_inner(self, candidates, fresh: bool,
+                             into: bool) -> Optional[str]:
         queue = list(candidates)
         tried = set()
         extended = not queue
@@ -1073,7 +1137,7 @@ class Trainer:
             tried.add(sid)
             failure = None
             try:
-                state = self._read_checkpoint(sid, fresh)
+                state = self._read_checkpoint(sid, fresh, into)
             except FileNotFoundError:
                 failure = "missing"
             except core_mod.CorruptCheckpoint as e:

@@ -397,14 +397,20 @@ def test_trainer_first_flush_and_span_have_the_jax_keys(tmp_path,
             tmp_path, "torch", tcore, TTrainer, TTrialContext, tb.TorchGPT2,
             FarmClient(_FakeSession(), "sig", aot_dir=""), device="cpu")
         jflush, jspans = jax_run.result()
-    assert set(tflush) == set(jflush)
+    # The port's first flush and train_step span also say how fit ran
+    # its step (`trainer.step_route`): its plain version on the CPU.
+    route = {"step_captured", "step_route"}
+    assert set(tflush) == set(jflush) | route
+    assert tflush["step_captured"] == 0.0
+    assert tflush["step_route"].startswith("plain: ")
     assert {"compile_ms", "compile_cache_hit", "attention_impl"} <= set(tflush)
     assert tflush["compile_cache_hit"] == 0.0     # nothing built on the CPU
     assert [s["attrs"]["executable"] for s in tspans] == \
         [s["attrs"]["executable"] for s in jspans] == \
         ["train_step", "eval_step"]
     for t, j in zip(tspans, jspans):
-        assert set(t["attrs"]) == set(j["attrs"])
+        extra = route if t["attrs"]["executable"] == "train_step" else set()
+        assert set(t["attrs"]) == set(j["attrs"]) | extra
         assert t["attrs"]["signature"] == "sig"
         assert t["attrs"]["cache_hit"] is False
     np.testing.assert_allclose(tflush["loss"], jflush["loss"], atol=1e-4)
