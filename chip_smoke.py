@@ -91,8 +91,10 @@ fails:
      flush `step_captured` 1.0), so the flash wrappers count the warm-up
      step and the capture only: each launches the forward kernel 24 times
      (12 layers, again in the remat recompute) and the dQ and dK/dV
-     kernels 12 times each, the op-end validation 12 forward launches a
-     batch (`fit_launches`); the plain attention must never run; the op
+     kernels 12 times each, and the op-end validation's captured eval
+     step 12 forward launches in its warm-up and 12 in its capture, once
+     for each validation batch shape (`fit_launches`; its replays are
+     counted on a trace in 22a); the plain attention must never run; the op
      end must leave one COMMITTED checkpoint that `restore_state` reads
      back bit-identical; 3 more replayed steps under torch.profiler must
      trace the graph's flash launches 3 times over, all three on their
@@ -516,6 +518,43 @@ fails:
      10 steps through a non-finite 7th batch and a rollback that
      reseeds the generator: the replays must draw what the eager steps
      draw.
+  22. the eval step captured, and `Trainer.fit` replaying its step over a
+     mesh of several processes. 22a (one card): phase 7's trial with a
+     validation set of 8, 8, 3 and 3 rows (2 shapes, every batch's values
+     its own), 3 steps with a pass at step 2 and one at the op end,
+     through the captured eval step (`make_captured_eval_step`, the route
+     fit takes) and through an eager eval step (a Trainer whose eval step
+     is `make_eval_step`'s function): the validation metrics bitwise
+     equal, 2 eval graphs, the wrappers counting their captures only
+     (`fit_launches`), the flush after the first pass carrying
+     `eval_captured` 1.0 and `eval_route` and the first flush the train
+     step's keys; then passes over the captured fit's state, captured and
+     eager in turns (each pass bitwise the fit's last; host ms a pass),
+     one of each traced: device busy ms and, for the captured pass, the
+     flash kernels on the trace, which must be its graphs' counts times
+     their replays; `max_memory_allocated` of each fit. 22b (two cards or
+     more): `FIT_MESH_WORKER` through the launcher in local mode, each
+     case of FIT22_CASES (GPT-2 small at `fsdp: 2` with and without
+     `overlap_allgather`, `tensor: 2`, `context: 2` ring, `pipeline: 2`;
+     13c's CIFAR at `tensor: 2`) at world 2 (two worlds at once on four
+     cards), and moe.yaml's model at `expert: 2` (at world 4 with `data:
+     2` on four cards): `Trainer.fit` captured against its eager route (an
+     optimizer without `hyper`) from one seed, to step 6 with the 5th
+     batch non-finite (a rollback) and a checkpoint every 2 steps, then
+     resumed to 8, a validation batch at each op end: the reports under
+     8a's limits (bitwise printed), every rank's params, moments and
+     extra, the validation equal, both fits' first flushes `step_captured`
+     1.0, one train and one eval graph a rank; then a window of 4 steps
+     of each route in turns: rank 0's host ms a step, the traced device
+     busy and NCCL ms (unions of kernel intervals), the idle share (not
+     clipped), the flash kernels traced (the graph's count x 4), the
+     vote's host us a call, each rank's peak. Each world closes its core
+     contexts (destroy_process_group) with the last case's graphs alive,
+     and the close must return. 22c: 17b at world 2 (2 -> 1 -> 2 on
+     replayed steps), every stretch bitwise its uninterrupted run, every
+     width's first flush `step_captured` 1.0, and the close returning.
+     With one card, `[22b] not run` and `[22c] not run`. 12d, 16b, 16d,
+     17b and 18b also hold each first flush to `step_captured` 1.0.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
@@ -531,7 +570,10 @@ capture), `launches_fit_traced` the launches torch.profiler traced in 3
 replayed steps of phase 7's fit step, `launches_fit21_traced` those in
 21a's 4 replayed steps, and `launches_multi_mesh` the launches
 traced on the card (torch.profiler) in 4 replays of 20b's `fsdp: 2`
-graph on rank 0 (null with one card), for the paged kernel
+graph on rank 0 (null with one card), `launches_eval22_traced` those in
+22a's captured validation pass, `launches_fit_mesh_traced` those in 4
+replayed fit steps of 22b's `fsdp: 2` case on rank 0 (null with one
+card), for the paged kernel
 `launches_warm_per_decode_step` 19c's warm replica, and `long_ms` a
 launch's device
 time in 12a's steps, at B 4, S 8192, under torch.profiler, beside its
@@ -1531,12 +1573,15 @@ def phase_train(workdir, hparams):
     if not losses[-1] < losses[0] - 0.5:
         fail(f"the loss did not fall: {losses}")
     n_val = sum(1 for _ in trial.build_validation_data())
+    eval_graphs = val_shapes(trial)
     captured_fit_step(trainer, reports[0]["metrics"], "[train]")
-    want = fit_launches(1, n_val, cfg.n_layer)
+    want = fit_launches(1, eval_graphs, cfg.n_layer)
     say(f"[train] flash wrapper launches {launches} (expected {want}: the "
         f"warm-up step and the capture, forward 24 a step with the remat "
-        f"recompute, + {cfg.n_layer} a validation batch x {n_val}; the "
-        f"{TRAIN_STEPS - 1} replays are counted on a trace below); "
+        f"recompute, + the eval step's warm-up and capture, {cfg.n_layer} "
+        f"each, x {eval_graphs} validation batch shape(s) of {n_val} "
+        f"batches; the {TRAIN_STEPS - 1} training replays are counted on a "
+        f"trace below, the validation replays in 22a); "
         f"reference_attention calls {ref_calls}")
     if launches != want:
         fail(f"flash launches {launches} != {want}")
@@ -1601,7 +1646,7 @@ def phase_train(workdir, hparams):
     return {"launches": launches, "step_ms": step_ms,
             "tokens_per_s": tokens_per_s, "mfu": mfu, "steps": n_timed,
             "idle_share": idle, "breakdown": breakdown, "routes": routes,
-            "ckpt_dir": ckpt_dir, "n_val": n_val,
+            "ckpt_dir": ckpt_dir, "eval_graphs": eval_graphs,
             "losses": {r["steps_completed"]: r["metrics"]["loss"]
                        for r in reports}}
 
@@ -1996,8 +2041,9 @@ def phase_managed_trial(workdir, hparams, train, card):
             counts["/progress"] != 2 or counts["/ack_preemption"] != 1:
         fail(f"the master's record is incomplete: {steps} {counts}")
     n_layer = trainer.trial.cfg.n_layer
-    # Runs A and B each capture their step once; B validates at the end.
-    want = fit_launches(2, train["n_val"], n_layer)
+    # Runs A and B each capture their step once; B validates at the end,
+    # capturing its eval step.
+    want = fit_launches(2, train["eval_graphs"], n_layer)
     say(f"[managed] flash wrapper launches over runs A and B {launches} "
         f"(expected {want}: each run's warm-up step and capture, and the "
         f"validation); reference_attention calls {ref_calls}")
@@ -2173,16 +2219,27 @@ def replica_drains_on_preemption(serving, storage, card):
              + "".join(lines[-20:]))
 
 
-def fit_launches(captures, n_val, n_layer):
+def fit_launches(captures, eval_graphs, n_layer):
     """The flash wrappers' counts over fits on one card whose step was
     captured `captures` times (a graph a batch shape, a fit): each
     capture's warm-up step and its recording call the wrappers (the
     forward twice a layer with the remat recompute, dQ and dK/dV once);
-    the replays do not (a trace counts their launches); plus the
-    forwards of `n_val` validation batches."""
+    the replays do not (a trace counts their launches); plus the eval
+    step's `eval_graphs` captures (a graph a validation batch shape, a
+    fit), each a warm-up and a recording of one forward a layer (its
+    replays are counted on a trace, 22a)."""
     steps = 2 * captures
-    return {"fwd": (2 * steps + n_val) * n_layer, "dq": steps * n_layer,
-            "dkv": steps * n_layer}
+    return {"fwd": (2 * steps + 2 * eval_graphs) * n_layer,
+            "dq": steps * n_layer, "dkv": steps * n_layer}
+
+
+def val_shapes(trial):
+    """How many batch shapes the trial's validation data has: the eval
+    graphs one fit captures."""
+    import numpy as np
+
+    return len({tuple(np.shape(v) for v in batch.values())
+                for batch in trial.build_validation_data()})
 
 
 def captured_fit_step(trainer, flush, where, graphs=1):
@@ -2827,7 +2884,7 @@ def phase_launched_trial(workdir, hparams, card, train=None):
               if b["group"] == "training" and "loss" in b["metrics"]]
     ops = [q for m, p, q, b in master.requests
            if p.endswith("/searcher/operation")]
-    want = fit_launches(1, 4, 12)  # one capture at world 1, 4 val batches
+    want = fit_launches(1, 1, 12)  # one capture at world 1, 1 val shape
     say(f"[launch] [{card}] 1 slot: the worker saw CUDA_VISIBLE_DEVICES="
         f"{r['cuda_visible_devices']} ({r['device']}), rank {r['rank']} of "
         f"{r['size']}, process group {r['group_backend']}, DeviceMesh "
@@ -3292,9 +3349,8 @@ def phase_moe_train(workdir, hparams, card):
     if not all(x == x and abs(x) != float("inf") for x in losses) or \
             not losses[-1] < losses[0] - 0.25:
         fail(f"the MoE losses are not finite and falling: {losses}")
-    n_val = sum(1 for _ in trial.build_validation_data())
     captured_fit_step(trainer, reports[0]["metrics"], "[moe]")
-    want = fit_launches(1, n_val, cfg.n_layer)
+    want = fit_launches(1, val_shapes(trial), cfg.n_layer)
     say(f"[moe] flash wrapper launches {launches} (expected {want}, phase "
         f"7's formula); reference_attention calls {ref_calls}")
     if launches != want or ref_calls != 0:
@@ -3687,9 +3743,8 @@ def phase_long_context_train(workdir, hparams, card):
     if not all(x == x and abs(x) != float("inf") for x in losses) or \
             not losses[-1] < losses[0] - 0.25:
         fail(f"the long-context losses are not finite and falling: {losses}")
-    n_val = sum(1 for _ in trial.build_validation_data())
     captured_fit_step(trainer, reports[0]["metrics"], "[long]")
-    want = fit_launches(1, n_val, cfg.n_layer)
+    want = fit_launches(1, val_shapes(trial), cfg.n_layer)
     say(f"[long] flash wrapper launches {launches} (expected {want}, phase "
         f"7's formula); plain attention calls {plain_calls}")
     if launches != want or plain_calls != 0:
@@ -5891,6 +5946,11 @@ def world_against_one(workdir, hparams, tag, name, extra, card, trial_id,
         reports[key] = [
             b["metrics"] for b in master.posted("/metrics")
             if b["group"] == "training" and "loss" in b["metrics"]]
+        # Fit replays its step at every width: the first flush says so.
+        if reports[key][0].get("step_captured") != 1.0:
+            fail(f"{tag} {name} at world {nproc}: the first flush reads "
+                 f"step_captured {reports[key][0].get('step_captured')}, "
+                 f"step_route {reports[key][0].get('step_route')!r}")
         # The last report window's step (the first holds the warm-up).
         step_ms[key] = 1e3 / reports[key][-1]["steps_per_second"]
         peaks[key] = [results[r].get("peak_gib") for r in sorted(results)]
@@ -6098,8 +6158,16 @@ run("resumed_half", 12, half, skip=6, resume_from="trial0-step6")
 copy("elastic", "trial0-step12", "resumed_full")
 run("resumed_full", ELASTIC_STEPS, full_width, skip=12,
     resume_from="trial0-step12")
+# The contexts' close destroys the process group, which must return with
+# the fits' captured graphs released; every thread's stack, and an exit,
+# if it takes two minutes.
+import faulthandler
+faulthandler.dump_traceback_later(120, exit=True)
+t0 = time.monotonic()
 for ctx in contexts:
     ctx.close()
+faulthandler.cancel_dump_traceback_later()
+dump(f"closed.rank{rank}.json", {"seconds": time.monotonic() - t0})
 """.replace("ELASTIC_STEPS", str(ELASTIC_STEPS))
 
 
@@ -6249,30 +6317,45 @@ def _stretch(rep, lo, hi):
     return {s: m for s, m in rep["metrics"] if "loss" in m and lo < s <= hi}
 
 
-def phase_elastic_world(workdir, hparams, card):
+def phase_elastic_world(workdir, hparams, card, world=None, tag="17b"):
     """17b: with two cards or more, an NCCL world trains phase 7's trial
     at `fsdp: -1` in local mode: four cards shrink 4 -> 2 at step 6 and
     grow back to 4 at step 12, two or three 2 -> 1 -> 2. Each stretch
     after a resize against an uninterrupted run of its width resumed from
-    the checkpoint the resize took: bitwise, or within 12d's limits. With
-    one card: not run."""
+    the checkpoint the resize took: bitwise, or within 12d's limits. Every
+    width's fit replays its step (each first flush after a build reads
+    `step_captured` 1.0), and the worker's close, which destroys the
+    process group, returns. With one card: not run. 22c is the same at
+    `world` 2 (2 -> 1 -> 2), held bitwise."""
     import torch
 
     n = torch.cuda.device_count()
     if n < 2:
-        say(f"[17b] not run: {n} card")
+        say(f"[{tag}] not run: {n} card")
         return None
-    world = min(n, 4)
+    world = min(n, 4) if world is None else world
+    t0 = time.monotonic()
     out, _ = elastic_world(workdir, hparams, "elastic", world)
     load = lambda name: json.load(open(os.path.join(out, name)))  # noqa
     rep = load("elastic.json")
     ranks = [load(f"elastic.rank{r}.json") for r in range(world)]
+    closed = [load(f"closed.rank{r}.json")["seconds"] for r in range(world)]
     rows = [(s, m) for s, m in rep["metrics"] if "resize_downtime_ms" in m]
     if [s for s, _ in rows] != [6, 12] or ranks[0]["step"] != ELASTIC_STEPS:
-        fail(f"17b: resizes at {[s for s, _ in rows]}, final step "
+        fail(f"{tag}: resizes at {[s for s, _ in rows]}, final step "
              f"{ranks[0]['step']}")
+    routes = {name: [(m.get("step_captured"), m.get("step_route"))
+                     for _, m in load(f"{name}.json")["metrics"]
+                     if "step_route" in m]
+              for name in ("elastic", "resumed_half", "resumed_full")}
+    say(f"[{tag}] [{card}] world {world}: each fit's first flushes after a "
+        f"build: {routes}; the process group destroyed in "
+        f"{[round(c, 2) for c in closed]} s by rank")
+    if [len(r) for r in routes.values()] != [3, 1, 1] or any(
+            c != 1.0 for r in routes.values() for c, _ in r):
+        fail(f"{tag}: a width's fit did not replay its step: {routes}")
     for i, (step, row) in enumerate(rows):
-        say(f"[17b] [{card}] resize {int(row['resize_from_slots'])} -> "
+        say(f"[{tag}] [{card}] resize {int(row['resize_from_slots'])} -> "
             f"{int(row['resize_target_slots'])} at step {step}: "
             f"resize_downtime_ms {row['resize_downtime_ms']:.1f}")
         for r, got in enumerate(ranks):
@@ -6280,33 +6363,35 @@ def phase_elastic_world(workdir, hparams, card):
             if i >= len(parts):
                 continue
             p = parts[i]
-            say(f"[17b]   rank {r}: " + ", ".join(
+            say(f"[{tag}]   rank {r}: " + ", ".join(
                 f"{k[:-3]} {v:.1f} ms" for k, v in p.items()
                 if k.endswith("_ms"))
                 + f"; read {p.get('restore_bytes', 0) / 1e6:.1f} MB")
-    say(f"[17b] [{card}] peak memory by rank over the elastic fit "
+    say(f"[{tag}] [{card}] peak memory by rank over the elastic fit "
         f"{[round(g['peak_gib'], 3) for g in ranks]} GiB")
     worst = {}
     for ref, lo, hi in (("resumed_half", 6, 12),
                         ("resumed_full", 12, ELASTIC_STEPS)):
         a, b = _stretch(rep, lo, hi), _stretch(load(f"{ref}.json"), lo, hi)
         if sorted(a) != sorted(b) or len(a) != hi - lo:
-            fail(f"17b: steps {sorted(a)} against {ref}'s {sorted(b)}")
+            fail(f"{tag}: steps {sorted(a)} against {ref}'s {sorted(b)}")
         bitwise = all(a[s][k] == b[s][k] for s in a
                       for k in ("loss", "grad_norm"))
         rel = {k: max(abs(a[s][k] - b[s][k]) / abs(b[s][k]) for s in a)
                for k in ("loss", "grad_norm")}
         worst[ref] = rel
-        say(f"[17b] [{card}] steps {lo + 1}-{hi} against {ref} (resumed "
+        say(f"[{tag}] [{card}] steps {lo + 1}-{hi} against {ref} (resumed "
             f"from trial0-step{lo}): bitwise {bitwise}; max relative diff "
             f"loss {rel['loss']:.2e}, grad norm {rel['grad_norm']:.2e}")
-        if not bitwise and (rel["loss"] > SPLIT_LOSS_RTOL
+        if not bitwise and (tag == "22c" or rel["loss"] > SPLIT_LOSS_RTOL
                             or rel["grad_norm"] > SPLIT_NORM_RTOL):
-            fail(f"17b: the stretch after a resize differs from {ref}")
+            fail(f"{tag}: the stretch after a resize differs from {ref}")
     import shutil
 
     shutil.rmtree(out, ignore_errors=True)
-    return {"rows": rows, "ranks": ranks, "rel": worst}
+    say(f"[{tag}] [{card}] {time.monotonic() - t0:.1f} s")
+    return {"rows": rows, "ranks": ranks, "rel": worst, "closed": closed,
+            "routes": routes}
 
 
 # ----------------------------------------------------------------- phase 18
@@ -6978,7 +7063,7 @@ def phase_farm(workdir, hparams, ckpt, card, cold):
             "spans": compile_spans(tmaster), "wall_s": wall,
             "losses": [b["metrics"]["loss"] for b in tmaster.posted("/metrics")
                        if b["group"] == "training" and "loss" in b["metrics"]]}
-    want = fit_launches(1, 4, 12)
+    want = fit_launches(1, 1, 12)
     for tag, r in (("cold (8c)", cold), ("warm", warm)):
         sp = r["spans"][0] if r["spans"] else {"attrs": {}}
         say(f"[19b] [{card}] {tag} trial: harness.compile "
@@ -7233,9 +7318,9 @@ def mesh_case(ctx, name, model, hparams):
     fault: a third window through the same graph in which rank 1 replays
     step MESH_FAULT_STEP without refreshing its static batch, against the
     same window's eager steps; its window must fall outside the limits.
-    One graph is alive at a time: with a second multi step's graph
-    captured over the same communicators, `destroy_process_group` hung
-    on both ranks (PERF.md §7). Then, as information: host ms a step, replay and
+    One graph is alive at a time (the core's shutdown releases any graph
+    still alive before it destroys the group: PERF.md §7). Then, as
+    information: host ms a step, replay and
     eager in turns over a window each (replay, eager, eager, replay), and
     a window of each traced (`device_trace`): device and NCCL ms, idle
     share, and the flash kernels the replays ran on the card, which
@@ -7370,18 +7455,20 @@ def mesh_case(ctx, name, model, hparams):
     return out
 
 
-def launch_mesh_world(workdir, slots, cases, timeout, port):
-    """MESH_WORKER through the port's launcher on the GPU slots `slots`,
-    in local mode (no master), its rendezvous on `port` -> (each case's
-    RESULT by rank, exit code, output). The launcher runs in a session of
-    its own, killed whole at `timeout`."""
+def launch_mesh_world(workdir, slots, cases, timeout, port,
+                      worker=MESH_WORKER, tag="mesh"):
+    """`worker` (MESH_WORKER, 20b's; FIT_MESH_WORKER, 22b's) through the
+    port's launcher on the GPU slots `slots`, in local mode (no master),
+    its rendezvous on `port` -> (each case's RESULT by rank, exit code,
+    output). The launcher runs in a session of its own, killed whole at
+    `timeout`."""
     import signal
 
-    out = os.path.join(workdir, "mesh" + "-".join(map(str, slots)))
+    out = os.path.join(workdir, tag + "-".join(map(str, slots)))
     os.makedirs(out, exist_ok=True)
-    script = os.path.join(out, "mesh_worker.py")
+    script = os.path.join(out, f"{tag}_worker.py")
     with open(script, "w") as f:
-        f.write(MESH_WORKER)
+        f.write(worker)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("DET_") and k != "CUDA_VISIBLE_DEVICES"}
     env.update({"DET_SLOT_IDS": json.dumps(list(slots)),
@@ -7398,7 +7485,7 @@ def launch_mesh_world(workdir, slots, cases, timeout, port):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         log, _ = proc.communicate()
-        log += f"\n[20b] killed at its limit of {timeout} s"
+        log += f"\n[{tag}] killed at its limit of {timeout} s"
     results = {}
     for line in log.splitlines():
         if "RESULT " in line:
@@ -7596,15 +7683,24 @@ def fit_trial(base, eager, poison_at=None, sizes=None):
             return itertools.islice(super().build_validation_data(), 1)
 
         if poison_at is not None:
-            def loss(self, params, batch, rng):
-                out = super().loss(params, {k: v for k, v in batch.items()
-                                            if k != "poison"}, rng)
+            def loss(self, params, *args):
+                # (batch, rng), or (extra, batch, rng) for a stateful trial.
+                *extra, batch, rng = args
+                out = super().loss(params, *extra, {
+                    k: v for k, v in batch.items() if k != "poison"}, rng)
                 # NaN loss and gradients on the poisoned batch.
                 nan = torch.where((batch["poison"] > 0).any(), float("nan"),
                                   1.0)
                 if isinstance(out, tuple):
                     return (out[0] * nan,) + tuple(out[1:])
                 return out * nan
+
+            def loss_pipelined(self, params, batch, rng, mesh):
+                out = super().loss_pipelined(params, {
+                    k: v for k, v in batch.items() if k != "poison"}, rng,
+                    mesh)
+                return out * torch.where((batch["poison"] > 0).any(),
+                                         float("nan"), 1.0)
 
     Trial.__name__ = f"{base.__name__}{'Eager' if eager else ''}"
     return Trial
@@ -7728,7 +7824,7 @@ def phase_fit_captured(workdir, hparams, card):
             for t, m in zip(trainers, firsts):
                 captured_fit_step(t, m, "[21a]", graphs=2)
             # Two captures a fit (a bucket each), the rollback none; one
-            # validation batch a fit.
+            # validation batch a fit, its eval step captured.
             want = fit_launches(4, 2, 12)
             if wrapper != want:
                 fail(f"21a: the flash wrappers ran {wrapper}, not {want}: a "
@@ -7838,6 +7934,581 @@ def phase_fit_captured(workdir, hparams, card):
     return out
 
 
+# ----------------------------------------------------------------- phase 22
+
+
+EVAL22_ROWS = (8, 8, 3, 3)  # 22a's validation batches: 2 shapes, each twice
+EVAL22_STEPS = 3            # 22a's fits: a pass at step 2, one at the op end
+
+
+def eval22_trial(base):
+    """`base` (GPT-2's example trial) with 22a's validation set: its
+    batches cut to EVAL22_ROWS rows in turn, every batch's values its
+    own."""
+    class Trial(base):
+        def build_validation_data(self):
+            for n, batch in zip(EVAL22_ROWS, super().build_validation_data()):
+                yield {k: v[:n] for k, v in batch.items()}
+
+    Trial.__name__ = f"{base.__name__}Eval22"
+    return Trial
+
+
+def eager_eval_trainer():
+    """A Trainer whose eval step is `make_eval_step`'s function, run
+    eagerly: 22a's comparison route (nothing in the package takes it)."""
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.step import make_eval_step
+
+    class EagerEval(Trainer):
+        def _build_steps(self):
+            super()._build_steps()
+            self._eval_step = make_eval_step(self.trial.evaluate,
+                                             stateful=self.trial.stateful)
+
+    return EagerEval
+
+
+def phase_eval_captured(workdir, hparams, card):
+    """22a: `Trainer.fit` (phase 7's GPT-2 small, one card) with validation
+    through its captured eval step and through the eager eval step, each
+    fit EVAL22_STEPS steps with a pass at step 2 and one at the op end
+    over EVAL22_ROWS (2 shapes): the validation metrics bitwise equal;
+    the captured eval step holds 2 graphs and the flash wrappers count
+    its 2 captures (`fit_launches`); the flush after its first call
+    carries `eval_captured` 1.0 and `eval_route`, the first flush the
+    train step's `step_captured` 1.0. Then passes over the captured fit's
+    final state, captured and eager in turns: every pass's metrics
+    bitwise the fit's last, host ms a pass; one pass of each traced
+    (device busy ms, the union of kernel intervals) and the captured
+    pass's flash kernels on the trace: its graphs' counts times their
+    replays. `max_memory_allocated` above what was live, each fit."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train.step import (
+        _CapturedEvalStep,
+        make_eval_step,
+    )
+    from determined_tpu_torch.train.trial import TrialContext
+
+    Trial = eval22_trial(gpt2_trial_class())
+    runs, failures = {}, []
+    for mode, cls in (("captured", Trainer), ("eager", eager_eval_trainer())):
+        ckpt = os.path.join(workdir, f"eval22_{mode}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ctx = core.init(max_length=EVAL22_STEPS, checkpoint_dir=ckpt)
+        trainer = cls(Trial(TrialContext(hparams=hparams, core_context=ctx)),
+                      core_context=ctx)
+        flash_counts(reset=True)
+        t0 = time.monotonic()
+        trainer.fit(report_period=1, validation_period=2)
+        torch.cuda.synchronize()
+        runs[mode] = {
+            "ctx": ctx, "trainer": trainer, "wrapper": flash_counts(),
+            "seconds": time.monotonic() - t0,
+            "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
+            "val": [r["metrics"] for r in ctx.train.local_validation_metrics],
+            "flushes": [r["metrics"] for r in
+                        ctx.train.local_training_metrics]}
+    cap, eag = runs["captured"], runs["eager"]
+    tr, ctx = cap["trainer"], cap["ctx"]
+    step = tr._eval_step
+    graphs = step.graphs if isinstance(step, _CapturedEvalStep) else {}
+    first = cap["flushes"][0]
+    after = cap["flushes"][2] if len(cap["flushes"]) > 2 else {}
+    want = fit_launches(1, 2, tr.trial.cfg.n_layer)
+    bitwise = cap["val"] == eag["val"] and len(cap["val"]) == 2
+    for mode, r in runs.items():
+        say(f"[22a] [{card}] {mode} eval step: fit to {EVAL22_STEPS} in "
+            f"{r['seconds']:.1f} s; validation {r['val']}; flash wrapper "
+            f"launches {r['wrapper']}; max_memory_allocated "
+            f"{r['peak_gib']:.3f} GiB above what was live before")
+    say(f"[22a] [{card}] captured: {type(step).__name__} with {len(graphs)} "
+        f"graph(s) (expected 2), wrapper launches {cap['wrapper']} "
+        f"(expected {want}: the train step's warm-up and capture, the eval "
+        f"step's 2); the first flush: step_captured "
+        f"{first.get('step_captured')}, step_route "
+        f"{first.get('step_route')!r}; the flush after the first pass: "
+        f"eval_captured {after.get('eval_captured')}, eval_route "
+        f"{after.get('eval_route')!r}; validation bitwise equal to the "
+        f"eager eval step's: {bitwise}")
+    if len(graphs) != 2 or cap["wrapper"] != want:
+        failures.append("the captured eval step did not capture the 2 "
+                        "shapes once each")
+    if first.get("step_captured") != 1.0 or after.get("eval_captured") != \
+            1.0 or not str(after.get("eval_route")).startswith("captured:") \
+            or "step_route" in after:
+        failures.append("the route keys are not the train and eval steps' "
+                        "own")
+    if not bitwise:
+        failures.append("the captured eval step's validation differs from "
+                        "the eager eval step's")
+
+    # Passes over the captured fit's final state, in turns.
+    steps = {"captured": step,
+             "eager": make_eval_step(tr.trial.evaluate)}
+    last = cap["val"][-1]
+
+    def one_pass(mode):
+        tr._eval_step = steps[mode]
+        return tr._validate_inner(ctx, tr.state.step)
+
+    host = {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = one_pass(mode)
+        host[mode].append((time.perf_counter() - t0) * 1e3)
+        if got != last:
+            failures.append(f"a {mode} pass read {got}, not {last}")
+    traced = {m: device_trace(lambda m=m: one_pass(m), 1)
+              for m in ("captured", "eager")}
+    # A graph's key: (path, shape, dtype, device) a leaf; one leaf here.
+    per_shape = {key[0][1][0]: g.launches for key, g in graphs.items()}
+    replayed = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for rows in EVAL22_ROWS:
+        for name, n in per_shape.get(rows, {}).items():
+            replayed[name] += n
+    for mode in ("captured", "eager"):
+        t = traced[mode]
+        say(f"[22a] [{card}] {mode} pass over {len(EVAL22_ROWS)} batches: host "
+            f"{host[mode][0]:.2f} / {host[mode][1]:.2f} ms (in turns); "
+            f"traced: host {t['wall_ms']:.2f} ms, device busy "
+            f"{t['busy_ms']:.2f} ms (the union of kernel intervals), idle "
+            f"share {t['idle'] * 100:.1f}%, flash kernels {t['flash']}")
+    say(f"[22a] [{card}] the captured pass's flash kernels on the trace "
+        f"{traced['captured']['flash']}, its graphs' {per_shape} x their "
+        f"replays: {replayed}")
+    if traced["captured"]["flash"] != replayed or \
+            not replayed["flash_fwd"]:
+        failures.append(f"a replayed pass ran {traced['captured']['flash']} "
+                        f"flash kernels, not {replayed}")
+    for r in runs.values():
+        r["ctx"].close()
+    out = {"host": host, "traced": traced, "bitwise": bitwise,
+           "replayed_flash": traced["captured"]["flash"],
+           "peak_gib": {m: r["peak_gib"] for m, r in runs.items()}}
+    del runs, cap, eag, tr, ctx, step, steps, graphs
+    _free_cuda()
+    if failures:
+        fail("22a: " + "; ".join(failures))
+    return out
+
+
+# 22b's fits: to step 4 (its op-end checkpoint), then resumed to 8 with
+# the 3rd batch the resumed fit draws non-finite: the window 7-8 rolls
+# back to step 4. Two checkpoints a fit pair: every save writes the whole
+# train state to the card host's disk, which has a budget for a call.
+FIT22_FIRST, FIT22_RESUMED = 4, 8
+FIT22_POISON_AT = 3
+FIT22_PERIOD = 2        # a report every 2 steps
+# The fits' GPT-2 depth: GPT-2 small's width and 2 of its layers (a save
+# of the 12-layer state writes 1.49 GB, moe.yaml's ~6.5 GB); the timed
+# window builds the full depth and runs fit's step without a save.
+FIT22_LAYERS = 2
+FIT22_CASES = (
+    ("fsdp", "gpt2", {"mesh": {"fsdp": 2}}),
+    ("fsdp_overlap", "gpt2", {"mesh": {"fsdp": 2},
+                              "optimizations": {"overlap_allgather": True}}),
+    ("tensor", "gpt2", {"mesh": {"data": 1, "tensor": 2}}),
+    ("context_ring", "gpt2", {"mesh": {"data": 1, "context": 2},
+                              "attention_impl": "ring"}),
+    ("pipeline", "gpt2", {"mesh": {"data": 1, "pipeline": 2}}),
+    ("cifar_tensor", "cifar", {"mesh": {"data": 1, "tensor": 2},
+                               "global_batch_size": CIFAR_BATCH}),
+)
+# MoE at `expert: 2`: with four cards a world of 4 (data 2), else of 2.
+FIT22_EXPERT = {
+    2: ("expert", "gpt2", {"mesh": {"data": 1, "expert": 2}, **MOE_HPARAMS}),
+    4: ("expert_data", "gpt2", {"mesh": {"data": 2, "expert": 2},
+                                **MOE_HPARAMS}),
+}
+# With four cards the world-2 cases run as two worlds at once.
+FIT22_PAIR_SPLIT = {"fsdp", "fsdp_overlap", "tensor"}
+# One rank of 22b, as `python fit_mesh_worker.py ROOT OUT CASES_JSON`:
+# each case of CASES_JSON in turn (`fit_mesh_case`), a RESULT line each;
+# the last case's trainers, graphs and all, stay alive through the close
+# of the core contexts, which destroys the process group.
+FIT_MESH_WORKER = r'''
+import faulthandler, json, os, sys, time, traceback
+ROOT, OUT, CASES = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+sys.path.insert(0, ROOT)
+import torch
+import chip_smoke
+from determined_tpu_torch.core._distributed import DistributedContext
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist = DistributedContext.from_env()
+contexts, alive = [], []
+for name, model, hparams in CASES:
+    t0 = time.monotonic()
+    try:
+        out, alive = chip_smoke.fit_mesh_case(dist, name, model, hparams,
+                                              OUT, contexts)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    out["seconds"] = time.monotonic() - t0
+    print("RESULT " + json.dumps(out), flush=True)
+graphs = sum(len(getattr(t._train_step, "graphs", {})) for t in alive)
+# Every thread's stack, and an exit, if the close takes two minutes.
+faulthandler.dump_traceback_later(120, exit=True)
+t0 = time.monotonic()
+for ctx in contexts:
+    ctx.close()
+faulthandler.cancel_dump_traceback_later()
+print("CLOSED " + json.dumps({"rank": dist.rank, "graphs_alive": graphs,
+                              "seconds": time.monotonic() - t0}), flush=True)
+'''
+
+
+def with_cfg(base, **changes):
+    """`base` with its model config's fields `changes` set (an experiment
+    config's `optimizations:` block, which a launch in local mode has
+    not; a cut depth)."""
+    class Trial(base):
+        def __init__(self, context):
+            super().__init__(context)
+            self.cfg = dataclasses.replace(self.cfg, **changes)
+
+    Trial.__name__ = base.__name__
+    return Trial
+
+
+def fit_mesh_case(dist, name, model, hparams, out, contexts):
+    """One case of 22b on this rank of a launched world (FIT_MESH_WORKER):
+    the trial (phase 7's GPT-2 trial at FIT22_LAYERS layers, or 13c's
+    CIFAR ResNet-18) at `hparams` over the mesh they name, through
+    `Trainer.fit` twice from one seed: captured (the route fit takes) and
+    eager (an optimizer without `hyper`), each to FIT22_FIRST, then
+    resumed to FIT22_RESUMED with the resumed fit's FIT22_POISON_AT-th
+    batch non-finite (a rollback to FIT22_FIRST), one validation batch at
+    each op end (the captured eval step on both). -> (this rank's
+    readings, the timed window's trainers): the chief's reports and
+    validation, this rank's params, moments and extra, the first
+    flushes' routes, the graphs; then, as information, the trial at its
+    full depth built by `Trainer` as fit builds it on each route, a
+    window of FIT_TRACE_STEPS calls of fit's step in turns (host ms),
+    each traced (device busy, NCCL, idle share, the flash kernels), the
+    vote's host us a captured call, each route's peak memory. `contexts`
+    collects the core contexts (closing one destroys the process group).
+    Every rank makes every call in the same order."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.train import Trainer
+    from determined_tpu_torch.train import step as step_mod
+    from determined_tpu_torch.train.trainer import _to_device
+    from determined_tpu_torch.train.trial import TrialContext
+
+    cuda = os.environ.get("DET_TORCH_BACKEND", "nccl") == "nccl"
+    device = "cuda" if cuda else "cpu"
+    full = cifar_trial_class() if model == "cifar" else gpt2_trial_class()
+    if hparams.get("optimizations"):
+        full = with_cfg(full, **hparams["optimizations"])
+    cut = full if model == "cifar" else with_cfg(full, n_layer=FIT22_LAYERS)
+
+    def trainer_of(cls, length, ckpt):
+        ctx = core.init(max_length=length, distributed=dist,
+                        checkpoint_dir=ckpt)
+        contexts.append(ctx)
+        return Trainer(cls(TrialContext(hparams=hparams, core_context=ctx,
+                                         n_devices=dist.size)),
+                       core_context=ctx, device=device), ctx
+
+    runs = {}
+    for mode in ("captured", "eager"):
+        ckpt = os.path.join(out, f"fit22_{name}_{mode}")
+        if dist.is_chief:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        dist.barrier()
+        if cuda:
+            _free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        reports, vals, state = [], [], None
+        for length, resume, poison in (
+                (FIT22_FIRST, None, None),
+                (FIT22_RESUMED, f"trial0-step{FIT22_FIRST}", FIT22_POISON_AT)):
+            trainer, ctx = trainer_of(
+                fit_trial(cut, mode == "eager", poison), length, ckpt)
+            state = trainer.fit(resume_from=resume,
+                                report_period=FIT22_PERIOD)
+            reports += ctx.train.local_training_metrics
+            vals += ctx.train.local_validation_metrics
+        peak = None
+        if cuda:
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        runs[mode] = {"reports": reports, "vals": vals, "trainer": trainer,
+                      "state": state, "peak_gib": peak}
+    cap, eag = runs["captured"], runs["eager"]
+    firsts = {m: [r["metrics"] for r in runs[m]["reports"]
+                  if "step_route" in r["metrics"]] for m in runs}
+    rel, nan_ok = 0.0, True
+    for g, w in zip(cap["reports"], eag["reports"]):
+        for k in ("loss", "grad_norm", "all_finite"):
+            a, b = float(g["metrics"][k]), float(w["metrics"][k])
+            if math.isnan(a) or math.isnan(b):
+                nan_ok = nan_ok and math.isnan(a) and math.isnan(b)
+                continue
+            rel = max(rel, abs(a - b) / max(abs(b), 1e-12))
+    diffs = {part: _max_abs(a, b) for part, a, b in zip(
+        ("params", "moments", "extra"), _train_tensors(cap["state"]),
+        _train_tensors(eag["state"]))}
+
+    def readings(run):
+        return [(r["steps_completed"], r["metrics"].get("loss"),
+                 r["metrics"].get("grad_norm")) for r in run["reports"]]
+
+    mesh = cap["trainer"].mesh
+    result = {
+        "name": name, "rank": dist.rank, "world": dist.size,
+        "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+        "steps": [r["steps_completed"] for r in cap["reports"]],
+        "steps_eager": [r["steps_completed"] for r in eag["reports"]],
+        "divergence": [r["steps_completed"] for r in cap["reports"]
+                       if r["metrics"].get("divergence")],
+        "losses": [r["metrics"]["loss"] for r in cap["reports"]],
+        "rel": rel, "nan_ok": nan_ok, "diffs": diffs,
+        "bitwise": str(readings(cap)) == str(readings(eag)) and nan_ok
+        and all(v == 0.0 for v in diffs.values()),
+        "vals": [r["metrics"] for r in cap["vals"]],
+        "vals_eager": [r["metrics"] for r in eag["vals"]],
+        "routes": {m: [(f.get("step_captured"), f.get("step_route"))
+                       for f in firsts[m]] for m in firsts},
+        "graphs": len(getattr(cap["trainer"]._train_step, "graphs", {})),
+        "eval_graphs": len(getattr(cap["trainer"]._eval_step, "graphs",
+                                   {})),
+        "peak_gib": {m: r["peak_gib"] for m, r in runs.items()}}
+    del runs, cap, eag, state
+    if not cuda:
+        return result, []
+
+    # Information: fit's step at the full depth on each route, as fit
+    # builds it, a window of calls in turns, then each traced.
+    _free_cuda()
+    trainers, peaks = {}, {}
+    for mode in ("captured", "eager"):
+        trainers[mode], _ = trainer_of(fit_trial(full, mode == "eager"), 1,
+                                       os.path.join(out, f"fit22_{name}"))
+        trainers[mode]._build(SEED)
+    data = trainers["captured"].trial.build_training_data()
+    batches = [_to_device(next(data), "cuda") for _ in range(FIT_TRACE_STEPS)]
+    rngs = {m: torch.Generator(device="cuda").manual_seed(SEED + 1)
+            for m in trainers}
+    votes = []
+    agree = step_mod._agree
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        got = agree(*a, **k)
+        votes.append(time.perf_counter() - t0)
+        return got
+
+    def window(mode):
+        t = trainers[mode]
+        for b in batches:
+            t._train_step(t.state, b, rngs[mode])
+
+    for mode in trainers:   # the captured step's first call captures
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        window(mode)
+        torch.cuda.synchronize()
+        peaks[mode] = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+    step_mod._agree = timed
+    try:
+        host = {"captured": [], "eager": []}
+        for mode in ("captured", "eager", "eager", "captured"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window(mode)
+            torch.cuda.synchronize()
+            host[mode].append((time.perf_counter() - t0) * 1e3
+                              / FIT_TRACE_STEPS)
+        traced = {m: device_trace(lambda m=m: window(m), FIT_TRACE_STEPS)
+                  for m in ("captured", "eager")}
+    finally:
+        step_mod._agree = agree
+    graph = next(iter(trainers["captured"]._train_step.graphs.values()))
+    result.update(host_ms=host, trace=traced,
+                  graph_launches=dict(graph.launches),
+                  window_peak_gib=peaks,
+                  vote_us=[v * 1e6 for v in votes])
+    del batches, graph
+    return result, list(trainers.values())
+
+
+def fit_mesh_checks(name, ranks):
+    """What is wrong with one case of 22b, from every rank's RESULT."""
+    wrong = []
+    r0 = ranks[0]
+    if r0["divergence"] != [FIT22_RESUMED] or \
+            r0["steps"] != r0["steps_eager"]:
+        wrong.append(f"reports at {r0['steps']} (eager {r0['steps_eager']}),"
+                     f" divergence at {r0['divergence']}")
+    caps = r0["routes"]["captured"]
+    if len(caps) != 2 or any(c != 1.0 or not str(w).startswith("captured:")
+                             for c, w in caps):
+        wrong.append(f"the captured fits' first flushes read "
+                     f"{r0['routes']['captured']}")
+    if any(c != 0.0 for c, _ in r0["routes"]["eager"]):
+        wrong.append(f"the eager fits' first flushes read "
+                     f"{r0['routes']['eager']}")
+    if r0["vals"] != r0["vals_eager"] or len(r0["vals"]) != 2:
+        wrong.append(f"validation {r0['vals']} against {r0['vals_eager']}")
+    for rank, r in sorted(ranks.items()):
+        if r["graphs"] != 1 or r["eval_graphs"] != 1:
+            wrong.append(f"rank {rank}: {r['graphs']} train and "
+                         f"{r['eval_graphs']} eval graphs, not 1 and 1")
+        if "trace" in r and not name.startswith("cifar"):
+            g, traced = r["graph_launches"], r["trace"]["captured"]["flash"]
+            want = {k: v * FIT_TRACE_STEPS for k, v in g.items()}
+            if traced != want or not sum(g.values()):
+                wrong.append(f"rank {rank}: {FIT_TRACE_STEPS} replays ran "
+                             f"{traced} flash kernels, not {want}")
+    return wrong
+
+
+def phase_fit_mesh(workdir, hparams, card, per_case=False, timeout=900):
+    """22b: with two cards or more, `Trainer.fit` over a mesh of 2 NCCL
+    ranks (with four cards two such worlds at once, cards 0-1 and 2-3,
+    then a world of 4 for MoE at `data: 2, expert: 2`) through the
+    port's launcher in local mode, each case of FIT22_CASES (and
+    FIT22_EXPERT) captured against its eager route (`fit_mesh_case`):
+    the reports within MULTI_RTOL, every rank's params, moments and extra
+    within MULTI_PARAM_ATOL, the validation equal, bitwise printed; the
+    checks of `fit_mesh_checks`; every world's close (process group
+    destroyed with the last case's graphs alive) returning. Information:
+    rank 0's host ms a step in turns, traced device busy and NCCL ms,
+    idle share, the vote's host us, each rank's peak. With one card:
+    `[22b] not run: 1 card`."""
+    import itertools
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[22b] not run: {n} card")
+        return None
+    cases = [(c, m, {**hparams, **hp}) for c, m, hp in FIT22_CASES]
+    expert = FIT22_EXPERT[4 if n >= 4 else 2]
+    expert = (expert[0], expert[1], {**hparams, **expert[2]})
+    if n >= 4:
+        stages = [[((0, 1), [c for c in cases if c[0] in FIT22_PAIR_SPLIT]),
+                   ((2, 3), [c for c in cases
+                             if c[0] not in FIT22_PAIR_SPLIT])],
+                  [((0, 1, 2, 3), [expert])]]
+    else:
+        stages = [[((0, 1), cases + [expert])]]
+    results, failures, closes = {}, [], []
+    t0 = time.monotonic()
+    for stage in stages:
+        # The stage's worlds run at once; `per_case`: a world a case, the
+        # i-th case of each group's at once.
+        rounds = [[(slots, group) for slots, group in stage if group]]
+        if per_case:
+            rounds = [[w for w in ws if w is not None]
+                      for ws in itertools.zip_longest(*[
+                          [(slots, [c]) for c in group]
+                          for slots, group in stage])]
+        for together in rounds:
+            ports = [free_port() for _ in together]
+            with concurrent.futures.ThreadPoolExecutor(len(together)) as ex:
+                runs = list(ex.map(
+                    lambda w, port: launch_mesh_world(
+                        workdir, w[0], w[1], timeout, port, FIT_MESH_WORKER,
+                        "fit_mesh"), together, ports))
+            for (slots, part), (got, rc, log) in zip(together, runs):
+                results.update(got)
+                closed = [json.loads(line.split("CLOSED ", 1)[1])
+                          for line in log.splitlines() if "CLOSED " in line]
+                closes.append((slots, closed))
+                missing = [c[0] for c in part
+                           if sorted(got.get(c[0], {})) !=
+                           list(range(len(slots)))]
+                if rc != 0 or missing or len(closed) != len(slots):
+                    say(log[-6000:])
+                    failures.append(f"world on cards {slots} exited {rc}; "
+                                    f"no result from every rank for "
+                                    f"{missing}; closed {closed}")
+    for slots, closed in closes:
+        say(f"[22b] [{card}] world on cards {slots}: the core contexts "
+            f"closed (destroy_process_group) with the last case's graphs "
+            f"alive: " + ", ".join(
+                f"rank {c['rank']} {c['seconds']:.2f} s, {c['graphs_alive']}"
+                f" graph(s)" for c in closed))
+    for name, ranks in results.items():
+        r0 = ranks[0]
+        worst = {"rel": max(r["rel"] for r in ranks.values())}
+        for part in ("params", "moments", "extra"):
+            worst[part] = max(r["diffs"][part] for r in ranks.values())
+        bitwise = all(r["bitwise"] for r in ranks.values())
+        wrong = fit_mesh_checks(name, ranks)
+        say(f"[22b] [{card}] {name}, world {r0['world']}, mesh "
+            f"{ {k: v for k, v in r0['mesh'].items() if v > 1} }: fit "
+            f"captured against eager, reports at {r0['steps']}, divergence "
+            f"at {r0['divergence']}, losses "
+            f"{[round(float(x), 4) for x in r0['losses']]}; max rel diff of "
+            f"loss / grad_norm / all_finite {worst['rel']:.3e} (rtol "
+            f"{MULTI_RTOL}); max |diff| over the ranks: params "
+            f"{worst['params']:.3e}, moments {worst['moments']:.3e}, extra "
+            f"{worst['extra']:.3e} (atol {MULTI_PARAM_ATOL}); bitwise "
+            f"{bitwise}; validation {r0['vals']} / {r0['vals_eager']}; "
+            f"routes {r0['routes']['captured'][:1]}; checks "
+            f"{'held' if not wrong else wrong}")
+        if "trace" in r0:
+            h, tr = r0["host_ms"], r0["trace"]
+            votes = r0["vote_us"]
+            say(f"[22b] [{card}] {name} (information, rank 0): host ms a "
+                f"step, captured {h['captured'][0]:.2f} / "
+                f"{h['captured'][1]:.2f}, eager {h['eager'][0]:.2f} / "
+                f"{h['eager'][1]:.2f} (in turns); traced a step, " +
+                "; ".join(
+                    f"{m}: device busy {t['busy_ms']:.2f} ms, NCCL "
+                    f"{t['nccl_ms']:.2f} ms ({t['nccl_only_ms']:.2f} with "
+                    f"nothing else running), host {t['wall_ms']:.2f} ms, "
+                    f"idle share {t['idle'] * 100:.1f}%, flash {t['flash']}"
+                    for m, t in tr.items())
+                + f"; the vote's host us a captured call: mean "
+                f"{statistics.mean(votes):.1f}, max {max(votes):.1f} over "
+                f"{len(votes)}; max_memory_allocated GiB by rank above what "
+                f"was live, the fits at {FIT22_LAYERS} layers, captured "
+                f"{[round(r['peak_gib']['captured'], 3) for r in ranks.values()]}"
+                f", eager "
+                f"{[round(r['peak_gib']['eager'], 3) for r in ranks.values()]}"
+                f"; the full-depth window's first calls (the capture), "
+                f"captured "
+                f"{[round(r['window_peak_gib']['captured'], 3) for r in ranks.values()]}"
+                f", eager "
+                f"{[round(r['window_peak_gib']['eager'], 3) for r in ranks.values()]}")
+        if worst["rel"] > MULTI_RTOL or max(
+                worst[p] for p in ("params", "moments", "extra")) > \
+                MULTI_PARAM_ATOL or not r0["nan_ok"]:
+            failures.append(f"{name}: the captured fit differs from the "
+                            f"eager fit: {worst}")
+        if wrong:
+            failures.append(f"{name}: {wrong}")
+    say(f"[22b] [{card}] {time.monotonic() - t0:.1f} s")
+    if failures:
+        fail("22b: " + "; ".join(failures))
+    return results
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -7889,6 +8560,9 @@ def main() -> int:
     phase_capture_collectives(card)
     mesh = phase_multi_mesh(workdir, hparams, card)
     fit21 = phase_fit_captured(workdir, hparams, card)
+    eval22 = phase_eval_captured(workdir, hparams, card)
+    fit_mesh = phase_fit_mesh(workdir, hparams, card)
+    phase_elastic_world(workdir, hparams, card, world=2, tag="22c")
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -7989,6 +8663,13 @@ def main() -> int:
         f"{t['eager']['busy_ms']:.2f} ms, idle "
         f"{t['eager']['idle'] * 100:.1f}%; peak GiB {fit21['peak_gib']}; "
         f"bitwise {fit21['bitwise']}")
+    h, t = eval22["host"], eval22["traced"]
+    say(f"[times] [{card}] GPT-2 small bf16, a validation pass of "
+        f"{len(EVAL22_ROWS)} batches ({EVAL22_ROWS} rows, 22a, in turns): "
+        f"captured host {' / '.join(f'{x:.2f}' for x in h['captured'])} ms, "
+        f"traced busy {t['captured']['busy_ms']:.2f} ms; eager host "
+        f"{' / '.join(f'{x:.2f}' for x in h['eager'])} ms, traced busy "
+        f"{t['eager']['busy_ms']:.2f} ms; bitwise {eval22['bitwise']}")
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",
@@ -8021,6 +8702,9 @@ def main() -> int:
             "launches_fit21_traced": fit21["replayed_flash"][name],
             "launches_multi_mesh": None if mesh is None else
             mesh["fsdp"][0]["trace"]["replay"]["flash"][name],
+            "launches_eval22_traced": eval22["replayed_flash"][name],
+            "launches_fit_mesh_traced": None if fit_mesh is None else
+            fit_mesh["fsdp"][0]["trace"]["captured"]["flash"][name],
             "long_ms": long["per_layer_ms"][key],
             "long_bound_ms": long["bound_ms"][key],
             "max_abs_err": flash_err[key],

@@ -15,7 +15,7 @@ What counts as a step function (the roots):
     same-module subclasses)
   - functions handed to the port's step factories (`make_train_step`,
     `make_multi_step`, `make_captured_step`, `make_eval_step`,
-    train/step.py), including a
+    `make_captured_eval_step`, train/step.py), including a
     nested def the enclosing factory builds and hands over, and a lambda
   - the body of a `with torch.cuda.graph(...)` block (a capture)
   - module-level functions named loss_fn* / apply* (the model library's
@@ -53,7 +53,7 @@ DATA_LOADER_METHODS = {"build_training_data", "build_validation_data"}
 TRACED_BASES = {"TorchTrial"}
 TRACED_NAME_PREFIXES = ("loss_fn", "apply")
 STEP_FACTORIES = {"make_train_step", "make_multi_step", "make_captured_step",
-                  "make_eval_step"}
+                  "make_eval_step", "make_captured_eval_step"}
 GRAPH_CAPTURES = {"torch.cuda.graph", "cuda.graph"}
 
 _NOQA_RE = re.compile(

@@ -299,8 +299,16 @@ class DistributedContext:
 
     def shutdown(self) -> None:
         if self.initialized_process_group:
+            import torch
             import torch.distributed as dist
 
+            from determined_tpu_torch.parallel import mesh
+
             if dist.is_initialized():
+                # First the CUDA graphs that captured collectives over the
+                # group's communicators: NCCL's destroy waits for every
+                # one of them to be gone (parallel/mesh.py).
+                if mesh.release_graphs() and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
                 dist.destroy_process_group()
             self.initialized_process_group = False

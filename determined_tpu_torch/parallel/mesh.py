@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, Mapping, NamedTuple, Optional, Tuple
 
 AXIS_ORDER = ("data", "pipeline", "fsdp", "expert", "context", "tensor")
@@ -231,6 +232,31 @@ def control_group(mesh):
     raise ValueError(
         "this mesh was not made by parallel.mesh.create_mesh over the "
         "current process group, or holds one rank: it has no control group")
+
+
+# The captured steps whose CUDA graphs hold collectives over this
+# process's communicators (train/step.py registers them). NCCL's
+# communicator destroy waits until no graph holds its collectives any
+# more, so a graph still alive when the process group is destroyed hangs
+# `destroy_process_group` on every rank: `release_graphs` drops them all
+# first (`DistributedContext.shutdown`).
+_GRAPHS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def hold_graph(capture) -> None:
+    """Register `capture` (an object with `release()`, which destroys its
+    CUDA graph) as holding collectives over this process's communicators."""
+    _GRAPHS.add(capture)
+
+
+def release_graphs() -> int:
+    """Release every registered graph -> how many there were. A step whose
+    graph was released raises if it is called again."""
+    held = list(_GRAPHS)
+    for capture in held:
+        capture.release()
+    _GRAPHS.clear()
+    return len(held)
 
 
 def single_device_mesh(device_type: str = "cuda"):

@@ -58,21 +58,30 @@ does (tests/test_torch_multi_step_mesh.py holds each axis to that, and
 to one sequence of collectives every step).
 
 `make_captured_step` is the counterpart of the JAX package's jitted train
-step on one process, `Trainer.fit`'s step on one card: one CUDA graph a
-tuple of batch-leaf shapes, captured at the first batch of those shapes
-and replayed for every later one, all graphs over the same state tensors
-and one memory pool. `_Capture` is the capture core both share (warm-up
-on a side stream, the optimizer's floats through a device tensor, the
-rng registered with the graph, the host bookkeeping put back).
+step, `Trainer.fit`'s step on one card or on each rank of a mesh: one
+CUDA graph a tuple of batch-leaf shapes, captured at the first batch of
+those shapes and replayed for every later one, all graphs over the same
+state tensors and one memory pool. `make_captured_eval_step` is the
+jitted eval step's counterpart, the same over the eval function (no
+autograd, no rng, no optimizer). `_Capture` is the capture core all
+three share (warm-up on a side stream, the optimizer's floats through a
+device tensor, the rng registered with the graph, the host bookkeeping
+put back). Over a mesh every call of a captured step is agreed on first
+(`_agree`, one gloo all-reduce a call): every rank refuses it, or
+captures, or replays the same graph. A graph that holds collectives is
+released before its process group is destroyed: NCCL's destroy waits for
+every such graph to be gone (`parallel/mesh.release_graphs`).
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from determined_tpu_torch.core._checkpoint import _map_tensors
+from determined_tpu_torch.parallel import mesh as mesh_lib
 from determined_tpu_torch.parallel import sharding
 from determined_tpu_torch.parallel.sharding import LogicalRules
 from determined_tpu_torch.train import optim
@@ -264,7 +273,8 @@ class _Capture:
     optimizer's count). Several captures may share one memory `pool`:
     each keeps its outputs alive, so replays of any of them may follow
     one another in any order on one stream. `load` and the replays run
-    on the current stream."""
+    on the current stream. An eval step has no `tx` (no floats) and no
+    rng."""
 
     def __init__(self, step, tx, batch: Any, pool=None):
         self._step, self._tx, self._pool = step, tx, pool
@@ -298,9 +308,10 @@ class _Capture:
         return metrics
 
     def capture(self, state, rng, epilogue=None) -> None:
-        floats, _ = self._tx.hyper(state.opt_state)
-        self.hyper = torch.zeros(len(floats), dtype=torch.float32,
-                                 device=self.device)
+        if self._tx is not None:
+            floats, _ = self._tx.hyper(state.opt_state)
+            self.hyper = torch.zeros(len(floats), dtype=torch.float32,
+                                     device=self.device)
         counters = _flash_counters()
         before = {k: f.launches for k, f in counters.items()}
         opt, step = state.opt_state, state.step
@@ -323,6 +334,20 @@ class _Capture:
         self.launches = {k: f.launches - before[k]
                          for k, f in counters.items()}
         self.graph, self.rng = graph, rng
+
+    def replay(self) -> None:
+        if self.graph is None:
+            raise RuntimeError(
+                "this step's CUDA graph was released when the process group "
+                "its collectives ran over was destroyed; build the step "
+                "again over a live group")
+        self.graph.replay()
+
+    def release(self) -> None:
+        """Destroy the graph (parallel/mesh.release_graphs)."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
 
 
 def _stale_state(what: str, remedy: str) -> RuntimeError:
@@ -367,7 +392,7 @@ class _MultiStep:
             # Over several processes every rank refuses, or none does: a
             # rank that raised while the others replayed would leave them
             # waiting in the graph's collectives.
-            refusal = self._agree(refusal)
+            refusal = _agree(self._mesh, refusal, "make_multi_step call")
         if refusal is not None:
             raise refusal[0](refusal[1])
         if device.type != "cuda":
@@ -390,7 +415,7 @@ class _MultiStep:
         for i in range(start, n):
             self._copy_batch(batches, i)
             self._cap.hyper.copy_(self._hyper_all[i - start])
-            self._cap.graph.replay()
+            self._cap.replay()
             self.replays += 1
             for k, v in self._cap.launches.items():
                 self.replayed_launches[k] = \
@@ -444,27 +469,6 @@ class _MultiStep:
             return type(err), str(err)
         return None
 
-    def _agree(self, refusal):
-        """This rank's refusal, or else the first refusing rank's, on
-        every rank of the mesh: one all-reduce of a flag a rank over the
-        mesh's control group (gloo, host memory: nothing waits on the
-        card)."""
-        import torch.distributed as dist
-
-        from determined_tpu_torch.parallel import mesh as mesh_lib
-
-        group = mesh_lib.control_group(self._mesh)
-        flags = torch.zeros(dist.get_world_size(group), dtype=torch.int32)
-        if refusal is not None:
-            flags[dist.get_rank(group)] = 1
-        dist.all_reduce(flags, group=group)
-        if refusal is not None or not bool(flags.any()):
-            return refusal
-        rank = int(flags.nonzero()[0])
-        return RuntimeError, (
-            f"rank {rank} of the mesh refused this make_multi_step call "
-            "(its error says why); every rank refuses it")
-
     def _capture(self, state, batches, rng) -> None:
         cap = _Capture(self._step, self._tx, _map(batches, lambda x: x[0]))
         metrics = cap.warm_up(state, _map(batches, lambda x: x[0]), rng)
@@ -482,74 +486,222 @@ class _MultiStep:
                  for k in self._keys]))
 
         cap.capture(state, rng, epilogue=accumulate)
+        if self._mesh is not None:
+            mesh_lib.hold_graph(cap)
         self._cap = cap
+
+
+# A batch's leaf shapes in a vote (`_agree`): (ndim + 1, dims...) a leaf.
+_VOTE_SHAPE_INTS = 32
+
+
+def _vote_row(refused: bool, key, known: bool) -> torch.Tensor:
+    """This rank's row of a vote: [refused, the key's digest, 0 without a
+    key else 1 + known, the key's shapes]. `key`: the batch's (path,
+    shape, dtype) a leaf, the same on every rank for the same batch."""
+    row = torch.zeros(3 + _VOTE_SHAPE_INTS, dtype=torch.int64)
+    row[0] = int(refused)
+    if key is not None:
+        digest = hashlib.blake2b(repr(key).encode(), digest_size=7).digest()
+        row[1] = int.from_bytes(digest, "big")
+        row[2] = 1 + int(known)
+        ints = [n for _, shape, _ in key for n in (len(shape) + 1, *shape)]
+        ints = ints[:_VOTE_SHAPE_INTS]
+        row[3:3 + len(ints)] = torch.tensor(ints, dtype=torch.int64)
+    return row
+
+
+def _vote_shapes(row: torch.Tensor) -> List[tuple]:
+    ints, shapes, i = row[3:].tolist(), [], 0
+    while i < len(ints) and ints[i] > 0:
+        n = ints[i] - 1
+        shapes.append(tuple(ints[i + 1:i + 1 + n]))
+        i += 1 + n
+    return shapes
+
+
+def _agree(mesh, refusal, what: str, key=None, known: bool = False):
+    """This rank's refusal, or else the first refusing rank's, on every
+    rank of `mesh`, and with a batch `key` (its (path, shape, dtype) a
+    leaf) also a refusal when the ranks' keys differ, or when some ranks
+    have a graph for the key and others have not: one all-reduce of a row
+    a rank over the mesh's control group (gloo, host memory: nothing
+    waits on the card). So every rank refuses a call or none does, and
+    every rank captures, or replays, the same shapes' graph."""
+    import torch.distributed as dist
+
+    group = mesh_lib.control_group(mesh)
+    me = dist.get_rank(group)
+    votes = torch.zeros((dist.get_world_size(group), 3 + _VOTE_SHAPE_INTS),
+                        dtype=torch.int64)
+    votes[me] = _vote_row(refusal is not None, key, known)
+    dist.all_reduce(votes, group=group)
+    if refusal is not None:
+        return refusal
+    refused = votes[:, 0].nonzero()
+    if len(refused):
+        return RuntimeError, (
+            f"rank {int(refused[0])} of the mesh refused this {what} (its "
+            "error says why); every rank refuses it")
+    if key is None:
+        return None
+    if bool((votes[:, 1] != votes[me, 1]).any()):
+        shapes = "; ".join(f"rank {r}: {_vote_shapes(row)}"
+                           for r, row in enumerate(votes))
+        return ValueError, (
+            f"the ranks' batches differ ({shapes}): every rank of the mesh "
+            f"runs one graph for a batch's shapes, so a {what} needs the "
+            "same shapes on every rank (a global batch split unevenly, a "
+            "ragged last one, is one cause)")
+    if bool((votes[:, 2] != votes[me, 2]).any()):
+        have = [r for r, v in enumerate(votes[:, 2].tolist()) if v == 2]
+        return RuntimeError, (
+            f"ranks {have} of the mesh hold a graph for this batch's shapes "
+            f"and the others none: this {what} would capture on some "
+            "ranks while the others replay")
+    return None
 
 
 class _CapturedStep:
     """`step(state, batch, rng) -> (state, metrics)`; see
     `make_captured_step`."""
 
-    def __init__(self, step, tx):
+    def __init__(self, step, tx, mesh=None, what: str = "captured step"):
         self._step = step
         self._tx = tx
+        self._mesh = mesh if _is_sharded(mesh) else None
+        self._what = what
         self.graphs: Dict[tuple, _Capture] = {}  # by the batch's shapes
         self._pool = None   # the graphs' shared memory pool
         self._ptrs: Optional[List[int]] = None
+        # The plain version's outputs by the batch's shapes (`_kept`).
+        self._outputs: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
-    def __call__(self, state: TrainState, batch: Any, rng):
-        leaves = _leaves(batch)
-        for leaf in leaves:
-            if not isinstance(leaf, torch.Tensor):
-                raise TypeError(
-                    "a captured step takes a batch of tensors only (a graph "
-                    f"would hold the value of a {type(leaf).__name__} "
-                    "leaf); make it a tensor")
-        ptrs = _state_ptrs(state)
-        if self._ptrs is None:
-            self._ptrs = ptrs
-        elif ptrs != self._ptrs:
-            raise _stale_state("the step", "restore into the live state "
-                               "(`restore_state(..., into=True)`)")
+    def __call__(self, state: TrainState, batch: Any, rng=None):
         device = sharding.local_value(state.leaves()[0]).device
+        refusal, key = self._refusal(state, batch, rng, device)
+        cap = self.graphs.get(key)
+        if self._mesh is not None:
+            # Over several processes every rank refuses, or none does, and
+            # every rank captures, or replays, the same shapes: a rank
+            # that raised, captured or replayed alone would leave the
+            # others waiting in the graph's collectives.
+            refusal = _agree(
+                self._mesh, refusal, f"{self._what} call",
+                None if key is None else tuple(k[:3] for k in key),
+                cap is not None)
+        if refusal is not None:
+            raise refusal[0](refusal[1])
         if device.type != "cuda":
             return self._plain(state, batch, rng)
-        key = tuple((path, tuple(x.shape), x.dtype, x.device)
-                    for path, x in zip(_paths(batch), leaves))
-        cap = self.graphs.get(key)
         if cap is None:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             cap = _Capture(self._step, self._tx, batch, self._pool)
             metrics = cap.warm_up(state, batch, rng)
             cap.capture(state, rng)
+            if self._mesh is not None:
+                mesh_lib.hold_graph(cap)
             self.graphs[key] = cap
-            return state, metrics
-        if rng is not cap.rng:
-            raise ValueError(
-                "the rng is not the generator the captured step registered "
-                "(its replays draw from that one): pass the same generator "
-                "at every step")
+            return self._out(state, metrics)
+        return self._replay(cap, state, batch)
+
+    def _replay(self, cap: _Capture, state, batch):
         floats, opt = self._tx.hyper(state.opt_state)
         cap.load(batch, floats)
-        cap.graph.replay()
+        cap.replay()
         state.opt_state = opt
         state.step += 1
         return state, dict(cap.outputs)
+
+    def _refusal(self, state, batch, rng, device):
+        """(why this call cannot run, as (exception type, message), or
+        None; the batch's key: (path, shape, dtype, device) a leaf, or
+        None)."""
+        leaves = _leaves(batch)
+        for leaf in leaves:
+            if not isinstance(leaf, torch.Tensor):
+                return (TypeError, (
+                    "a captured step takes a batch of tensors only (a graph "
+                    f"would hold the value of a {type(leaf).__name__} "
+                    "leaf); make it a tensor")), None
+        key = tuple((path, tuple(x.shape), x.dtype, x.device)
+                    for path, x in zip(_paths(batch), leaves))
+        ptrs = _state_ptrs(state)
+        if self._ptrs is None:
+            self._ptrs = ptrs
+        elif ptrs != self._ptrs:
+            err = _stale_state("the step", "restore into the live state "
+                               "(`restore_state(..., into=True)`)")
+            return (type(err), str(err)), key
+        cap = self.graphs.get(key)
+        if device.type == "cuda" and cap is not None and rng is not cap.rng:
+            return (ValueError, (
+                "the rng is not the generator the captured step registered "
+                "(its replays draw from that one): pass the same generator "
+                "at every step")), key
+        return None, key
+
+    def _out(self, state, metrics):
+        return state, metrics
 
     def _plain(self, state, batch, rng):
         """The plain version: the step the graph holds, called eagerly,
         the optimizer's floats passed as a tensor as a replay reads
         them."""
         floats, _ = self._tx.hyper(state.opt_state)
-        return self._step(state, batch, rng,
-                          hyper=torch.tensor(floats, dtype=torch.float32))
+        state, metrics = self._step(
+            state, batch, rng, hyper=torch.tensor(floats, dtype=torch.float32))
+        return state, self._kept(batch, metrics)
+
+    def _kept(self, batch, metrics):
+        """`metrics` written into tensors kept for the batch's shapes, as a
+        replay writes its graph's outputs: the next call of those shapes
+        overwrites them, on the CPU as on the card."""
+        key = tuple((path, tuple(x.shape)) for path, x in
+                    zip(_paths(batch), _leaves(batch)))
+        outputs = self._outputs.setdefault(key, {})
+        for k, v in metrics.items():
+            if isinstance(v, torch.Tensor):
+                if k not in outputs:
+                    outputs[k] = torch.empty_like(v)
+                metrics[k] = outputs[k].copy_(v)
+        return metrics
+
+    def release(self) -> None:
+        """Destroy every graph (a resize drops the step with its state)."""
+        for cap in self.graphs.values():
+            cap.release()
+
+
+class _CapturedEvalStep(_CapturedStep):
+    """`eval_step(state, batch) -> metrics`; see
+    `make_captured_eval_step`."""
+
+    def __init__(self, step, mesh=None):
+        super().__init__(step, None, mesh, what="captured eval step")
+
+    def __call__(self, state: TrainState, batch: Any):
+        return super().__call__(state, batch, None)
+
+    def _out(self, state, metrics):
+        return metrics
+
+    def _replay(self, cap: _Capture, state, batch):
+        cap.load(batch)
+        cap.replay()
+        return dict(cap.outputs)
+
+    def _plain(self, state, batch, rng):
+        return self._kept(batch, self._step(state, batch)[1])
 
 
 def make_captured_step(loss_fn: LossFn, tx: optim.GradientTransformation,
-                       stateful: bool = False):
+                       stateful: bool = False, mesh=None):
     """Build `step(state, batch, rng) -> (state, metrics)`, the counterpart
-    of the JAX package's jitted train step on one process: `Trainer.fit`'s
-    step on one card. The same contract as `make_train_step` (no mesh).
+    of the JAX package's jitted train step: `Trainer.fit`'s step, on one
+    card or on each rank of a mesh. The same contract as
+    `make_train_step`.
 
     On CUDA the first call with a batch of new shapes runs that step
     eagerly (the warm-up capture needs) and captures it as a CUDA graph;
@@ -564,16 +716,47 @@ def make_captured_step(loss_fn: LossFn, tx: optim.GradientTransformation,
     graph: every call must pass that same generator, and a replay draws
     from its state at the time, a `manual_seed` in between included.
 
+    With a `mesh` of several processes each rank captures its sharded
+    step with its collectives (as `make_multi_step` does; the module
+    docstring lists them by axis), and every call is agreed on first
+    (`_agree`: one gloo all-reduce in host memory): a call that one rank
+    refuses is refused on every rank, and the ranks' batches must have
+    the same shapes (else every rank raises, naming them), so every rank
+    captures, or replays, the same graph at the same call. The graphs
+    are released before the process group is destroyed
+    (`DistributedContext.shutdown`).
+
     The state's tensors must stay the ones of the first call: a call on a
     state whose tensors were replaced raises (a restore writes into the
     live state instead, `restore_state(..., into=True)`), on the CPU too.
     On the CPU the step runs eagerly, its plain version: the step the
-    graph holds, with the floats as a tensor. `tx` must have `hyper`."""
+    graph holds, with the floats as a tensor, with the same vote over a
+    mesh. `tx` must have `hyper`."""
     if tx.hyper is None:
         raise ValueError(
             "make_captured_step needs a transformation with `hyper` "
             "(train/optim.py) to replay its update")
-    return _CapturedStep(_step_fn(loss_fn, tx, stateful, None), tx)
+    return _CapturedStep(_step_fn(loss_fn, tx, stateful, mesh), tx, mesh)
+
+
+def make_captured_eval_step(eval_fn: Callable[..., Dict[str, Any]],
+                            stateful: bool = False, mesh=None):
+    """Build `eval_step(state, batch) -> metrics`, the counterpart of the
+    JAX package's jitted eval step: `make_eval_step`'s function, on CUDA
+    one CUDA graph a tuple of batch-leaf shapes, captured at the first
+    batch of those shapes and replayed for every later one (no autograd,
+    no rng, no optimizer). The metrics a replay returns are the graph's
+    output tensors, which the next replay of that graph overwrites: a
+    caller that keeps them across calls copies or adds them first. Over
+    a `mesh` of several processes every call is agreed on as the train
+    step's are (`make_captured_step`): the forward issues collectives. On
+    the CPU the plain version, whose outputs are kept likewise."""
+    fn = make_eval_step(eval_fn, stateful)
+
+    def step(state, batch, rng=None, hyper=None):
+        return state, fn(state, batch)
+
+    return _CapturedEvalStep(step, mesh)
 
 
 def make_multi_step(loss_fn: LossFn, tx: optim.GradientTransformation,

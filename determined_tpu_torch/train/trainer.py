@@ -40,26 +40,33 @@ or a stateful one, is refused under it. A world of more than one process
 without a process group raises: it never trains alone in silence.
 
 The training step is decided once, in `_build_steps` (`step_route`): on
-one card (a mesh of one rank, CUDA, an optimizer with `hyper`) it is
-`make_captured_step`, the counterpart of the JAX Trainer's jitted step:
-its first call with a batch of new shapes runs the step and captures it
-as a CUDA graph, and every later batch of those shapes replays it (one
-graph a bucket); on the CPU the same step runs its plain version; over a
-mesh of several ranks, or without `hyper`, `make_train_step` runs
-eagerly. A capture that fails raises: nothing falls back. The state's
+CUDA with an optimizer that has `hyper` it is `make_captured_step`, the
+counterpart of the JAX Trainer's jitted step, on one card or on each rank
+of a mesh: its first call with a batch of new shapes runs the step and
+captures it as a CUDA graph (over a mesh with its collectives), and every
+later batch of those shapes replays it (one graph a bucket); over a mesh
+every rank agrees on each call first (one gloo all-reduce: a refusal on
+one rank is a refusal on all, and the ranks' batch shapes must match).
+On the CPU the same step runs its plain version, with the same vote;
+without `hyper`, `make_train_step` runs eagerly. The eval step is
+`make_captured_eval_step` (`eval_route`): captured on CUDA, on one card
+or over the mesh, its plain version on the CPU; the validation loop sums
+its outputs into tensors of its own, since a replay overwrites its
+graph's. A capture that fails raises: nothing falls back. The state's
 tensors stay the captured ones: a rollback restores into them
-(`restore_state(..., into=True)`), the resume at fit start runs before
-the first step, and a resize drops the steps, graphs and all, before its
-new state is allocated.
+(`restore_state(..., into=True)`, each rank its own pieces), the resume
+at fit start runs before the first step, and a resize releases the
+steps' graphs before its new state is allocated.
 
 The first call of the train step (and of the eval step) lands a
 `harness.compile` span, the JAX Trainer's "first executable acquisition"
 (`_timed_first_call`): here, the hand-written kernel libraries resolved at
 their first launch, from the kernel directory, the compile farm or nvcc
 (ops/_build.py; docs/compile-farm-torch.md), and the step's first run
-(with the capture of its graph, on one card). The train step's span and
+(with the capture of its graph on CUDA). The train step's span and
 the first flush carry `step_captured` (1.0 or 0.0) and `step_route` (what
-ran and why). A `FarmClient` from core's session and
+ran and why); the eval step's span and the flush after its first call,
+`eval_captured` and `eval_route`. A `FarmClient` from core's session and
 `DET_COMPILE_SIGNATURE` is the farm; a library nvcc builds is uploaded in
 the background, and `fit` joins the uploads at its end. The span carries
 `executable`, `cache_hit` (no library was built by nvcc in this process;
@@ -122,8 +129,8 @@ from determined_tpu_torch.train.health import (
 from determined_tpu_torch.train.state import TrainState, create_train_state
 from determined_tpu_torch.train.step import (
     global_mean,
+    make_captured_eval_step,
     make_captured_step,
-    make_eval_step,
     make_train_step,
 )
 from determined_tpu_torch.train.trial import TorchTrial
@@ -177,18 +184,28 @@ def _to_host(metrics: Dict[str, Any]) -> Dict[str, Any]:
 def step_route(device: torch.device, ranks: int, tx) -> Tuple[str, str]:
     """How `fit` runs its training step, decided once before any step:
     (kind, why). "captured" (`make_captured_step`: one CUDA graph a batch
-    shape) on a CUDA device, over a mesh of one rank, with an optimizer
-    that has `hyper`; "plain" on the CPU otherwise alike (the same step
-    object runs its plain version); else "eager" (`make_train_step`).
-    Nothing falls back from one to another later."""
-    if ranks > 1:
-        return "eager", (f"a mesh of {ranks} ranks: fit replays its step on "
-                         "one card only")
+    shape, on each of the mesh's `ranks`) on a CUDA device with an
+    optimizer that has `hyper`; "plain" on the CPU otherwise alike (the
+    same step object runs its plain version); else "eager"
+    (`make_train_step`). Nothing falls back from one to another later."""
     if tx.hyper is None:
         return "eager", ("the optimizer has no `hyper` (train/optim.py) to "
                          "feed a replay its host floats")
     if torch.device(device).type != "cuda":
         return "plain", "on the CPU the captured step runs its plain version"
+    if ranks > 1:
+        return "captured", (f"one CUDA graph a batch shape on each of the "
+                            f"{ranks} ranks, replayed in lockstep")
+    return "captured", "one CUDA graph a batch shape, replayed"
+
+
+def eval_route(device: torch.device) -> Tuple[str, str]:
+    """How `fit` runs its eval step: (kind, why). "captured"
+    (`make_captured_eval_step`: one CUDA graph a batch shape) on a CUDA
+    device, "plain" on the CPU (the same step object's plain version)."""
+    if torch.device(device).type != "cuda":
+        return "plain", ("on the CPU the captured eval step runs its plain "
+                         "version")
     return "captured", "one CUDA graph a batch shape, replayed"
 
 
@@ -408,12 +425,20 @@ class Trainer:
             train = make_train_step(loss, tx, stateful=trial.stateful,
                                     mesh=self.mesh)
         else:
-            train = make_captured_step(loss, tx, stateful=trial.stateful)
+            train = make_captured_step(loss, tx, stateful=trial.stateful,
+                                       mesh=self.mesh)
         self._train_step = self._timed_first_call(train, "train_step",
                                                   self._route)
-        self._eval_step = (self._timed_first_call(
-            make_eval_step(evaluate, stateful=trial.stateful), "eval_step")
-            if has_eval else None)
+        self._eval_step = None
+        if has_eval:
+            kind, why = eval_route(self.device)
+            # Keys of its own: the eval step's route never overwrites the
+            # train step's in the flush that carries both.
+            route = {"eval_captured": float(kind == "captured"),
+                     "eval_route": f"{kind}: {why}"}
+            self._eval_step = self._timed_first_call(
+                make_captured_eval_step(evaluate, stateful=trial.stateful,
+                                        mesh=self.mesh), "eval_step", route)
 
     def _timed_first_call(self, fn, executable: str,
                           route: Optional[Dict[str, Any]] = None):
@@ -424,9 +449,10 @@ class Trainer:
         was built by nvcc in this process) and the signature, and the next
         metrics flush reports `compile_ms` and `compile_cache_hit`. For a
         captured step the first call is the warm-up and the capture, as
-        the JAX step's is its compile; `route` (the training step's
-        `step_route`) rides the span and the flush. The wrapper then puts
-        the bare step back in its place."""
+        the JAX step's is its compile; `route` (the step's route keys:
+        `step_*` for the train step, `eval_*` for the eval step) rides the
+        span and the flush. The wrapper then puts the bare step back in
+        its place."""
         cfg = self._compile_cfg or CompileConfig()
         farm = self._farm if cfg.enabled else None
 
@@ -837,7 +863,11 @@ class Trainer:
             self._parts = {}  # a rank standing by
         with core.tracer.span("harness.reshard", target=target):
             # Before the new state is allocated: the state, and the steps
-            # whose graphs hold the old one's tensors and their pool.
+            # whose graphs hold the old one's tensors, their pool and the
+            # old width's collectives (destroyed here, whoever else still
+            # holds the steps).
+            for old in (self._train_step, self._eval_step):
+                getattr(old, "release", lambda: None)()
             self.state = self._train_step = self._eval_step = None
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -977,8 +1007,14 @@ class Trainer:
         try:
             for batch in data:
                 m = self._eval_step(self.state, batch)
+                # Into tensors this loop owns: a replayed step's outputs
+                # are its graph's, which the next replay overwrites.
                 for k, v in m.items():
-                    sums[k] = sums[k] + v if k in sums else v
+                    if k in sums:
+                        sums[k] = sums[k] + v
+                    else:
+                        sums[k] = v.clone() if isinstance(v, torch.Tensor) \
+                            else v
                 count += 1
                 # A long pass must not outlive a drain deadline: poll at
                 # the loop's cadence and cut it short (the partial averages

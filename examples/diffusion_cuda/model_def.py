@@ -94,6 +94,7 @@ class DiffusionTrial(TorchTrial):
                 f"pretrained_path set but missing: {self.pretrained_path} — "
                 f"refusing to silently train from scratch")
         self._pretrained = None  # loaded once, cached across init calls
+        self._eval_draws = {}  # the pinned validation draws, by shape
         data_path = hp.get("data_path")
         if data_path and os.path.exists(data_path):
             with np.load(data_path) as d:
@@ -155,10 +156,20 @@ class DiffusionTrial(TorchTrial):
 
     def evaluate(self, params, batch):
         # A pinned generator: the validation metric must be comparable
-        # across steps and trials (ASHA ranks on it).
-        gen = torch.Generator(device=batch["images"].device)
-        gen.manual_seed(EVAL_SEED)
-        loss, _ = diffusion.loss_fn(params, batch, self.cfg, gen)
+        # across steps and trials (ASHA ranks on it). Its draws are the
+        # same at every call of a shape, so they are drawn once a shape
+        # and kept: a captured eval step replays over them, where a
+        # generator made inside the graph would draw anew each replay.
+        x0 = batch["images"]
+        key = (tuple(x0.shape), x0.device)
+        if key not in self._eval_draws:
+            gen = torch.Generator(device=x0.device).manual_seed(EVAL_SEED)
+            t = torch.randint(0, self.cfg.timesteps, (x0.shape[0],),
+                              generator=gen, device=x0.device)
+            eps = torch.randn(x0.shape, generator=gen, device=x0.device)
+            self._eval_draws[key] = (t, eps)
+        loss, _ = diffusion.loss_from_noise(params, x0, *self._eval_draws[key],
+                                            self.cfg)
         return {"validation_loss": loss}
 
 

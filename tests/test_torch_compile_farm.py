@@ -409,7 +409,9 @@ def test_trainer_first_flush_and_span_have_the_jax_keys(tmp_path,
         [s["attrs"]["executable"] for s in jspans] == \
         ["train_step", "eval_step"]
     for t, j in zip(tspans, jspans):
-        extra = route if t["attrs"]["executable"] == "train_step" else set()
+        # The eval step's span says how its step ran, in keys of its own.
+        extra = route if t["attrs"]["executable"] == "train_step" else \
+            {"eval_captured", "eval_route"}
         assert set(t["attrs"]) == set(j["attrs"]) | extra
         assert t["attrs"]["signature"] == "sig"
         assert t["attrs"]["cache_hit"] is False

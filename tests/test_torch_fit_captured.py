@@ -27,7 +27,7 @@ call. Here:
     storage are refused (and the step refuses the second on its next
     call).
   - The route `_build_steps` takes (`trainer.step_route`): captured on
-    CUDA at world 1, eager at world 2 and with an optimizer without
+    CUDA at world 1 and at world 2, eager with an optimizer without
     `hyper`, each with its reason.
 """
 
@@ -493,8 +493,9 @@ def test_the_route_is_decided_with_its_reason(case):
         assert step_route("cpu", 1, tx)[0] == "plain"
     elif case == "cuda_world2":
         assert step_route(cuda, 2, tx) == (
-            "eager", "a mesh of 2 ranks: fit replays its step on one card "
-            "only")
+            "captured", "one CUDA graph a batch shape on each of the 2 "
+            "ranks, replayed in lockstep")
+        assert step_route("cpu", 2, tx)[0] == "plain"
     else:
         bare = optim.GradientTransformation(tx.init, tx.update)
         assert step_route(cuda, 1, bare) == (
