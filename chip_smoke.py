@@ -555,6 +555,28 @@ fails:
      width's first flush `step_captured` 1.0, and the close returning.
      With one card, `[22b] not run` and `[22c] not run`. 12d, 16b, 16d,
      17b and 18b also hold each first flush to `step_captured` 1.0.
+ 23. the port's searcher, autotune, client and CLI on the card. 23a: the
+     port's RemoteSearchRunner drives the port's BatchSizeSearchMethod
+     (start 16, max 256, 4 steps a trial) through the port's `Determined`
+     client against an in-process master speaking the native master's
+     custom-searcher protocol (`SearchMaster`); each Create launches
+     tests/fixtures/platform_torch/autotune_gpt2.py (phase 7's GPT-2
+     small through fit's replayed step at the size the search names) on
+     slot 0 through the port's launcher, with this script's built
+     kernels. Each size: samples/s over the steps after the capture,
+     `max_memory_allocated`, wall time and how it ended (for an
+     out-of-memory trial the size it tried to allocate and where); the
+     best size, the failed sizes, the search's wall time, and the port
+     preflight's estimate at the best and the smallest failed size beside
+     the card's memory. Fails if a failed trial's log lacks
+     `torch.OutOfMemoryError`, a failed size was not tried twice, a size
+     below the best failed, the search did not reach Shutdown, or a trial
+     that fit did not launch the flash kernels as fit does. 23b: `python
+     -m determined_tpu_torch.cli preflight examples/gpt2_cuda/
+     long_context.yaml examples/gpt2_cuda` exits 0 with the report the
+     port's analysis gives in this process; `serve --local` of phase 5's
+     config answers phase 5's lone greedy request with phase 5's tokens
+     through the decode graph, then drains on SIGTERM and exits 0.
 
 The line before the last is a JSON object with one entry per kernel
 (`kernel_route` says which units the kernel ran on: "wgmma" tensor cores
@@ -573,8 +595,11 @@ traced on the card (torch.profiler) in 4 replays of 20b's `fsdp: 2`
 graph on rank 0 (null with one card), `launches_eval22_traced` those in
 22a's captured validation pass, `launches_fit_mesh_traced` those in 4
 replayed fit steps of 22b's `fsdp: 2` case on rank 0 (null with one
-card), for the paged kernel
-`launches_warm_per_decode_step` 19c's warm replica, and `long_ms` a
+card), `launches_autotune` the wrappers' counts summed over 23a's
+trials that fit, for the paged kernel
+`launches_warm_per_decode_step` 19c's warm replica and
+`launches_det_serve` the launches 23b's replica's decode graph held
+(its `attention_launches`), and `long_ms` a
 launch's device
 time in 12a's steps, at B 4, S 8192, under torch.profiler, beside its
 bound at that shape, `long_bound_ms`); the last line is `{"ok": true,
@@ -1108,6 +1133,13 @@ def phase_serve(workdir, ckpt, card):
             decode_s.clear()
             bodies_m, wall_m = serve_burst(url, rng, vocab)
             runs[mode].append(burst_summary(bodies_m, wall_m, decode_s))
+        # One greedy request alone through the graphs: 23b's reference.
+        prompt = rng.integers(0, vocab, 48).tolist()
+        status, body = _post(url + "/v1/generate", {
+            "tokens": prompt, "max_new_tokens": 32, "temperature": 0.0})
+        if status != 200 or len(body["tokens"]) != 32:
+            fail(f"the greedy request: HTTP {status} {body}")
+        greedy = {"prompt": prompt, "tokens": body["tokens"]}
     finally:
         engine._graphs = captured
         server.stop()
@@ -1145,7 +1177,8 @@ def phase_serve(workdir, ckpt, card):
     del engine, batcher, captured
     _free_cuda()
     return {"launches": launches, "runs": runs, "steps": steps,
-            "compile_stats": dict(engine_stats), **runs["graph"][0]}
+            "compile_stats": dict(engine_stats), "greedy": greedy,
+            **runs["graph"][0]}
 
 
 def _free_cuda():
@@ -8509,7 +8542,438 @@ def phase_fit_mesh(workdir, hparams, card, per_case=False, timeout=900):
     return results
 
 
+# ----------------------------------------------------------------- phase 23
+
+
+AUTOTUNE = {"start_size": 16, "max_size": 256, "profile_steps": 4}
+AUTOTUNE_FIXTURE = os.path.join("tests", "fixtures", "platform_torch",
+                                "autotune_gpt2.py")
+OOM_ERROR = "torch.OutOfMemoryError"
+
+
+class SearchMaster(FakeMaster):
+    """23a's master: FakeMaster speaking the custom-searcher protocol as
+    the native master does (native/master/master_api.cc:418-470,
+    master_experiments.cc `process_ops_locked` and `finish_trial_locked`,
+    searcher.h `CustomSearch`). Experiment create queues
+    `initial_operations`; `searcher_events` long-polls the unacked events;
+    `searcher_operations` acks them and applies the client's operations: a
+    Create makes a trial, its ValidateAfter starts the trial (`launch(master,
+    trial)`, in a thread) or hands it the length, a Close ends it (at once
+    when it is not running, else its next op poll answers `done`), a
+    Shutdown completes the experiment once no trial runs. A trial's
+    completed operation becomes `validation_completed`; a trial that exits 0
+    becomes `trial_closed`, one that exits non-zero `trial_exited_early`
+    ("errored"). Preemption polls answer at once, so a closing trial does
+    not wait out a long-poll."""
+
+    def __init__(self, launch):
+        super().__init__()
+        self._launch = launch
+        self._cv = threading.Condition()
+        self._next_event = 1
+        self.events, self.operations, self.trials = [], [], {}
+        self.state = "ACTIVE"
+        self.config = self.shutdown = None
+
+    def _push(self, etype, data):
+        self.events.append({"id": self._next_event, "type": etype,
+                            "data": data})
+        self._next_event += 1
+        self._cv.notify_all()
+
+    def _apply(self, op):
+        kind = op["type"]
+        if kind == "Create":
+            self.trials[op["request_id"]] = {
+                "id": len(self.trials) + 1, "request_id": op["request_id"],
+                "hparams": op["hparams"], "ops": [], "close": False,
+                "state": "ACTIVE", "running": False}
+        elif kind == "ValidateAfter":
+            t = self.trials[op["request_id"]]
+            t["ops"].append(op["length"])
+            if not t["running"] and t["state"] == "ACTIVE":
+                t["running"] = True
+                threading.Thread(target=self._run, args=(t,),
+                                 daemon=True).start()
+        elif kind == "Close":
+            t = self.trials[op["request_id"]]
+            t["close"] = True
+            if not t["running"]:
+                self._finish(t, "COMPLETED")
+        elif kind == "Shutdown":
+            self.shutdown = op
+
+    def _finish(self, t, state):
+        if t["state"] != "ACTIVE":
+            return
+        t["state"] = state
+        if state == "ERROR":
+            self._push("trial_exited_early",
+                       {"request_id": t["request_id"], "reason": "errored"})
+        else:
+            self._push("trial_closed", {"request_id": t["request_id"]})
+
+    def _complete_if_done(self):
+        if self.shutdown is not None and not any(
+                t["running"] for t in self.trials.values()):
+            self.state = "COMPLETED"
+            self._cv.notify_all()
+
+    def _run(self, t):
+        rc, log, wall = self._launch(self, t)
+        with self._cv:
+            t.update(running=False, rc=rc, log=log, wall_s=wall)
+            self._finish(t, "COMPLETED" if rc == 0 else "ERROR")
+            self._complete_if_done()
+
+    def _trial(self, trial_id):
+        return next(t for t in self.trials.values() if t["id"] == trial_id)
+
+    def _wait(self, done, timeout):
+        end = time.monotonic() + timeout
+        while not done() and time.monotonic() < end:
+            self._cv.wait(end - time.monotonic())
+
+    def answer(self, method, path, query, body):
+        if path.endswith("/signals/preemption"):
+            time.sleep(0.2)
+            return {}
+        if path == "/api/v1/auth/login":
+            return {"token": "smoke"}
+        m = re.fullmatch(r"/api/v1/trials/(\d+)/searcher/(\w+)", path)
+        with self._cv:
+            if method == "POST" and path == "/api/v1/experiments":
+                self.config = body["config"]
+                self._push("initial_operations", {})
+                return {"id": 1, "experiment": {"id": 1, "state": "ACTIVE"}}
+            if path.endswith("/searcher_events"):
+                self._wait(lambda: self.events or self.state != "ACTIVE",
+                           float(query.get("timeout_seconds", 30)))
+                return {"events": list(self.events),
+                        "experiment_state": self.state}
+            if path.endswith("/searcher_operations"):
+                acked = body["triggered_by_event_id"]
+                self.events = [e for e in self.events if e["id"] > acked]
+                for op in body["operations"]:
+                    self.operations.append(op)
+                    self._apply(op)
+                self._complete_if_done()
+                self._cv.notify_all()  # a Close or a length for a poll
+                return {}
+            if m and m.group(2) == "operation":
+                t, last = self._trial(int(m.group(1))), int(query["last"])
+                self._wait(lambda: any(n > last for n in t["ops"]) or
+                           t["close"], float(query["timeout_seconds"]))
+                ahead = [n for n in t["ops"] if n > last]
+                return ({"op": {"length": ahead[0]}} if ahead else
+                        {"done": True} if t["close"] else {})
+            if m and m.group(2) == "completed_operation":
+                t = self._trial(int(m.group(1)))
+                t["ops"].remove(body["length"])
+                t["metric"] = body["searcher_metric"]
+                self._push("validation_completed", {
+                    "request_id": t["request_id"],
+                    "metric": body["searcher_metric"],
+                    "length": body["length"]})
+                return {}
+        return super().answer(method, path, query, body)
+
+
+def launch_search_trial(workdir, storage):
+    """-> launch(master, trial) for SearchMaster: the autotune fixture
+    through the port's launcher on GPU slot 0, with the variables an agent
+    sets and this script's built kernels (no trial pays nvcc); the log
+    goes to workdir/trial-<id>.log."""
+    script = os.path.join(ROOT, AUTOTUNE_FIXTURE)
+
+    def launch(master, t):
+        env = dict(os.environ)
+        for k in ("DET_TORCH_BACKEND", "CUDA_VISIBLE_DEVICES",
+                  "DET_COMPILE_SIGNATURE"):
+            env.pop(k, None)
+        env.update({
+            "DET_MASTER": master.url, "DET_TRIAL_ID": str(t["id"]),
+            "DET_EXPERIMENT_ID": "1", "DET_SESSION_TOKEN": "smoke",
+            "DET_ALLOCATION_ID": f"autotune-{t['id']}",
+            "DET_HPARAMS": json.dumps(t["hparams"]),
+            "DET_EXPERIMENT_CONFIG": json.dumps(master.config),
+            "DET_TORCH_MASTER_PORT": str(free_port()),
+            "DET_SLOT_IDS": "[0]",
+            "DET_KERNEL_DIR": os.path.join(ROOT, "build", "kernels"),
+            "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", "")})
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "determined_tpu_torch.launch.torch_distributed",
+             "--nproc-per-node", "1", "--", sys.executable, script],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        log = proc.stdout + proc.stderr
+        with open(os.path.join(workdir, f"trial-{t['id']}.log"), "w") as f:
+            f.write(log)
+        return proc.returncode, log, time.monotonic() - t0
+
+    return launch
+
+
+def preflight_gib(hparams, batch):
+    """The port's estimate of GPT-2 small's fit at `batch` rows, one card,
+    on the meta device: {total, activations} GiB."""
+    from determined_tpu_torch.analysis import analyze_trial
+    from determined_tpu_torch.train.trial import TrialContext
+
+    _, hbm, _ = analyze_trial(gpt2_trial_class()(TrialContext(
+        hparams={**hparams, "global_batch_size": batch})), 1)
+    return {"total": hbm["total_bytes"] / 2 ** 30,
+            "activations": hbm["activations_upper_bound_bytes"] / 2 ** 30}
+
+
+def phase_autotune(workdir, hparams, card):
+    """23a: the port's batch-size autotune over GPT-2 small on the card.
+    The port's RemoteSearchRunner drives the port's BatchSizeSearchMethod
+    through the port's `Determined` client against SearchMaster; each
+    Create is the autotune fixture (examples/gpt2_cuda's GPT2Trial through
+    fit's replayed step at phase 7's hparams and the size the search
+    names) launched on slot 0. Each size: samples/s, the trial's
+    `max_memory_allocated`, wall time and end; then the best size, the
+    failed sizes, the search's wall time, and the preflight's estimate at
+    the best and the smallest failed size beside the card's memory. Fails
+    if a failed trial's log lacks torch.OutOfMemoryError, a failed size
+    was not retried once, a size below the best failed, the search did
+    not reach Shutdown, or a trial that fit launched no flash kernel (its
+    wrappers' counts: the warm-up, the capture and the eval step's)."""
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch.autotune import BatchSizeSearchMethod
+    from determined_tpu_torch.experimental import Determined
+    from determined_tpu_torch.searcher import RemoteSearchRunner
+
+    _free_cuda()
+    free, total_bytes = torch.cuda.mem_get_info()
+    say(f"[23a] [{card}] before the search: {free / 2 ** 30:.3f} of "
+        f"{total_bytes / 2 ** 30:.3f} GiB free on the card (this process "
+        f"reserves {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB)")
+    out_dir = os.path.join(workdir, "autotune")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    storage = os.path.join(out_dir, "checkpoints")
+    master = SearchMaster(launch_search_trial(out_dir, storage))
+    base = {k: v for k, v in hparams.items() if k != "global_batch_size"}
+    method = BatchSizeSearchMethod(base_hparams=base, **AUTOTUNE)
+    config = {
+        "name": "autotune-gpt2-small",
+        "entrypoint": "python3 -m determined_tpu_torch.launch."
+                      f"torch_distributed -- python3 {AUTOTUNE_FIXTURE}",
+        "searcher": {"name": "custom", "metric": "samples_per_second",
+                     "smaller_is_better": False},
+        "checkpoint_storage": {"type": "shared_fs", "host_path": storage},
+        "resources": {"slots_per_trial": 1}, "max_restarts": 0}
+    t0 = time.monotonic()
+    try:
+        runner = RemoteSearchRunner(method, client=Determined(master.url))
+        eid = runner.run(config, poll_timeout=30)
+    finally:
+        master.release()
+        master.close()
+    wall = time.monotonic() - t0
+    shutil.rmtree(storage, ignore_errors=True)
+
+    trials = sorted(master.trials.values(), key=lambda t: t["id"])
+    rows, problems = [], []
+    for t in trials:
+        size = t["hparams"]["global_batch_size"]
+        result = None
+        for line in t.get("log", "").splitlines():
+            if "RESULT " in line:  # the launcher prefixes "[rank=0] "
+                result = json.loads(line.split("RESULT ", 1)[1])
+        if t.get("rc") == 0 and result is not None:
+            end = "fit"
+            if min(result["launches"].values()) == 0 or \
+                    result["launches"] != fit_launches(1, 1, 12):
+                problems.append(f"size {size}: flash launches "
+                                f"{result['launches']}")
+        else:
+            oom = re.findall(r"Tried to allocate [\d.]+ [GMK]iB",
+                             t.get("log", ""))
+            where = re.findall(r'File "[^"]*/([^/"]+)", line (\d+), in (\w+)',
+                               t.get("log", ""))
+            end = f"exit {t.get('rc')}: " + (
+                f"{OOM_ERROR} ({oom[0] if oom else 'no size'}; raised in "
+                + " <- ".join(f"{fn} ({f}:{n})" for f, n, fn in
+                              where[::-1][:6]) + ")"
+                if OOM_ERROR in t.get("log", "") else "NOT out of memory")
+            if OOM_ERROR not in t.get("log", ""):
+                say(t.get("log", "")[-3000:])
+                problems.append(f"size {size} failed without {OOM_ERROR}")
+        rows.append({"trial": t["id"], "size": size, "end": end,
+                     "wall_s": t.get("wall_s"), "result": result})
+        r = result or {}
+        say(f"[23a] [{card}] trial {t['id']}, global_batch_size {size}: "
+            f"{end}; samples/s {r.get('samples_per_second')}, steps ms "
+            f"{r.get('step_ms')}, max_memory_allocated {r.get('peak_gib')} "
+            f"GiB, {r.get('step_route')}; wall {t.get('wall_s', 0):.1f} s")
+    best, sps = method.best()
+    failed = sorted(method.failed_sizes)
+    tries = {}
+    for row in rows:
+        tries.setdefault(row["size"], []).append(row["end"] == "fit")
+    for size in failed:
+        if tries[size] != [False, False]:
+            problems.append(f"size {size}: tries {tries[size]}, want two "
+                            "failures (one retry)")
+    below = [row["size"] for row in rows
+             if row["end"] != "fit" and row["size"] < best]
+    if below:
+        problems.append(f"sizes {below} below the best {best} failed")
+    shut = master.shutdown
+    if master.state != "COMPLETED" or shut is None or shut.get("cancel"):
+        problems.append(f"the search ended {master.state} with Shutdown "
+                        f"{shut}")
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    estimates = {best: preflight_gib(hparams, best)}
+    if failed:
+        estimates[failed[0]] = preflight_gib(hparams, failed[0])
+    say(f"[23a] [{card}] experiment {eid}: {len(trials)} trials in "
+        f"{wall:.1f} s; best global_batch_size {best}, {sps:.2f} samples/s "
+        f"({sps * hparams['seq_len']:.0f} tokens/s); failed sizes {failed}; "
+        f"progress {method.progress()}; operations "
+        f"{[op['type'] for op in master.operations]}")
+    for size, g in estimates.items():
+        say(f"[23a] [{card}] preflight at B {size}: total {g['total']:.4f} "
+            f"GiB, total + activations {g['total'] + g['activations']:.4f} "
+            f"GiB; the card's memory {total:.4f} GiB")
+    if problems:
+        fail("23a: " + "; ".join(problems))
+    launches = {k: sum(row["result"]["launches"][k] for row in rows
+                       if row["result"]) for k in ("fwd", "dq", "dkv")}
+    return {"best": best, "samples_per_second": sps, "failed": failed,
+            "rows": rows, "wall_s": wall, "estimates": estimates,
+            "card_gib": total, "launches": launches}
+
+
+DET_PREFLIGHT_CONFIG = os.path.join("examples", "gpt2_cuda",
+                                    "long_context.yaml")
+
+
+def phase_det_cli(workdir, greedy, card):
+    """23b: the port's `det` on the card. `python -m
+    determined_tpu_torch.cli preflight` of an examples/gpt2_cuda config
+    must exit 0 and print the report the port's analysis gives in this
+    process; `serve --local` of phase 5's serving config (its checkpoint)
+    must answer phase 5's greedy request with phase 5's tokens through
+    the decode graph, then drain on SIGTERM and exit 0."""
+    import signal
+
+    from determined_tpu_torch import analysis
+    from determined_tpu_torch.cli import _load_config_file
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DET_MASTER", "DET_ALLOCATION_ID")}
+    context = os.path.join(ROOT, "examples", "gpt2_cuda")
+    t0 = time.monotonic()
+    pre = subprocess.run(
+        [sys.executable, "-m", "determined_tpu_torch.cli", "preflight",
+         DET_PREFLIGHT_CONFIG, context], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    want = analysis.preflight(_load_config_file(
+        os.path.join(ROOT, DET_PREFLIGHT_CONFIG)), context_dir=context)
+    say(f"[23b] [{card}] det preflight {DET_PREFLIGHT_CONFIG}: exit "
+        f"{pre.returncode} in {time.monotonic() - t0:.1f} s:\n"
+        f"{pre.stdout.strip()}")
+    if pre.returncode != 0 or pre.stdout.strip() != want.to_text().strip():
+        say(pre.stderr[-3000:])
+        fail("23b: det preflight did not exit 0 with the port's report")
+
+    with open(os.path.join(workdir, "serve.json")) as f:
+        config = json.load(f)
+    port = free_port()
+    config["serving"]["port"] = port
+    path = os.path.join(workdir, "det_serve.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    log_path = os.path.join(workdir, "det_serve.log")
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "determined_tpu_torch.cli", "serve",
+             "--local", path], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                break
+            try:
+                if _get(url + "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(1.0)
+            if time.monotonic() - t0 > 600:
+                break
+        up_s = time.monotonic() - t0
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                say(f.read()[-3000:])
+            fail(f"23b: det serve --local exited {proc.returncode} before "
+                 "serving")
+        status, body = _post(url + "/v1/generate", {
+            "tokens": greedy["prompt"],
+            "max_new_tokens": len(greedy["tokens"]), "temperature": 0.0})
+        stats = json.loads(_get(url + "/v1/stats")[1])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        log = f.read()
+    same = status == 200 and body.get("tokens") == greedy["tokens"]
+    engine = stats.get("engine", {})
+    say(f"[23b] [{card}] det serve --local: up in {up_s:.1f} s; a greedy "
+        f"request of {len(greedy['prompt'])} tokens: HTTP {status}, "
+        f"{len(body.get('tokens', []))} tokens, equal to phase 5's "
+        f"in-process replica: {same}; decode_steps "
+        f"{engine.get('decode_steps')}, attention_launches "
+        f"{engine.get('attention_launches')}; SIGTERM: exit {rc}, drained: "
+        f"{'drain complete' in log}")
+    if not same:
+        fail(f"23b: det serve --local answered {status} {body}, phase 5's "
+             f"replica {greedy['tokens']}")
+    if not engine.get("attention_launches") or rc != 0 or \
+            "drain complete" not in log:
+        say(log[-3000:])
+        fail("23b: det serve --local did not decode through the paged "
+             "kernel's graph, or did not drain and exit 0 on SIGTERM")
+    return {"up_s": up_s, "launches": engine["attention_launches"]}
+
+
+PHASE_SECONDS = {}
+
+
+def time_phases():
+    """Wrap every `phase_*` function of this module to add its wall time
+    to PHASE_SECONDS (a phase another phase calls counts in both)."""
+    def timed(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(
+                    fn.__name__, 0.0) + time.monotonic() - t0
+        return run
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(fn)
+
+
 def main() -> int:
+    time_phases()
     card = phase_device()
     sys.path.insert(0, ROOT)
     import torch
@@ -8563,6 +9027,8 @@ def main() -> int:
     eval22 = phase_eval_captured(workdir, hparams, card)
     fit_mesh = phase_fit_mesh(workdir, hparams, card)
     phase_elastic_world(workdir, hparams, card, world=2, tag="22c")
+    autotune = phase_autotune(workdir, hparams, card)
+    det = phase_det_cli(workdir, serve["greedy"], card)
     graph = serve["runs"]["graph"]
     say(f"[times] [{card}] serving: compile() prepared the sampler in "
         f"{serve['compile_stats']['sample_s']} s; the first graph burst "
@@ -8670,6 +9136,14 @@ def main() -> int:
         f"traced busy {t['captured']['busy_ms']:.2f} ms; eager host "
         f"{' / '.join(f'{x:.2f}' for x in h['eager'])} ms, traced busy "
         f"{t['eager']['busy_ms']:.2f} ms; bitwise {eval22['bitwise']}")
+    say(f"[times] [{card}] autotune of GPT-2 small bf16, S 1024, through "
+        f"Trainer.fit's replayed step (23a): best global_batch_size "
+        f"{autotune['best']}, {autotune['samples_per_second']:.2f} samples/s;"
+        f" failed sizes {autotune['failed']}; {len(autotune['rows'])} trials "
+        f"in {autotune['wall_s']:.1f} s")
+    say("[times] seconds a phase: " + ", ".join(
+        f"{k[len('phase_'):]} {v:.1f}" for k, v in sorted(
+            PHASE_SECONDS.items(), key=lambda kv: -kv[1])))
     say(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s")
     kernels = [{
         "name": "paged_attention",
@@ -8680,6 +9154,7 @@ def main() -> int:
         "launches": serve["launches"],
         "launches_moe": moe_serve["launches"],
         "launches_warm_per_decode_step": farm["paged_per_step_warm"],
+        "launches_det_serve": det["launches"],
         "max_abs_err": paged_err,
         **paged,
     }]
@@ -8703,6 +9178,7 @@ def main() -> int:
             "launches_multi_mesh": None if mesh is None else
             mesh["fsdp"][0]["trace"]["replay"]["flash"][name],
             "launches_eval22_traced": eval22["replayed_flash"][name],
+            "launches_autotune": autotune["launches"][key],
             "launches_fit_mesh_traced": None if fit_mesh is None else
             fit_mesh["fsdp"][0]["trace"]["captured"]["flash"][name],
             "long_ms": long["per_layer_ms"][key],

@@ -18,8 +18,8 @@ never launches a kernel and never allocates device memory:
 
 Surfaces: `python -m determined_tpu_torch.analysis [paths]` (the lint,
 with the metric-name and native lints) and `python -m
-determined_tpu_torch.analysis preflight CONFIG [CONTEXT_DIR]` (in place of
-`det preflight`, whose CLI imports the JAX analysis), and pytest
+determined_tpu_torch.analysis preflight CONFIG [CONTEXT_DIR]` (what the
+port's `python -m determined_tpu_torch.cli preflight` runs), and pytest
 (tests/test_torch_preflight*.py). Every rule is suppressible via the
 config (`preflight: {suppress: [DTLnnn]}`) or a `# det: noqa[DTLnnn]`
 comment. docs/preflight-torch.md has the rule table.

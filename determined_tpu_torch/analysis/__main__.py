@@ -7,9 +7,10 @@
 
   python -m determined_tpu_torch.analysis preflight CONFIG [CONTEXT_DIR]
       The full preflight of an experiment config (JSON, or YAML when
-      PyYAML is installed) and its model-def directory, in place of
-      `det preflight` (the shared CLI imports the JAX analysis, which the
-      card host cannot). Prints the report as text, or as JSON with
+      PyYAML is installed) and its model-def directory, as the port's
+      `python -m determined_tpu_torch.cli preflight` runs it (that one
+      exits 1 on any error-level finding). Prints the report as text, or
+      as JSON with
       --json, and exits 1 when the config's gate says so (`should_fail`:
       `preflight: {gate: error}` and an error-level finding).
 """

@@ -8,7 +8,7 @@ I/O on the step path); `flush()`, at the metrics-flush cadence and on
 (`POST /api/v1/trials/{id}/spans`, idempotency-keyed) in managed mode, or
 moves it into `local_spans` without a master. A lost sink never hurts the
 trial: a failed post logs and drops the batch. `DET_TRACE_OFF=1` disables
-emission.
+emission. `render_waterfall` draws a trace as `det trial trace` prints it.
 """
 
 from __future__ import annotations
@@ -157,3 +157,41 @@ class Tracer:
 
     def close(self) -> None:
         self.flush()
+
+
+def render_waterfall(spans: List[Dict[str, Any]], width: int = 48) -> str:
+    """Text waterfall for `det trial trace` — one line per span, indented
+    by parentage, with an offset-scaled duration bar."""
+    if not spans:
+        return "(no spans)"
+    spans = sorted(spans, key=lambda s: (int(s.get("start_us", 0) or 0)))
+    by_id = {s["span_id"]: s for s in spans if s.get("span_id")}
+
+    def depth(s, limit=16):
+        d, cur = 0, s
+        while d < limit:
+            p = cur.get("parent") or ""
+            if not p or p not in by_id or p == cur.get("span_id"):
+                break
+            cur = by_id[p]
+            d += 1
+        return d
+
+    t0 = min(int(s.get("start_us", 0) or 0) for s in spans)
+    ends = [int(s.get("end_us", 0) or 0) for s in spans]
+    t1 = max([e for e in ends if e] + [t0 + 1])
+    scale = max(t1 - t0, 1)
+    name_w = max(len("  " * depth(s) + s.get("name", "?")) for s in spans)
+    lines = [f"{'span':<{name_w}}  {'start_ms':>9} {'dur_ms':>9}  timeline"]
+    for s in spans:
+        start = int(s.get("start_us", 0) or 0)
+        end = int(s.get("end_us", 0) or 0)
+        off_ms = (start - t0) / 1000.0
+        dur_ms = (end - start) / 1000.0 if end else float("nan")
+        lo = int((start - t0) / scale * width)
+        hi = int(((end if end else t1) - t0) / scale * width)
+        bar = " " * lo + ("#" * max(hi - lo, 1) if end else "~" * max(width - lo, 1))
+        label = "  " * depth(s) + s.get("name", "?")
+        dur = f"{dur_ms:9.1f}" if end else "  running"
+        lines.append(f"{label:<{name_w}}  {off_ms:9.1f} {dur}  |{bar}|")
+    return "\n".join(lines)

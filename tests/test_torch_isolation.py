@@ -26,13 +26,17 @@ PORT_MODULES = [
     "determined_tpu_torch.analysis.metric_lint",
     "determined_tpu_torch.analysis.native_lint",
     "determined_tpu_torch.analysis.rules",
+    "determined_tpu_torch.autotune",
+    "determined_tpu_torch.autotune._batch_size",
+    "determined_tpu_torch.cli",
+    "determined_tpu_torch.common.api",
+    "determined_tpu_torch.common.bindings",
+    "determined_tpu_torch.common.faultpoint",
     "determined_tpu_torch.common.metric_names",
+    "determined_tpu_torch.common.streams",
+    "determined_tpu_torch.common.trace",
     "determined_tpu_torch.compile",
     "determined_tpu_torch.compile.bucketing",
-    "determined_tpu_torch.expconf",
-    "determined_tpu_torch.common.api",
-    "determined_tpu_torch.common.faultpoint",
-    "determined_tpu_torch.common.trace",
     "determined_tpu_torch.core",
     "determined_tpu_torch.core._checkpoint",
     "determined_tpu_torch.core._context",
@@ -45,11 +49,13 @@ PORT_MODULES = [
     "determined_tpu_torch.data",
     "determined_tpu_torch.data.bench",
     "determined_tpu_torch.data.prefetch",
-    "determined_tpu_torch.experimental",
-    "determined_tpu_torch.experimental.core_v2",
     "determined_tpu_torch.exec",
     "determined_tpu_torch.exec.launch",
     "determined_tpu_torch.exec.prep",
+    "determined_tpu_torch.expconf",
+    "determined_tpu_torch.experimental",
+    "determined_tpu_torch.experimental.client",
+    "determined_tpu_torch.experimental.core_v2",
     "determined_tpu_torch.experimental.core_v2._core_v2",
     "determined_tpu_torch.launch",
     "determined_tpu_torch.launch.torch_distributed",
@@ -74,6 +80,9 @@ PORT_MODULES = [
     "determined_tpu_torch.pytorch._trial",
     "determined_tpu_torch.pytorch.deepspeed",
     "determined_tpu_torch.pytorch.zero",
+    "determined_tpu_torch.searcher",
+    "determined_tpu_torch.searcher._remote_search_runner",
+    "determined_tpu_torch.searcher._search_method",
     "determined_tpu_torch.serve",
     "determined_tpu_torch.serve.engine",
     "determined_tpu_torch.serve.http",
@@ -103,7 +112,9 @@ PORT_FILES = ["examples/gpt2_cuda/model_def.py",
               "examples/diffusion_cuda/pretrain.py",
               "examples/gpt2_torch_cuda/model_def.py",
               "tests/fixtures/preflight_torch/bad/model_def.py",
-              "tests/fixtures/preflight_torch/clean/model_def.py"]
+              "tests/fixtures/preflight_torch/clean/model_def.py",
+              "tests/fixtures/platform_torch/autotune_train.py",
+              "tests/fixtures/platform_torch/autotune_gpt2.py"]
 
 
 def _cuda_hidden(monkeypatch):

@@ -4,7 +4,8 @@
     python3 tools/chip_phases.py PHASE [PHASE ...] [--timeout S]
 
 PHASE is one of 7, 11a, 12a, 12d, 16b, 16d, 17b, 18b, 20a, 20b, 21, 22a,
-22b, 22c and `destroy` (tools/nccl_graph_destroy.py in a subprocess).
+22b, 22c, 23a, 23b (phase 5 first, its greedy request 23b's reference)
+and `destroy` (tools/nccl_graph_destroy.py in a subprocess).
 The card is checked and the kernels built first (phases 1 and 2); then
 each phase in the order given. A phase that fails prints its traceback
 and `[PHASE] FAILED`, and the next one runs. 20b and 22b launch a world
@@ -58,6 +59,9 @@ def main() -> int:
                                          per_case=True, timeout=timeout),
         "22c": lambda: cs.phase_elastic_world(workdir, hparams, card,
                                               world=2, tag="22c"),
+        "23a": lambda: cs.phase_autotune(workdir, hparams, card),
+        "23b": lambda: cs.phase_det_cli(workdir, cs.phase_serve(
+            workdir, cs.write_model(workdir), card)["greedy"], card),
         "destroy": lambda: subprocess.run(
             [sys.executable, os.path.join(ROOT, "tools",
                                           "nccl_graph_destroy.py")],
